@@ -6,15 +6,25 @@
 1. Checks for a CUDA device (exits non-zero without one) and prints the
    card's name and power limit as nvidia-smi reports them.
 2. Builds the hand-written kernels from ``knowledge_enhanced_multimodal_retrieval_tpu_torch/csrc``.
-3. Runs each kernel of the text-query search path at ViT-L/14 text shapes
-   (8,192 rows x 768, 12 heads, ff 3072; corpus 43,000 x 768, Q = 256,
-   k = 20) against its plain PyTorch version on the same inputs, and times
-   both with CUDA events (medians).
-4. Serves the slice: ViT-L/14 text towers from seeded weights in the
-   ``fast`` (bf16 encoder + bf16 corpus) and ``int8`` (W8A8 encoder + int8
-   corpus) modes over a 43,000-row synthetic store saved to ``.npz`` and
-   loaded back, answering 256-query batches and single knowledge-enhanced
-   queries; checks the results and that every kernel of the path launched.
+3. Runs each kernel against its plain PyTorch version on the same inputs,
+   and times both with CUDA events (medians): the text-query search path at
+   ViT-L/14 text shapes (8,192 rows x 768, 12 heads, ff 3072; corpus
+   43,000 x 768, Q = 256, k = 20), and the corpus-precompute path at
+   ViT-L/14 vision shapes (64 x 272 rows x 1024, 16 heads, ff 4096, not
+   causal; 4 x 592 rows at 336 px; attention [64, 16, 257, 64] and
+   [16, 16, 577, 64]).
+4. Serves the text slice: a seeded ViT-L/14 CLIP in the ``fast`` (bf16
+   encoder + bf16 corpus) and ``int8`` (W8A8 encoder + int8 corpus) modes
+   over a 43,000-row synthetic store saved to ``.npz`` and loaded back,
+   answering 256-query batches and single knowledge-enhanced queries.
+5. Precomputes corpus stores with ``cli.precompute.main`` on
+   ``synthetic:300`` (batch 256, so the last batch is ragged) with the
+   ``flax``, ``fast`` and ``int8`` encoders at ViT-L/14, and on
+   ``synthetic:32`` at ViT-L/14@336px; the stores must agree row by row.
+6. Answers 64 image queries over the 43,000-row store with the 300
+   precomputed rows appended.
+Each path runs with the launch counts set to 0 just before it and read
+just after; every kernel must have launched in the path it belongs to.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -36,6 +46,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "knowledge_enhanced_multimodal_retrieval_tpu_torch"
 ROWS, SEQ, WIDTH, HEADS, FF = 256 * 32, 32, 768, 12, 3072
 CORPUS, QUERIES, K = 43_000, 256, 20
+V_WIDTH, V_HEADS, V_FF, V_SEQ, V_MASK, V_BATCH = 1024, 16, 4096, 272, 257, 64  # ViT-L/14 vision
+V336_SEQ, V336_MASK = 592, 577  # ViT-L/14@336px
+N_DOCS, IMAGE_QUERIES = 300, 64
 MERGES = [("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")]  # synthetic BPE table (no CLIP vocab in the repo)
 
 # Kernel vs plain tolerances, in absolute output units.
@@ -48,6 +61,15 @@ TOL_BF16_BLOCK = 2 * 2.0 ** -5
 TOL_Q8_LAYER = 4 * 2.0 ** -5
 # top-k values: f32 sums of exact products in another order (~1e-7 rel).
 TOL_TOPK = 1e-5
+# attention (B6/B7): kernel and plain version both keep f32 through p@v and
+# round once to bf16; outputs |o| < 4 (step <= 2^-6 there), one step apart.
+TOL_ATTN = 2.0 ** -6
+# precompute stores and image queries: L2-normalized rows. Stores of two
+# encoders agree per row at the int8 cosine bound; an image query finds its
+# own row at 1 - (bf16 rounding of two unit vectors, ~2^-8, and cuBLAS
+# algorithm choice by batch size in the patch matmul).
+STORE_COS = 0.999
+TOL_SELF = 1e-2
 
 
 def log(msg: str) -> None:
@@ -87,66 +109,84 @@ def topk_agree(got, scores, k: int, tol: float):
     return want
 
 
-def kernel_phases(torch, dev, results):
+def _t(torch, dev, a, dtype):
+    return torch.tensor(np.asarray(a, np.float32)).to(dev, dtype).contiguous()
+
+
+def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain_fn):
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    log(f"{name}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
+    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20, CUDA events)")
+    results[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+SRC_FB = f"{PKG}/csrc/fused_block.cu"
+REF_FB = "knowledge_enhanced_multimodal_retrieval_tpu/ops/fused_block.py"
+
+
+def _layer_weights(torch, dev, rng, width, ff):
+    f32, bf = torch.float32, torch.bfloat16
+    ln = dict(ln_scale=_t(torch, dev, 1 + 0.1 * rng.standard_normal(width), f32),
+              ln_bias=_t(torch, dev, 0.1 * rng.standard_normal(width), f32))
+    w = dict(
+        wqkv=rng.standard_normal((width, 3 * width)) * 0.02, bqkv=0.02 * rng.standard_normal(3 * width),
+        wo=rng.standard_normal((width, width)) * 0.02, bo=0.02 * rng.standard_normal(width),
+        w1=rng.standard_normal((width, ff)) * 0.02, b1=0.02 * rng.standard_normal(ff),
+        w2=rng.standard_normal((ff, width)) * 0.02, b2=0.02 * rng.standard_normal(width),
+    )
+    wb = {k: _t(torch, dev, v, f32 if k.startswith("b") else bf) for k, v in w.items()}
+    return ln, w, wb
+
+
+def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, layers=("B3a", "B3b", "B1")):
+    """B3a, B3b and B1 at one shape against their plain versions."""
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
+
+    x = _t(torch, dev, rng.standard_normal((rows, width)), torch.bfloat16)
+    ln, w, wb = _layer_weights(torch, dev, rng, width, ff)
+    if "B3a" in layers:
+        args = (x, ln["ln_scale"], ln["ln_bias"], wb["wqkv"], wb["bqkv"], wb["wo"], wb["bo"])
+        record(torch, results, f"B3a fused_attention_block{tag}", SRC_FB, f"{REF_FB}:139",
+               FB.fused_attention_block(*args, **attn_kw), FB.attention_block_plain(*args, **attn_kw, eps=1e-5),
+               TOL_BF16_BLOCK, lambda: FB.fused_attention_block(*args, **attn_kw),
+               lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5))
+    if "B3b" in layers:
+        margs = (x, ln["ln_scale"], ln["ln_bias"], wb["w1"], wb["b1"], wb["w2"], wb["b2"])
+        record(torch, results, f"B3b fused_mlp_block{tag}", SRC_FB, f"{REF_FB}:226",
+               FB.fused_mlp_block(*margs), FB.mlp_block_plain(*margs, eps=1e-5),
+               TOL_BF16_BLOCK, lambda: FB.fused_mlp_block(*margs), lambda: FB.mlp_block_plain(*margs, eps=1e-5))
+    if "B1" in layers:
+        q = {k: FB.quantize_weight(_t(torch, dev, w[k], torch.float32)) for k in ("wqkv", "wo", "w1", "w2")}
+        qargs = (x, ln["ln_scale"], ln["ln_bias"], *q["wqkv"], wb["bqkv"], *q["wo"], wb["bo"],
+                 ln["ln_scale"], ln["ln_bias"], *q["w1"], wb["b1"], *q["w2"], wb["b2"])
+        got = FB.fused_layer_q8(*qargs, **attn_kw)
+        want = FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(ff), eps=1e-5)
+        cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1).min().item()
+        log(f"B1 fused_layer_q8{tag}: min row cosine to plain {cos:.6f}")
+        assert cos > 0.999, cos
+        record(torch, results, f"B1 fused_layer_q8{tag}", SRC_FB, f"{REF_FB}:556", got, want, TOL_Q8_LAYER,
+               lambda: FB.fused_layer_q8(*qargs, **attn_kw),
+               lambda: FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(ff), eps=1e-5))
+    torch.cuda.synchronize()
+
+
+def kernel_phases(torch, dev, results):
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
 
     rng = np.random.default_rng(0)
     bf, f32 = torch.bfloat16, torch.float32
 
     def t(a, dtype):
-        return torch.tensor(np.asarray(a, np.float32)).to(dev, dtype).contiguous()
+        return _t(torch, dev, a, dtype)
 
-    x = t(rng.standard_normal((ROWS, WIDTH)), bf)
-    ln = dict(ln_scale=t(1 + 0.1 * rng.standard_normal(WIDTH), f32), ln_bias=t(0.1 * rng.standard_normal(WIDTH), f32))
-    w = dict(
-        wqkv=rng.standard_normal((WIDTH, 3 * WIDTH)) * 0.02, bqkv=0.02 * rng.standard_normal(3 * WIDTH),
-        wo=rng.standard_normal((WIDTH, WIDTH)) * 0.02, bo=0.02 * rng.standard_normal(WIDTH),
-        w1=rng.standard_normal((WIDTH, FF)) * 0.02, b1=0.02 * rng.standard_normal(FF),
-        w2=rng.standard_normal((FF, WIDTH)) * 0.02, b2=0.02 * rng.standard_normal(WIDTH),
-    )
-    wb = {k: t(v, f32 if k.startswith("b") else bf) for k, v in w.items()}
-    attn_kw = dict(seq_len=SEQ, heads=HEADS, mask_len=SEQ, causal=True)
-
-    def record(name, src, replaces, got, want, tol, kernel_fn, plain_fn):
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        log(f"{name}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
-        if not np.isfinite(err) or err > tol:
-            raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
-        ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20, CUDA events)")
-        results[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms)
-
-    src_fb = f"{PKG}/csrc/fused_block.cu"
-    ref_fb = "knowledge_enhanced_multimodal_retrieval_tpu/ops/fused_block.py"
-
-    # B3a: attention block
-    args = (x, ln["ln_scale"], ln["ln_bias"], wb["wqkv"], wb["bqkv"], wb["wo"], wb["bo"])
-    record("B3a fused_attention_block", src_fb, f"{ref_fb}:139",
-           FB.fused_attention_block(*args, **attn_kw), FB.attention_block_plain(*args, **attn_kw, eps=1e-5),
-           TOL_BF16_BLOCK, lambda: FB.fused_attention_block(*args, **attn_kw),
-           lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5))
-
-    # B3b: MLP block
-    margs = (x, ln["ln_scale"], ln["ln_bias"], wb["w1"], wb["b1"], wb["w2"], wb["b2"])
-    record("B3b fused_mlp_block", src_fb, f"{ref_fb}:226",
-           FB.fused_mlp_block(*margs), FB.mlp_block_plain(*margs, eps=1e-5),
-           TOL_BF16_BLOCK, lambda: FB.fused_mlp_block(*margs), lambda: FB.mlp_block_plain(*margs, eps=1e-5))
-
-    # B1: whole int8 layer
-    q = {k: FB.quantize_weight(t(w[k], f32)) for k in ("wqkv", "wo", "w1", "w2")}
-    qargs = (x, ln["ln_scale"], ln["ln_bias"], *q["wqkv"], wb["bqkv"], *q["wo"], wb["bo"],
-             ln["ln_scale"], ln["ln_bias"], *q["w1"], wb["b1"], *q["w2"], wb["b2"])
-    got = FB.fused_layer_q8(*qargs, **attn_kw)
-    want = FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(FF), eps=1e-5)
-    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1).min().item()
-    log(f"B1 fused_layer_q8: min row cosine to plain {cos:.6f}")
-    assert cos > 0.999, cos
-    record("B1 fused_layer_q8", src_fb, f"{ref_fb}:556", got, want, TOL_Q8_LAYER,
-           lambda: FB.fused_layer_q8(*qargs, **attn_kw),
-           lambda: FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(FF), eps=1e-5))
+    # B3a, B3b, B1 at ViT-L/14 text shapes
+    layer_phases(torch, dev, results, rng, rows=ROWS, width=WIDTH, ff=FF,
+                 attn_kw=dict(seq_len=SEQ, heads=HEADS, mask_len=SEQ, causal=True), tag="")
 
     # B2: blended top-k, exact (bf16 corpus) and q8 (int8 corpus)
     norm = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)  # noqa: E731
@@ -159,7 +199,7 @@ def kernel_phases(torch, dev, results):
     ci, ct = t(img, bf), t(txt, bf)
     got = SIM.fused_similarity_topk(qs, ci, ct, K, alpha=alpha)
     want = topk_agree(got, SIM.blended_scores(qs, ci, ct, alpha), K, TOL_TOPK)
-    record("B2 similarity_topk exact", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
+    record(torch, results, "B2 similarity_topk exact", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
            lambda: SIM.fused_similarity_topk(qs, ci, ct, K, alpha=alpha),
            lambda: SIM.topk_plain(SIM.blended_scores(qs, ci, ct, alpha), K))
     iq, is_ = SIM.quantize_corpus_host(img)
@@ -167,9 +207,32 @@ def kernel_phases(torch, dev, results):
     c8 = (t(iq, torch.int8), t(is_, f32), t(tq, torch.int8), t(ts, f32))
     got = SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha)
     want = topk_agree(got, SIM.blended_scores_q8(qs, *c8, alpha), K, TOL_TOPK)
-    record("B2 similarity_topk q8", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
+    record(torch, results, "B2 similarity_topk q8", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
            lambda: SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha),
            lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), K))
+    torch.cuda.synchronize()
+
+
+def vision_kernel_phases(torch, dev, results):
+    """The corpus-precompute path's kernels at ViT-L/14 vision shapes."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import flash_attention as FA
+
+    rng = np.random.default_rng(3)
+    layer_phases(torch, dev, results, rng, rows=V_BATCH * V_SEQ, width=V_WIDTH, ff=V_FF,
+                 attn_kw=dict(seq_len=V_SEQ, heads=V_HEADS, mask_len=V_MASK, causal=False),
+                 tag=f" vision [{V_BATCH}x{V_SEQ}]")
+    # ViT-L/14@336px: the interior keeps K/V of 592 rows in shared memory
+    layer_phases(torch, dev, results, rng, rows=4 * V336_SEQ, width=V_WIDTH, ff=V_FF,
+                 attn_kw=dict(seq_len=V336_SEQ, heads=V_HEADS, mask_len=V336_MASK, causal=False),
+                 tag=f" 336px [4x{V336_SEQ}]", layers=("B3a", "B1"))
+    src = f"{PKG}/csrc/attention.cu"
+    for name, shape, ref in (
+        ("B6 flash_attention s=257", (64, 16, 257, 64), "knowledge_enhanced_multimodal_retrieval_tpu/ops/short_attention.py:85"),
+        ("B7 flash_attention s=577", (16, 16, 577, 64), "knowledge_enhanced_multimodal_retrieval_tpu/ops/flash_attention.py:95"),
+    ):
+        q, k, v = (_t(torch, dev, rng.standard_normal(shape), torch.bfloat16) for _ in range(3))
+        record(torch, results, name, src, ref, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
+               TOL_ATTN, lambda: FA.flash_attention(q, k, v), lambda: FA.flash_attention_plain(q, k, v))
     torch.cuda.synchronize()
 
 
@@ -181,7 +244,7 @@ def _cpu_plan(plan):
     return plan.cpu()
 
 
-def serve_phase(torch, dev, store_path, mode, results):
+def serve_phase(torch, dev, model, store_path, mode, results):
     """Drive the served slice in one mode; returns {wrapper: launches}."""
     from knowledge_enhanced_multimodal_retrieval_tpu.knowledge import (
         FakeKGSparqlClient,
@@ -189,7 +252,6 @@ def serve_phase(torch, dev, store_path, mode, results):
         Text2SparqlRetrieval,
     )
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
-    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.clip import build_text_model
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import encode_text_fast
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
@@ -198,7 +260,6 @@ def serve_phase(torch, dev, store_path, mode, results):
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine
 
     tok = CLIPTokenizer(MERGES)
-    model = build_text_model("ViT-L/14", dtype=torch.bfloat16, seed=0, device=dev)
     store = EmbeddingStore.load(store_path)
     kw = dict(quantize="int8", quantize_corpus="int8") if mode == "int8" else dict(corpus_dtype=torch.bfloat16)
     retriever = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, **kw)
@@ -260,7 +321,168 @@ def serve_phase(torch, dev, store_path, mode, results):
     log(f"serve {mode}: search top-k == plain top-k; encoder cosine to plain (CPU) min {cos:.6f}")
     assert cos > 0.999, cos
     torch.cuda.synchronize()
-    del engine, retriever, model
+    del engine, retriever
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_store(store, n_docs, tag):
+    assert store.uuids == [f"uuid-{i:06d}" for i in range(n_docs)], f"{tag}: uuid order"
+    for rows in (store.image, store.text):
+        assert rows.shape == (n_docs, WIDTH) and np.isfinite(rows).all(), f"{tag}: rows"
+        np.testing.assert_allclose(np.linalg.norm(rows, axis=1), 1.0, atol=1e-3, err_msg=tag)
+
+
+def _agree(stores, ref, tag):
+    """Row-by-row agreement of each encoder's store with ``ref``'s."""
+    for enc, st in stores.items():
+        if enc == ref:
+            continue
+        cos = min(float(np.sum(st.image * stores[ref].image, axis=1).min()),
+                  float(np.sum(st.text * stores[ref].text, axis=1).min()))
+        log(f"{tag}: {enc} store vs {ref} store, min row cosine {cos:.6f} (bound {STORE_COS})")
+        assert cos > STORE_COS, (tag, enc, cos)
+
+
+def precompute_phase(torch, tmp, model_name, n_docs, image_size, encoder):
+    """Drive ``cli.precompute.main`` once; returns (store, launches, seconds)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import precompute
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+
+    tag = f"precompute {model_name} {encoder}"
+    out = os.path.join(tmp, f"{image_size}_{encoder}.npz")
+    args = [f"--model.name={model_name}", f"--data.dataset=synthetic:{n_docs}", f"--data.image_size={image_size}",
+            "--eval.batch_size=256", f"--eval.encoder={encoder}", f"--out={out}", "--device=cuda"]
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    precompute.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    store = EmbeddingStore.load(out)
+    _check_store(store, n_docs, tag)
+    log(f"{tag}: {n_docs} rows in {secs:.2f} s end to end (model build included; host clock); launches {counts}")
+    return store, counts, secs
+
+
+def precompute_stages(torch, dev, model, encoder, results):
+    """Where a precompute run spends its time, on the model already built:
+    ``build_embedding_store`` over synthetic:300 (images/s), and one
+    256-image batch split into host preprocess + tokenize, vision tower and
+    the two text encodes (medians of 3 after a warm-up, host clock around
+    work that ends in a synchronize)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import DataPipeline, make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import (
+        encode_image_fast,
+        encode_text_fast,
+        make_encode_plans,
+    )
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import build_embedding_store
+
+    pipe = DataPipeline(make_synthetic_source(N_DOCS, image_size=224), CLIPTokenizer([]), image_size=224)
+    use_fast, quantize = encoder != "flax", ("int8" if encoder == "int8" else None)
+
+    def clock(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    store_ms = clock(lambda: build_embedding_store(model, pipe, 256, use_fast=use_fast, quantize=quantize), reps=1)
+    host_ms = clock(lambda: pipe.make_batch(range(256)))
+    b = pipe.make_batch(range(256))
+    images = torch.as_tensor(b.images, device=dev)
+    q_ids = torch.as_tensor(b.query_ids, dtype=torch.long, device=dev)
+    t_ids = torch.as_tensor(b.target_ids, dtype=torch.long, device=dev)
+    arch = model.arch
+    with torch.no_grad():
+        if use_fast:
+            plans = make_encode_plans(model, dtype=model.dtype, quantize=quantize)
+            img_fn = lambda: encode_image_fast(arch, plans["visual"], images)  # noqa: E731
+            txt_fn = lambda: (encode_text_fast(arch, plans["text"], q_ids), encode_text_fast(arch, plans["text"], t_ids))  # noqa: E731
+        else:
+            img_fn = lambda: model.encode_image(images)  # noqa: E731
+            txt_fn = lambda: (model.encode_text(q_ids), model.encode_text(t_ids))  # noqa: E731
+        img_ms, txt_ms = clock(img_fn), clock(txt_fn)
+    rate = N_DOCS / (store_ms / 1e3)
+    log(f"precompute {encoder}: build_embedding_store {N_DOCS} rows {store_ms:.1f} ms ({rate:.1f} images/s); "
+        f"one 256 batch: host preprocess+tokenize {host_ms:.1f} ms, vision tower {img_ms:.1f} ms, "
+        f"text query+target {txt_ms:.1f} ms")
+    results[f"precompute_{encoder}"] = dict(images_per_s=rate, store_ms=store_ms, host_ms=host_ms,
+                                            vision_ms=img_ms, text_ms=txt_ms)
+
+
+def fast_vision_vs_cpu(torch, dev, model):
+    """The fast vision encoder on the card against its plain versions on a
+    CPU copy of the plan, for two images."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.preprocess import preprocess_pil
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import encode_image_fast, make_vision_plan
+
+    src = make_synthetic_source(2, image_size=224, seed=11)
+    px = torch.tensor(np.stack([preprocess_pil(src[i]["image"]) for i in range(2)]))
+    plan = make_vision_plan(model, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = encode_image_fast(model.arch, plan, px.to(dev)).cpu()
+        want = encode_image_fast(model.arch, _cpu_plan(plan), px)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    log(f"fast vision encoder on the card vs plain versions (CPU): min cosine {cos:.6f}")
+    assert cos > 0.999, cos
+
+
+def image_query_phase(torch, dev, model, store_path, docs, results):
+    """64 image queries at alpha = 1 over the 43,000-row store with the
+    precomputed rows appended; returns the launches of the run."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine
+
+    store = EmbeddingStore.load(store_path).with_added(docs.image, docs.text, [f"doc-{u}" for u in docs.uuids])
+    retriever = CLIPRetrieval(model, CLIPTokenizer(MERGES), store, device=dev, top_k=K,
+                              use_fused_encoder=True, corpus_dtype=torch.bfloat16)
+    engine = RetrievalEngine(retriever)
+    src = make_synthetic_source(N_DOCS, image_size=224)
+    images = [src[i]["image"] for i in range(IMAGE_QUERIES)]
+    engine.retrieve_image_batch(images[:8], alpha_clip=1.0)  # first call: builds the vision plan
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.retrieve_image_batch(images, alpha_clip=1.0)
+    torch.cuda.synchronize()
+    lat = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    worst = 1.0
+    for i, r in enumerate(out):
+        scores = [x["score"] for x in r]
+        assert len(r) == K and all(np.isfinite(scores)) and scores == sorted(scores, reverse=True)
+        assert r[0]["uuid"] == f"doc-uuid-{i:06d}", (i, r[:3])
+        worst = min(worst, r[0]["score"])
+    assert worst >= 1 - TOL_SELF, worst
+    log(f"image queries: {IMAGE_QUERIES} in {lat * 1e3:.1f} ms over {len(store)} rows (host clock); "
+        f"each found its own row first, min score {worst:.5f}; launches {counts}")
+    results["image_query_batch_ms"] = lat * 1e3
+
+    c = retriever._corpus
+    q = retriever.encode_images(retriever.preprocess_images(images)).to(torch.bfloat16).contiguous()
+    got = retriever._score(c, q, 1.0, K)
+    want = topk_agree(got, SIM.blended_scores(q, c.corpus_img, c.corpus_txt, 1.0), K, TOL_TOPK)
+    record(torch, results, "B2 similarity_topk exact, image queries", f"{PKG}/csrc/similarity.cu",
+           "knowledge_enhanced_multimodal_retrieval_tpu/ops/similarity.py:680", got[0], want[0], TOL_TOPK,
+           lambda: SIM.fused_similarity_topk(q, c.corpus_img, c.corpus_txt, K, alpha=1.0),
+           lambda: SIM.topk_plain(SIM.blended_scores(q, c.corpus_img, c.corpus_txt, 1.0), K))
+    del engine, retriever
     torch.cuda.empty_cache()
     return counts
 
@@ -272,6 +494,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.clip import build_model
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 matmuls in full f32
@@ -282,6 +505,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     lib = dispatch.build_library(verbose=True)
@@ -290,11 +514,13 @@ def main() -> int:
 
     results = {}
     kernel_phases(torch, dev, results)
+    vision_kernel_phases(torch, dev, results)
 
     rng = np.random.default_rng(2)
     norm = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
 
+    model = build_model("ViT-L/14", dtype=torch.bfloat16, seed=0, device=dev)  # the weights precompute.main draws
     with tempfile.TemporaryDirectory() as tmp:
         store_path = os.path.join(tmp, "store.npz")
         EmbeddingStore(
@@ -302,22 +528,51 @@ def main() -> int:
             text=norm(rng.standard_normal((CORPUS, WIDTH))),
             uuids=[f"uuid-{i:06d}" for i in range(CORPUS)],
         ).save(store_path)
-        fast = serve_phase(torch, dev, store_path, "fast", results)
-        int8 = serve_phase(torch, dev, store_path, "int8", results)
+        fast = serve_phase(torch, dev, model, store_path, "fast", results)
+        int8 = serve_phase(torch, dev, model, store_path, "int8", results)
 
+        stores, pre, pre336 = {}, {}, {}
+        for enc in ("flax", "fast", "int8"):
+            stores[enc], pre[enc], _ = precompute_phase(torch, tmp, "ViT-L/14", N_DOCS, 224, enc)
+        _agree(stores, "flax", "ViT-L/14")
+        for enc in ("flax", "fast", "int8"):
+            precompute_stages(torch, dev, model, enc, results)
+        fast_vision_vs_cpu(torch, dev, model)
+        iq = image_query_phase(torch, dev, model, store_path, stores["fast"], results)
+        del model
+        torch.cuda.empty_cache()
+        stores336 = {}
+        for enc in ("flax", "fast", "int8"):
+            stores336[enc], pre336[enc], _ = precompute_phase(torch, tmp, "ViT-L/14@336px", 32, 336, enc)
+        _agree(stores336, "flax", "ViT-L/14@336px")
+
+    for name in ("fused_attention_block", "fused_mlp_block", "similarity_topk_kernel"):
+        assert iq[name] > 0, f"{name} never launched while image queries were answered"
+    vis, v336 = f" vision [{V_BATCH}x{V_SEQ}]", f" 336px [4x{V336_SEQ}]"
     launches = {
         "B3a fused_attention_block": fast["fused_attention_block"],
         "B3b fused_mlp_block": fast["fused_mlp_block"],
         "B1 fused_layer_q8": int8["fused_layer_q8"],
         "B2 similarity_topk exact": fast["similarity_topk_kernel"],
         "B2 similarity_topk q8": int8["similarity_topk_kernel"],
+        f"B3a fused_attention_block{vis}": pre["fast"]["fused_attention_block"],
+        f"B3b fused_mlp_block{vis}": pre["fast"]["fused_mlp_block"],
+        f"B1 fused_layer_q8{vis}": pre["int8"]["fused_layer_q8"],
+        "B6 flash_attention s=257": pre["flax"]["flash_attention_kernel"],
+        f"B3a fused_attention_block{v336}": pre336["fast"]["fused_attention_block"],
+        f"B1 fused_layer_q8{v336}": pre336["int8"]["fused_layer_q8"],
+        "B7 flash_attention s=577": pre336["flax"]["flash_attention_kernel"],
+        "B2 similarity_topk exact, image queries": iq["similarity_topk_kernel"],
     }
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{name} never launched while the slice was served")
+            raise AssertionError(f"{name} never launched in the path it belongs to")
         results[name]["launches"] = n
     kernels = [results[name] for name in launches]
     log(f"serve batch medians: fast {results['serve_fast_batch_ms']:.2f} ms, int8 {results['serve_int8_batch_ms']:.2f} ms")
+    log("precompute images/s (build_embedding_store, synthetic:300, batch 256): " + ", ".join(
+        f"{enc} {results[f'precompute_{enc}']['images_per_s']:.1f}" for enc in ("flax", "fast", "int8")))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@ reference's sub-package and module names:
 
 - ``ops``        — hand-written Hopper kernels (``csrc/``) behind wrappers
   that launch them on CUDA tensors and run plain versions on CPU tensors;
-- ``models``     — the CLIP text tower, weight conversion, serving plans;
-- ``data``       — the BPE tokenizer;
-- ``retrieval``  — embedding store, CLIP retriever, RetrievalEngine;
-- ``cli``        — the serving entry point.
+- ``models``     — the CLIP towers, weight conversion, serving plans;
+- ``data``       — the BPE tokenizer, image preprocessing, datasets, batching;
+- ``eval``       — encoding a dataset into normalized embeddings;
+- ``retrieval``  — embedding store (and its precompute), CLIP retriever,
+  RetrievalEngine;
+- ``cli``        — the precompute and serving entry points.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,105 @@
+"""Shared CLI plumbing: device, model and data construction from a Config.
+
+The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/common.py``.
+Dataset URIs: ``synthetic:N`` (an offline random corpus) or a HuggingFace
+dataset name with the reference schema. ``--device`` defaults to ``cuda``
+and never falls back: running on the CPU (the kernels' plain versions)
+takes ``--device=cpu``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import Config
+
+from ..data.datasets import DataPipeline, load_hf_source, make_synthetic_source
+from ..data.tokenizer import CLIPTokenizer
+from ..models import clip as clip_mod
+from ..models.convert import load_openai_state_dict
+from ..ops.dispatch import has_cuda
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def pop_flag(args, flag: str, default=None):
+    """Remove ``--flag value`` or ``--flag=value`` from ``args``; return value."""
+    prefix = flag + "="
+    for i, tok in enumerate(args):
+        if tok == flag:
+            if i + 1 >= len(args):
+                raise ValueError(f"{flag} requires a value")
+            val = args[i + 1]
+            del args[i : i + 2]
+            return val
+        if tok.startswith(prefix):
+            del args[i]
+            return tok[len(prefix):]
+    return default
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not has_cuda():
+        raise RuntimeError(
+            f"--device={name} but PyTorch sees no CUDA device; "
+            "pass --device=cpu to run with the kernels' plain versions"
+        )
+    return device
+
+
+def _load_state_dict(path: str):
+    """OpenAI-layout state dict (``.pt`` or ``.npz``) as numpy arrays."""
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            sd = {k: data[k] for k in data.files}
+        if any("/" in k for k in sd):
+            raise ValueError(
+                f"{path} holds a flax parameter tree; export it to the OpenAI layout "
+                "(models.convert.save_openai_pt in the JAX package) to load it here"
+            )
+        return sd
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, torch.jit.ScriptModule):
+        obj = obj.state_dict()
+    for key in ("model_state_dict", "state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+            break
+    return {
+        (k[len("module."):] if k.startswith("module.") else k): v.detach().float().numpy()
+        for k, v in obj.items()
+        if hasattr(v, "detach")
+    }
+
+
+def build_model(cfg: Config, device) -> clip_mod.CLIP:
+    """CLIP from ``model.checkpoint`` or, without one, seeded weights."""
+    if cfg.model.adapters:
+        raise NotImplementedError("--model.adapters (LoRA merge) is not ported yet: ROADMAP A7 (training)")
+    dtype = _DTYPES[cfg.model.dtype]
+    if cfg.model.checkpoint:
+        return load_openai_state_dict(_load_state_dict(cfg.model.checkpoint), device=device, dtype=dtype)
+    return clip_mod.build_model(cfg.model.name, dtype=dtype, seed=0, device=device)
+
+
+def build_pipeline(cfg: Config, split: str, tokenizer: Optional[CLIPTokenizer] = None) -> DataPipeline:
+    name = cfg.data.dataset
+    if name.startswith("synthetic:"):
+        source = make_synthetic_source(int(name.split(":", 1)[1]), image_size=cfg.data.image_size)
+        tokenizer = tokenizer or CLIPTokenizer([])  # byte fallback: enough for synthetic text
+    else:
+        source = load_hf_source(name, split)
+        tokenizer = tokenizer or CLIPTokenizer.find_default()
+    return DataPipeline(
+        source,
+        tokenizer,
+        image_size=cfg.data.image_size,
+        context_length=cfg.data.context_length,
+        max_text_words=cfg.data.max_text_words,
+        num_workers=cfg.data.num_workers,
+        preprocess_mode=cfg.data.preprocess_mode,
+    )

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/serve.py``
 for the ``--query`` and ``--batch`` modes: load a precomputed embedding
-store, build the text tower (checkpoint or seeded weights), wire the
+store, build the CLIP towers (checkpoint or seeded weights), wire the
 Text2SPARQL retriever when its endpoints are configured, and answer:
 
     python -m knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.serve \
@@ -19,9 +19,6 @@ from __future__ import annotations
 import json
 import sys
 
-import numpy as np
-import torch
-
 from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import (
     Endpoints,
     config_from_argv,
@@ -30,14 +27,10 @@ from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import (
 )
 
 from ..data.tokenizer import CLIPTokenizer
-from ..models.clip import TextTransformer, build_text_model
-from ..models.convert import load_openai_state_dict
-from ..ops.dispatch import has_cuda
 from ..retrieval.clip_retrieval import CLIPRetrieval
 from ..retrieval.embedding_store import EmbeddingStore
 from ..retrieval.engine import RetrievalEngine
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from .common import build_model, pop_flag, resolve_device
 
 # entry-point flags of the JAX CLI that this port does not serve yet
 _NOT_PORTED_FLAGS = {
@@ -50,57 +43,6 @@ _NOT_PORTED_FLAGS = {
     "--multihost": "A8 (parallel modes)",
     "--multihost-batch": "A8 (parallel modes)",
 }
-
-
-def pop_flag(args, flag: str, default=None):
-    """Remove ``--flag value`` or ``--flag=value`` from ``args``; return value."""
-    prefix = flag + "="
-    for i, tok in enumerate(args):
-        if tok == flag:
-            if i + 1 >= len(args):
-                raise ValueError(f"{flag} requires a value")
-            val = args[i + 1]
-            del args[i : i + 2]
-            return val
-        if tok.startswith(prefix):
-            del args[i]
-            return tok[len(prefix):]
-    return default
-
-
-def _load_state_dict(path: str):
-    """OpenAI-layout state dict (``.pt`` or ``.npz``) as numpy arrays."""
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            sd = {k: data[k] for k in data.files}
-        if any("/" in k for k in sd):
-            raise ValueError(
-                f"{path} holds a flax parameter tree; export it to the OpenAI layout "
-                "(models.convert.save_openai_pt in the JAX package) to serve it here"
-            )
-        return sd
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(obj, torch.jit.ScriptModule):
-        obj = obj.state_dict()
-    for key in ("model_state_dict", "state_dict", "model"):
-        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
-            obj = obj[key]
-            break
-    return {
-        (k[len("module."):] if k.startswith("module.") else k): v.detach().float().numpy()
-        for k, v in obj.items()
-        if hasattr(v, "detach")
-    }
-
-
-def build_model(cfg, device) -> TextTransformer:
-    """The text tower from ``model.checkpoint`` or, without one, seeded weights."""
-    if cfg.model.adapters:
-        raise NotImplementedError("--model.adapters (LoRA merge) is not ported yet: ROADMAP A7 (training)")
-    dtype = _DTYPES[cfg.model.dtype]
-    if cfg.model.checkpoint:
-        return load_openai_state_dict(_load_state_dict(cfg.model.checkpoint), device=device, dtype=dtype)
-    return build_text_model(cfg.model.name, dtype=dtype, seed=0, device=device)
 
 
 def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEngine:
@@ -158,16 +100,6 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
             )
         )
     return RetrievalEngine(clip_r, t2s, cfg.fusion)
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not has_cuda():
-        raise RuntimeError(
-            f"--device={name} but PyTorch sees no CUDA device; "
-            "pass --device=cpu to serve with the kernels' plain versions"
-        )
-    return device
 
 
 def main(argv=None) -> None:

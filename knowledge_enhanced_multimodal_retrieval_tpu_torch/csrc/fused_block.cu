@@ -1,4 +1,4 @@
-// Transformer-layer kernels of the serving text encoder, for Hopper (sm_90a).
+// Transformer-layer kernels of the serving encoders (text and vision), for Hopper (sm_90a).
 //
 // Replaces three Pallas TPU kernels of knowledge_enhanced_multimodal_retrieval_tpu/ops/fused_block.py:
 //   B3a fused_attention_block  (_attention_block_kernel, _attention_interior)
@@ -18,8 +18,8 @@
 //   gemm_kernel        64x64x32 tiles on WMMA tensor cores, bf16 x bf16 -> f32
 //                      or s8 x s8 -> s32, with bias / QuickGELU / dequant /
 //                      residual / f32-accumulate epilogues;
-//   attention_kernel   one (sequence, head) per block, the whole sequence in
-//                      shared memory, one warp per query row;
+//   attention_kernel   one (sequence, head) per block, K and V of the whole
+//                      sequence in shared memory, one warp per query row;
 //   quant_rows_kernel  per-row dynamic int8 (max|h| / 127, round half-even).
 // Intermediates ([N, 3W] qkv, [N, ff] activations) round-trip device memory;
 // keeping them on chip (wgmma, TMA, whole-layer fusion) is later work.
@@ -245,16 +245,21 @@ constexpr int ATTN_THREADS = 128;
 // [h*hd, (h+1)*hd). Scores in f32, scaled after the dot, -1e9 where
 // col >= mask_len or (causal) col > row, f32 softmax, p rounded to bf16
 // before p@v with an f32 accumulator — _attention_interior's arithmetic.
+// K and V of the whole sequence sit in shared memory; each warp copies only
+// the query row it is working on, so the need is 2·S·(hd+2)·2 + 4·S·4 bytes
+// plus four query rows: ~166 KB at S = 592 (ViT-L/14@336px), inside the
+// H100's 227 KB opt-in.
 __global__ void __launch_bounds__(ATTN_THREADS)
 attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int W, int heads, int S,
                  int mask_len, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = W / heads;
   const int ld = hd + 2;  // odd word stride: conflict-free column reads
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + S * ld;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + S * ld;
-  float* P = reinterpret_cast<float*>(Vs + S * ld);
+  bf16* Qw = Vs + S * ld;  // one query row per warp
+  float* P = reinterpret_cast<float*>(Qw + nw * ld);
 
   const int seq = blockIdx.x, h = blockIdx.y;
   const size_t W3 = 3 * (size_t)W;
@@ -262,16 +267,17 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int W, in
   for (int e = threadIdx.x; e < S * hd; e += blockDim.x) {
     const int r = e / hd, d = e % hd;
     const bf16* row = base + r * W3 + h * hd + d;
-    Qs[r * ld + d] = row[0];
     Ks[r * ld + d] = row[W];
     Vs[r * ld + d] = row[2 * W];
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   float* p = P + warp * S;
+  bf16* qw = Qw + warp * ld;
   for (int i = warp; i < S; i += nw) {
-    const __nv_bfloat162* qi = reinterpret_cast<const __nv_bfloat162*>(Qs + i * ld);
+    for (int d = lane; d < hd; d += 32) qw[d] = base[i * W3 + h * hd + d];
+    __syncwarp();
+    const __nv_bfloat162* qi = reinterpret_cast<const __nv_bfloat162*>(qw);
     float mx = -FLT_MAX;
     for (int j = lane; j < S; j += 32) {
       const __nv_bfloat162* kj = reinterpret_cast<const __nv_bfloat162*>(Ks + j * ld);
@@ -308,15 +314,15 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int W, in
       o[0] = f2bf(o0);
       o[1] = f2bf(o1);
     }
-    __syncwarp();
+    __syncwarp();  // p and qw are reused by the warp's next row
   }
 }
 
 static int attention(const bf16* qkv, bf16* out, int N, int W, int heads, int S, int mask_len,
                      int causal, cudaStream_t st) {
   const int hd = W / heads;
-  const size_t smem = 3 * (size_t)S * (hd + 2) * sizeof(bf16) +
-                      (ATTN_THREADS / 32) * (size_t)S * sizeof(float);
+  const size_t nw = ATTN_THREADS / 32;
+  const size_t smem = (2 * (size_t)S + nw) * (hd + 2) * sizeof(bf16) + nw * (size_t)S * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

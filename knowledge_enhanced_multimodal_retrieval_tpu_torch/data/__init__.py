@@ -1,1 +1,1 @@
-"""Host-side data handling: the BPE tokenizer."""
+"""Host-side data handling: the BPE tokenizer, image preprocessing, datasets and batching."""

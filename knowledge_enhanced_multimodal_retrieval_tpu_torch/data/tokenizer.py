@@ -288,3 +288,11 @@ def trim_to_bucket(ids: np.ndarray, buckets: Sequence[int] = DEFAULT_BUCKETS) ->
         if used <= b <= ids.shape[1]:
             return ids[:, :b]
     return ids
+
+
+def truncate_words(text: str, max_words: int = 150) -> str:
+    """Word-level pre-truncation (reference ``clip_dataset.py:49-54``)."""
+    words = text.split()
+    if len(words) <= max_words:
+        return text
+    return " ".join(words[:max_words])

@@ -1,1 +1,1 @@
-"""CLIP text tower, weight conversion and serving plans."""
+"""CLIP towers, weight conversion and serving plans."""

@@ -1,12 +1,18 @@
-"""CLIP text tower in PyTorch.
+"""CLIP in PyTorch: ViT image tower + causal text transformer.
 
 Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/models/clip.py``:
-``CLIPArch``/``ARCHS``, ``quick_gelu``, ``l2_normalize`` and the causal
-text transformer (pre-LN in f32, fused qkv in_proj, QuickGELU MLP, EOT
-pooling at ``argmax(ids)``, learned projection). Parameters keep OpenAI's
-``clip`` state-dict names and layouts, so an OpenAI text state dict loads
-with ``load_state_dict``. The tower is the port's ``encoder=flax`` mode and
-the f32 oracle for the serving encoder; the vision tower is not ported yet.
+``CLIPArch``/``ARCHS``, ``quick_gelu``, ``l2_normalize``, the class-token
+ViT (NHWC images, patch conv without bias, pre-LN in f32, bidirectional
+attention, ``ln_post`` on the class token, learned projection), the causal
+text transformer (EOT pooling at ``argmax(ids)``) and the ``CLIP``
+container with ``logit_scale``. Each tower keeps OpenAI's ``clip``
+state-dict names and layouts (the vision tower's under ``visual.``), so
+``models.convert`` loads an OpenAI state dict with ``load_state_dict``.
+The towers are the port's ``encoder=flax`` mode and the f32 oracle for the
+serving encoders. Parameters stay f32; ``dtype`` is the compute dtype,
+with LayerNorm and softmax in f32. Attention goes through ``ops.attention.mha``:
+the hand-written kernel on CUDA above 128 tokens (the vision tower), the
+plain version otherwise.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..ops.attention import mha
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +89,7 @@ class MultiheadSelfAttention(nn.Module):
         dt = x.dtype
         qkv = nn.functional.linear(x, self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
         q, k, v = qkv.view(b, s, 3, self.heads, w // self.heads).permute(2, 0, 3, 1, 4)
-        logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(w // self.heads)
-        if causal:
-            keep = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-        p = torch.softmax(logits, dim=-1).to(dt)
-        out = (p @ v).transpose(1, 2).reshape(b, s, w)
+        out = mha(q, k, v, causal=causal).transpose(1, 2).reshape(b, s, w)
         return nn.functional.linear(out, self.out_proj.weight.to(dt), self.out_proj.bias.to(dt))
 
 
@@ -128,11 +131,40 @@ class Transformer(nn.Module):
         return x
 
 
-class TextTransformer(nn.Module):
-    """CLIP's causal text tower: ids [B, S] -> [B, embed_dim] f32 (unnormalized).
+class VisionTransformer(nn.Module):
+    """CLIP's class-token ViT: images [B, H, W, 3] (NHWC, preprocessed) ->
+    [B, embed_dim] f32 (unnormalized)."""
 
-    Parameters stay f32; ``dtype`` is the compute dtype (as the flax
-    module's), with LayerNorm and softmax in f32."""
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.arch = arch
+        self.dtype = dtype
+        w, p = arch.vision_width, arch.vision_patch_size
+        self.conv1 = nn.Conv2d(3, w, kernel_size=p, stride=p, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(w))
+        self.positional_embedding = nn.Parameter(torch.empty(arch.grid_size**2 + 1, w))
+        self.ln_pre = nn.LayerNorm(w)
+        self.transformer = Transformer(w, arch.vision_layers, arch.heads_vision)
+        self.ln_post = nn.LayerNorm(w)
+        self.proj = nn.Parameter(torch.empty(w, arch.embed_dim))
+
+    def forward(self, images: torch.Tensor, keep_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if keep_idx is not None:
+            raise NotImplementedError("keep_idx (FLIP patch masking) is training: ROADMAP A7")
+        dt = self.dtype
+        x = nn.functional.conv2d(images.to(dt).permute(0, 3, 1, 2), self.conv1.weight.to(dt),
+                                 stride=self.arch.vision_patch_size)
+        x = x.flatten(2).transpose(1, 2)  # [B, grid*grid, width], row-major patches
+        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+        x = _ln_f32(self.ln_pre, x)
+        x = self.transformer(x, causal=False)
+        x = _ln_f32(self.ln_post, x[:, 0, :])
+        return (x @ self.proj.to(dt)).float()
+
+
+class TextTransformer(nn.Module):
+    """CLIP's causal text tower: ids [B, S] -> [B, embed_dim] f32 (unnormalized)."""
 
     def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -155,44 +187,83 @@ class TextTransformer(nn.Module):
         return (x @ self.text_projection.to(dt)).float()
 
 
-def init_text_weights(model: TextTransformer, seed: int = 0) -> TextTransformer:
+class CLIP(nn.Module):
+    """Both towers and ``logit_scale``; embeddings are unnormalized, as in
+    the JAX package (callers L2-normalize)."""
+
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.arch = arch
+        self.dtype = dtype
+        self.visual = VisionTransformer(arch, dtype)
+        self.text = TextTransformer(arch, dtype)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
+
+    def encode_image(self, images: torch.Tensor, keep_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.visual(images, keep_idx)
+
+    def encode_text(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.text(ids)
+
+    def forward(self, images: torch.Tensor, ids: torch.Tensor):
+        return self.encode_image(images), self.encode_text(ids), self.logit_scale
+
+
+def init_weights(model: CLIP, seed: int = 0) -> CLIP:
     """Seeded random weights in place (the flax init's scales: lecun-normal
-    projections, zero biases, unit LayerNorms, 0.01 positions). Drawn on the
-    CPU with a ``torch.Generator``, so a seed gives the same weights on
-    every device."""
+    projections and patch conv, zero biases, unit LayerNorms, 0.01 text
+    positions, width^-0.5 class token, vision positions and projections).
+    Drawn on the CPU with a ``torch.Generator``, text tower first, so a seed
+    gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
-    w = model.arch.text_width
 
     def normal(p: torch.Tensor, std: float) -> None:
         p.data.copy_(torch.randn(p.shape, generator=g) * std)
 
-    with torch.no_grad():
-        normal(model.token_embedding.weight, w**-0.5)
-        normal(model.positional_embedding, 0.01)
-        normal(model.text_projection, w**-0.5)
-        for blk in model.transformer.resblocks:
+    def unit(ln: nn.LayerNorm) -> None:
+        ln.weight.fill_(1.0)
+        ln.bias.zero_()
+
+    def blocks(transformer: Transformer, w: int) -> None:
+        for blk in transformer.resblocks:
             normal(blk.attn.in_proj_weight, w**-0.5)
             normal(blk.attn.out_proj.weight, w**-0.5)
             normal(blk.mlp.c_fc.weight, w**-0.5)
             normal(blk.mlp.c_proj.weight, (4 * w) ** -0.5)
             for p in (blk.attn.in_proj_bias, blk.attn.out_proj.bias, blk.mlp.c_fc.bias, blk.mlp.c_proj.bias):
                 p.zero_()
-            for ln in (blk.ln_1, blk.ln_2):
-                ln.weight.fill_(1.0)
-                ln.bias.zero_()
-        model.ln_final.weight.fill_(1.0)
-        model.ln_final.bias.zero_()
+            unit(blk.ln_1)
+            unit(blk.ln_2)
+
+    a = model.arch
+    text, vis = model.text, model.visual
+    with torch.no_grad():
+        w = a.text_width
+        normal(text.token_embedding.weight, w**-0.5)
+        normal(text.positional_embedding, 0.01)
+        normal(text.text_projection, w**-0.5)
+        blocks(text.transformer, w)
+        unit(text.ln_final)
+        w = a.vision_width
+        normal(vis.conv1.weight, (3 * a.vision_patch_size**2) ** -0.5)
+        normal(vis.class_embedding, w**-0.5)
+        normal(vis.positional_embedding, w**-0.5)
+        normal(vis.proj, w**-0.5)
+        blocks(vis.transformer, w)
+        unit(vis.ln_pre)
+        unit(vis.ln_post)
+        model.logit_scale.fill_(math.log(1.0 / 0.07))
     return model
 
 
-def build_text_model(
+def build_model(
     name: str, dtype: torch.dtype = torch.bfloat16, seed: int = 0, device=None,
     arch: Optional[CLIPArch] = None,
-) -> TextTransformer:
-    """A text tower for ``ARCHS[name]`` (or ``arch``) with seeded weights."""
+) -> CLIP:
+    """A CLIP for ``ARCHS[name]`` (or ``arch``) with seeded weights."""
     if arch is None:
         if name not in ARCHS:
             raise ValueError(f"unknown CLIP variant {name!r}; available: {sorted(ARCHS)}")
         arch = ARCHS[name]
-    model = init_text_weights(TextTransformer(arch, dtype), seed)
+    model = init_weights(CLIP(arch, dtype), seed)
     return model.to(device) if device is not None else model

@@ -1,19 +1,20 @@
-"""Serving text encoder: packed weight plans + the fused layer kernels.
+"""Serving encoders: packed weight plans + the fused layer kernels.
 
-Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/models/fast_encode.py``
-(text side):
+Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/models/fast_encode.py``:
 
-- :func:`make_text_plan` packs the tower's weights once into the serving
-  dtype (bf16), in the ``[in, out]`` layout the kernels read; with
-  ``quantize="int8"`` the four projections of every layer become
-  per-output-channel int8 + f32 scales (W8A8 dynamic).
-- :func:`encode_text_fast` runs embeddings, the layers (B3a + B3b per layer
-  for a bf16 plan, B1 per layer for an int8 plan), EOT pooling, the final
-  LayerNorm and the projection.
+- :func:`make_text_plan` / :func:`make_vision_plan` pack a tower's weights
+  once into the serving dtype (bf16), in the ``[in, out]`` layout the
+  kernels read; with ``quantize="int8"`` the four projections of every
+  layer become per-output-channel int8 + f32 scales (W8A8 dynamic).
+  :func:`make_encode_plans` packs both, keyed ``visual`` / ``text``.
+- :func:`encode_text_fast` / :func:`encode_image_fast` run the embeddings,
+  the layers (B3a + B3b per layer for a bf16 plan, B1 per layer for an int8
+  plan), the pooling, the final LayerNorm and the projection.
 
 The JAX module's VMEM caps and wide-band routing are TPU artifacts: here a
-plan's weight dtype alone picks the layer kernel. Semantics match the text
-tower (causal mask, f32 LayerNorm, EOT pooling at ``argmax(ids)``).
+plan's weight dtype alone picks the layer kernel. Semantics match the
+towers (causal text / bidirectional vision attention, f32 LayerNorm, EOT /
+class-token pooling).
 """
 
 from __future__ import annotations
@@ -22,33 +23,71 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..ops.fused_block import fused_attention_block, fused_layer_q8, fused_mlp_block, quantize_weight
-from .clip import TextTransformer
+from ..ops.fused_block import _ln_f32, fused_attention_block, fused_layer_q8, fused_mlp_block, quantize_weight
+from .clip import CLIP, Transformer
 
 _SEQ_MULTIPLE = 16  # sequences pad to a multiple of 16 rows (mask_len = s)
 
 
-def make_text_plan(
-    model: TextTransformer, dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None
-) -> Dict[str, Any]:
-    """Pack the text tower's weights for :func:`encode_text_fast` (one-time cast)."""
+def _check_quantize(quantize: Optional[str]) -> None:
     if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode: {quantize!r}")
+
+
+def make_text_plan(
+    model: CLIP, dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None
+) -> Dict[str, Any]:
+    """Pack the text tower's weights for :func:`encode_text_fast` (one-time cast)."""
+    _check_quantize(quantize)
+    text = model.text
     cast = lambda t: t.detach().to(dtype).contiguous()  # noqa: E731
     return {
-        "token_embedding": cast(model.token_embedding.weight),
-        "positional_embedding": cast(model.positional_embedding),
-        "layers": _pack_layers(model, dtype, quantize),
-        "lnf_scale": model.ln_final.weight.detach().float().contiguous(),
-        "lnf_bias": model.ln_final.bias.detach().float().contiguous(),
-        "text_projection": cast(model.text_projection),
+        "token_embedding": cast(text.token_embedding.weight),
+        "positional_embedding": cast(text.positional_embedding),
+        "layers": _pack_layers(text.transformer, dtype, quantize),
+        "lnf_scale": text.ln_final.weight.detach().float().contiguous(),
+        "lnf_bias": text.ln_final.bias.detach().float().contiguous(),
+        "text_projection": cast(text.text_projection),
     }
 
 
-def _pack_layers(model: TextTransformer, dtype, quantize: Optional[str]) -> List[Dict[str, torch.Tensor]]:
+def make_vision_plan(
+    model: CLIP, dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None
+) -> Dict[str, Any]:
+    """Pack the vision tower's weights for :func:`encode_image_fast`. The
+    patch conv (stride == kernel size) becomes an exact patch-matmul weight
+    ``[P*P*3, W]`` whose rows run (row, column, channel) within a patch, the
+    order in which :func:`encode_image_fast` cuts NHWC patches."""
+    _check_quantize(quantize)
+    vis = model.visual
+    cast = lambda t: t.detach().to(dtype).contiguous()  # noqa: E731
+    f32 = lambda t: t.detach().float().contiguous()  # noqa: E731
+    conv = vis.conv1.weight.detach()  # [W, 3, P, P]
+    return {
+        "conv_w": cast(conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0])),
+        "class_embedding": cast(vis.class_embedding),
+        "positional_embedding": cast(vis.positional_embedding),
+        "ln_pre_scale": f32(vis.ln_pre.weight), "ln_pre_bias": f32(vis.ln_pre.bias),
+        "layers": _pack_layers(vis.transformer, dtype, quantize),
+        "ln_post_scale": f32(vis.ln_post.weight), "ln_post_bias": f32(vis.ln_post.bias),
+        "proj": cast(vis.proj),
+    }
+
+
+def make_encode_plans(
+    model: CLIP, dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None
+) -> Dict[str, Any]:
+    """Both towers' packed plans, keyed like the JAX package's (visual/text)."""
+    return {
+        "visual": make_vision_plan(model, dtype=dtype, quantize=quantize),
+        "text": make_text_plan(model, dtype=dtype, quantize=quantize),
+    }
+
+
+def _pack_layers(transformer: Transformer, dtype, quantize: Optional[str]) -> List[Dict[str, torch.Tensor]]:
     layers = []
     f32 = lambda t: t.detach().float().contiguous()  # noqa: E731
-    for blk in model.transformer.resblocks:
+    for blk in transformer.resblocks:
         lp = {
             "ln1_scale": f32(blk.ln_1.weight), "ln1_bias": f32(blk.ln_1.bias),
             "bqkv": f32(blk.attn.in_proj_bias), "bo": f32(blk.attn.out_proj.bias),
@@ -93,6 +132,16 @@ def _apply_layers(x: torch.Tensor, layers, *, s_pad: int, heads: int, mask_len: 
     return x
 
 
+def _pad_sequences(x: torch.Tensor) -> torch.Tensor:
+    """[B, s, W] -> [B * s_pad, W] with s_pad the next multiple of 16 (the
+    pad keys are masked by mask_len = s)."""
+    b, s, width = x.shape
+    s_pad = -(-s // _SEQ_MULTIPLE) * _SEQ_MULTIPLE
+    if s_pad != s:
+        x = torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
+    return x.reshape(b * s_pad, width).contiguous()
+
+
 def encode_text_fast(arch, plan: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
     """ids [B, S] integer -> [B, embed_dim] float32 (unnormalized embeddings).
 
@@ -104,22 +153,45 @@ def encode_text_fast(arch, plan: Dict[str, Any], ids: torch.Tensor) -> torch.Ten
     dtype = emb.dtype
     if ids.device != emb.device:
         raise ValueError(f"ids on {ids.device}, plan on {emb.device}")
-    x = emb[ids] + plan["positional_embedding"][:s]
-
-    # pad the sequence axis to a multiple of 16 (the pad keys are masked
-    # by mask_len = s, and causal rows < s never see them)
-    s_pad = -(-s // _SEQ_MULTIPLE) * _SEQ_MULTIPLE
-    if s_pad != s:
-        x = torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
-    x = x.reshape(b * s_pad, width).contiguous()
+    x = _pad_sequences(emb[ids] + plan["positional_embedding"][:s])  # causal rows < s never see the pad
+    s_pad = x.shape[0] // b
     x = _apply_layers(x, plan["layers"], s_pad=s_pad, heads=arch.text_heads, mask_len=s, causal=True)
 
     # EOT-pool BEFORE the final LayerNorm (row-local, so identical to the
     # tower's LN-then-gather, on B rows instead of B * s_pad)
     eot = ids.argmax(dim=-1)
     pooled = x.view(b, s_pad, width)[torch.arange(b, device=ids.device), eot]
-    pf = pooled.float()
-    mu = pf.mean(-1, keepdim=True)
-    var = (pf - mu).square().mean(-1, keepdim=True)
-    pooled = ((pf - mu) * torch.rsqrt(var + 1e-5)) * plan["lnf_scale"] + plan["lnf_bias"]
+    pooled = _ln_f32(pooled, plan["lnf_scale"], plan["lnf_bias"], 1e-5)
     return (pooled.to(dtype) @ plan["text_projection"]).float()
+
+
+def encode_image_fast(arch, plan: Dict[str, Any], images: torch.Tensor) -> torch.Tensor:
+    """images [B, H, W, 3] (NHWC, preprocessed) -> [B, embed_dim] float32.
+
+    The strided conv is an exact patch matmul, the class token and positions
+    are added in the plan dtype, ``ln_pre`` runs in f32, the sequence pads
+    to a multiple of 16 (257 -> 272 at ViT-L/14) with the pad keys masked,
+    the layers attend both ways, and the class token is pooled before the
+    f32 ``ln_post`` and the projection. ``images`` must lie on the plan's
+    device."""
+    conv_w = plan["conv_w"]
+    width, dtype = conv_w.shape[1], conv_w.dtype
+    b, p, g = images.shape[0], arch.vision_patch_size, arch.grid_size
+    if tuple(images.shape[1:]) != (g * p, g * p, 3):
+        raise ValueError(f"images must be [B, {g * p}, {g * p}, 3], got {tuple(images.shape)}")
+    if images.device != conv_w.device:
+        raise ValueError(f"images on {images.device}, plan on {conv_w.device}")
+
+    # strided conv == patch matmul: [B, g, p, g, p, 3] -> [B, g*g, p*p*3]
+    x = images.to(dtype).reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
+    x = x @ conv_w
+    cls = plan["class_embedding"].expand(b, 1, width)
+    x = torch.cat([cls, x], dim=1) + plan["positional_embedding"]
+    s = g * g + 1
+    x = _pad_sequences(_ln_f32(x, plan["ln_pre_scale"], plan["ln_pre_bias"], 1e-5).to(dtype))
+    s_pad = x.shape[0] // b
+    x = _apply_layers(x, plan["layers"], s_pad=s_pad, heads=arch.heads_vision, mask_len=s, causal=False)
+
+    # class-token pool, then the f32 LN on the B pooled rows (row-local)
+    pooled = _ln_f32(x.view(b, s_pad, width)[:, 0], plan["ln_post_scale"], plan["ln_post_bias"], 1e-5)
+    return (pooled.to(dtype) @ plan["proj"]).float()

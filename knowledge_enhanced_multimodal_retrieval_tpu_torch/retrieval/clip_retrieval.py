@@ -1,14 +1,15 @@
-"""CLIP retriever: query text -> ranked corpus matches, on one device.
+"""CLIP retriever: query text or images -> ranked corpus matches, on one device.
 
 Counterpart of ``CLIPRetrieval`` in
 ``knowledge_enhanced_multimodal_retrieval_tpu/retrieval/clip_retrieval.py``,
-restricted to the text-query search path:
+for the text-query and image-query search paths:
 
-    tokenize -> trim to the length bucket -> encode -> L2-normalize
+    tokenize -> trim to the length bucket -> encode text -> L2-normalize
+    (or) preprocess -> encode images -> L2-normalize
     -> blended two-tower top-k -> row indices to uuids
 
 with the exact (bf16 / f32) and int8 corpus modes and the flax (module
-tower), fast (bf16 fused layers) and int8 (W8A8 layers) encoders. Every
+towers), fast (bf16 fused layers) and int8 (W8A8 layers) encoders. Every
 tensor lives on the explicit ``device``; CUDA runs the hand-written
 kernels, the CPU their plain versions. The search runs eagerly (no
 per-bucket compiled program). Options of the JAX retriever that this port
@@ -24,9 +25,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.preprocess import preprocess_pil
 from ..data.tokenizer import CLIPTokenizer, trim_to_bucket
-from ..models.clip import TextTransformer, l2_normalize
-from ..models.fast_encode import encode_text_fast, make_text_plan
+from ..models.clip import CLIP, l2_normalize
+from ..models.fast_encode import encode_image_fast, encode_text_fast, make_text_plan, make_vision_plan
 from ..ops.similarity import fused_similarity_topk, fused_similarity_topk_q8, quantize_corpus_host
 from .embedding_store import EmbeddingStore
 
@@ -64,11 +66,11 @@ class _CorpusState:
 
 
 class CLIPRetrieval:
-    """Query-text retrieval over a precomputed :class:`EmbeddingStore`."""
+    """Text- and image-query retrieval over a precomputed :class:`EmbeddingStore`."""
 
     def __init__(
         self,
-        model: TextTransformer,
+        model: CLIP,
         tokenizer: CLIPTokenizer,
         store: EmbeddingStore,
         *,
@@ -117,6 +119,7 @@ class CLIPRetrieval:
         self._text_plan = (
             make_text_plan(self.model, dtype=model.dtype, quantize=quantize) if use_fused_encoder else None
         )
+        self._encode_image = None  # built at the first image query
         self._update_lock = threading.Lock()
         self._install_corpus(store)
 
@@ -188,7 +191,7 @@ class CLIPRetrieval:
         if self.use_fused_encoder:
             q = encode_text_fast(self.model.arch, self._text_plan, ids)
         else:
-            q = self.model(ids)
+            q = self.model.encode_text(ids)
         return l2_normalize(q)
 
     def search_batch(self, queries: Sequence[str], alpha=0.5, top_k: Optional[int] = None):
@@ -197,10 +200,13 @@ class CLIPRetrieval:
         :meth:`results_from_topk` or :meth:`retrieval_batch` to filter."""
         return self._search_state(self._corpus, queries, alpha, top_k)
 
-    @torch.no_grad()
     def _search_state(self, c: _CorpusState, queries: Sequence[str], alpha, top_k: Optional[int]):
+        return self._search_state_emb(c, self.encode_queries(queries), alpha, top_k)
+
+    @torch.no_grad()
+    def _search_state_emb(self, c: _CorpusState, q_emb, alpha, top_k: Optional[int]):
         k = min(top_k or c.top_k, c.n_real)
-        q = self.encode_queries(queries)
+        q = torch.as_tensor(q_emb, dtype=torch.float32, device=self.device)
         return self._score(c, q, alpha, self._k_fetch(c, k))
 
     def _score(self, c: _CorpusState, q: torch.Tensor, alpha, k: int):
@@ -241,16 +247,83 @@ class CLIPRetrieval:
             results.append(out)
         return results
 
+    def _ranked(self, c: _CorpusState, out, top_k: Optional[int]) -> List[List[Dict]]:
+        vals, idx = out
+        k = min(top_k or c.top_k, c.n_real)
+        return self.results_from_topk(vals.float().cpu().numpy(), idx.cpu().numpy(), _state=c, top_k=k)
+
     def retrieval_batch(self, queries: Sequence[str], alpha=0.5, top_k: Optional[int] = None) -> List[List[Dict]]:
         """Batched search -> one ``[{"uuid", "score"}]`` list per query.
         ``alpha`` may be a scalar or one blend per query."""
         c = self._corpus  # one snapshot: search and uuid mapping stay aligned
-        k = min(top_k or c.top_k, c.n_real)
-        vals, idx = self._search_state(c, queries, alpha, top_k)
-        return self.results_from_topk(
-            vals.float().cpu().numpy(), idx.cpu().numpy(), _state=c, top_k=k
-        )
+        return self._ranked(c, self._search_state(c, queries, alpha, top_k), top_k)
 
     def retrieval(self, query: str, alpha: float = 0.5, top_k: Optional[int] = None) -> List[Dict]:
         """Single-query search -> ``[{"uuid", "score"}]`` sorted descending."""
         return self.retrieval_batch([query], alpha=alpha, top_k=top_k)[0]
+
+    # -- image / embedding queries ----------------------------------------------
+    # An image query rides the vision tower and is blended against both corpus
+    # towers by the same scan (the blend is linear in the query embedding);
+    # alpha = 1.0 is pure image-to-image search.
+
+    def _build_image_encoder(self):
+        if not self.use_fused_encoder:
+            return self.model.encode_image
+        plan = make_vision_plan(self.model, dtype=self.model.dtype, quantize=self.quantize)
+        return lambda px: encode_image_fast(self.model.arch, plan, px)
+
+    @torch.no_grad()
+    def encode_images(self, pixels) -> torch.Tensor:
+        """Preprocessed pixels [B, S, S, 3] -> L2-normalized [B, D] f32 on the
+        device, through the same encoder tier as text queries. The vision
+        plan is built at the first image query, so text-only serving pays
+        nothing for it."""
+        if self._encode_image is None:
+            self._encode_image = self._build_image_encoder()
+        px = torch.as_tensor(pixels, dtype=torch.float32, device=self.device)
+        return l2_normalize(self._encode_image(px))
+
+    def preprocess_images(self, images) -> np.ndarray:
+        """Decode + preprocess a heterogeneous batch to [B, S, S, 3]: PIL
+        images, encoded bytes, file paths, HWC uint8 arrays, or float32
+        [S, S, 3] arrays that are already preprocessed (passed through)."""
+        size = self.model.arch.image_resolution
+        out = []
+        for im in images:
+            if isinstance(im, np.ndarray) and im.dtype == np.float32 and im.shape == (size, size, 3):
+                out.append(im)
+            else:
+                out.append(preprocess_pil(im, size=size))
+        return np.stack(out)
+
+    def encode_documents(self, images: Sequence, texts: Sequence[str]):
+        """Raw documents -> store-ready rows ``(image_emb, text_emb)``,
+        L2-normalized f32 ``[n, D]`` numpy, for :meth:`add_documents`. The
+        text rows encode the documents' target text through the query tower.
+        (The JAX version pads the batch to a power of two to bound its jit
+        compiles; the eager port needs no padding.)"""
+        if len(images) != len(texts):
+            raise ValueError(f"{len(images)} images vs {len(texts)} texts")
+        if len(images) == 0:
+            raise ValueError("no documents")
+        img = self.encode_images(self.preprocess_images(images)).cpu().numpy()
+        txt = self.encode_queries(list(texts)).cpu().numpy()
+        return img, txt
+
+    def search_embeddings_batch(self, q_emb, alpha=0.5, top_k: Optional[int] = None):
+        """Batched search from L2-normalized [Q, D] query embeddings (same
+        over-fetch semantics as :meth:`search_batch`)."""
+        return self._search_state_emb(self._corpus, q_emb, alpha, top_k)
+
+    def retrieval_embeddings_batch(self, q_emb, alpha=0.5, top_k: Optional[int] = None) -> List[List[Dict]]:
+        """Embedding-direct search -> one ``[{"uuid", "score"}]`` list per query."""
+        c = self._corpus
+        return self._ranked(c, self._search_state_emb(c, q_emb, alpha, top_k), top_k)
+
+    def retrieval_image_batch(self, images: Sequence, alpha=0.5, top_k: Optional[int] = None) -> List[List[Dict]]:
+        """Visual search: a batch of images (as :meth:`preprocess_images`
+        takes them) -> ranked corpus matches each."""
+        return self.retrieval_embeddings_batch(
+            self.encode_images(self.preprocess_images(images)), alpha=alpha, top_k=top_k
+        )

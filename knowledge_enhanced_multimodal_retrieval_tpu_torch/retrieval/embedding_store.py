@@ -4,17 +4,21 @@ The port's copy of ``EmbeddingStore`` from
 ``knowledge_enhanced_multimodal_retrieval_tpu/retrieval/embedding_store.py``:
 L2-normalized image/text tower embeddings + row-aligned uuids, persisted as
 one ``.npz`` in the same format (a store written by either package loads in
-the other). :meth:`EmbeddingStore.device_arrays` replaces the JAX upload.
-Building a store needs the vision tower and waits for its port.
+the other). :meth:`EmbeddingStore.device_arrays` replaces the JAX upload;
+:func:`build_embedding_store` precomputes a store with the port's towers.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..data.datasets import DataPipeline
+from ..eval.evaluator import encode_dataset
+from ..models.clip import CLIP
 
 
 class DuplicateUUIDError(ValueError):
@@ -136,3 +140,19 @@ class EmbeddingStore:
             text=np.concatenate([self.text, z]),
             uuids=self.uuids + [f"__pad_{i}" for i in range(pad)],
         )
+
+
+def build_embedding_store(
+    model: CLIP,
+    pipeline: DataPipeline,
+    batch_size: int = 256,
+    use_fast: bool = False,
+    quantize: Optional[str] = None,
+) -> EmbeddingStore:
+    """Precompute corpus embeddings on the model's device.
+
+    The ``text`` tower stores *target_text* embeddings (the corpus documents
+    the serving engine scores T2T against). ``use_fast``/``quantize`` route
+    through the fused / int8 towers (``models.fast_encode``)."""
+    encoded = encode_dataset(model, pipeline, batch_size, use_fast=use_fast, quantize=quantize)
+    return EmbeddingStore(image=encoded.image, text=encoded.target, uuids=encoded.uuids)

@@ -1,6 +1,6 @@
-"""RetrievalEngine: the knowledge-enhanced serving API, text queries.
+"""RetrievalEngine: the knowledge-enhanced serving API.
 
-The port's copy of the text-query half of
+The port's copy of the text- and image-query API of
 ``knowledge_enhanced_multimodal_retrieval_tpu/retrieval/engine.py``:
 
 - ``retrieve_text(query, alpha=0.8, beta=0.2, alpha_clip=0.5, threshold=0)``
@@ -9,7 +9,9 @@ The port's copy of the text-query half of
   rounded to 4 decimals, threshold-filtered;
 - ``retrieve_text_noknowledge(...)`` — CLIP only;
 - their ``_batch`` forms (one device search per batch; Text2SPARQL calls fan
-  out over threads).
+  out over threads);
+- ``retrieve_image`` / ``retrieve_image_batch`` — visual search, CLIP only
+  (Text2SPARQL has no image modality).
 
 The Text2SPARQL side and ``FusionConfig`` are the JAX package's jax-free
 ``knowledge.*`` and ``utils.config`` modules, used as they are.
@@ -127,6 +129,23 @@ class RetrievalEngine:
         threshold = self.fusion.threshold if threshold is None else threshold
         clip_lists = self.clip_retriever.retrieval_batch(queries, alpha=alpha_clip)
         return [self._apply_threshold(results, threshold) for results in clip_lists]
+
+    def retrieve_image(
+        self, image, alpha_clip: Optional[float] = None, threshold: Optional[float] = None
+    ) -> List[Dict]:
+        """Image-query retrieval over the same corpus. ``alpha_clip`` blends
+        the image embedding against the corpus image vs text towers (1.0 =
+        pure image-to-image similarity)."""
+        return self.retrieve_image_batch([image], alpha_clip, threshold)[0]
+
+    def retrieve_image_batch(
+        self, images: Sequence, alpha_clip: Optional[float] = None, threshold: Optional[float] = None
+    ) -> List[List[Dict]]:
+        """Batched visual search: one encode and one scan for the batch."""
+        alpha_clip = self.fusion.alpha_clip if alpha_clip is None else alpha_clip
+        threshold = self.fusion.threshold if threshold is None else threshold
+        lists = self.clip_retriever.retrieval_image_batch(images, alpha=alpha_clip)
+        return [self._apply_threshold(results, threshold) for results in lists]
 
     @staticmethod
     def _apply_threshold(results: List[Dict], threshold: float) -> List[Dict]:

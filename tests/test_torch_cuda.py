@@ -11,9 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.clip import CLIPArch, build_text_model
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import encode_text_fast, make_text_plan
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.clip import CLIPArch, build_model
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import (
+    encode_image_fast,
+    encode_text_fast,
+    make_text_plan,
+    make_vision_plan,
+)
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import flash_attention as FA
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as T
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as S
 
@@ -72,7 +79,9 @@ def _close(got, want, atol):
 
 
 @pytest.mark.parametrize(
-    "s,mask_len,causal,nseq", [(16, 16, True, 8), (16, 12, True, 3), (32, 27, True, 5), (16, 16, False, 4), (80, 77, True, 2)]
+    "s,mask_len,causal,nseq",
+    [(16, 16, True, 8), (16, 12, True, 3), (32, 27, True, 5), (16, 16, False, 4), (80, 77, True, 2),
+     (272, 257, False, 2), (592, 577, False, 2)],  # ViT-L/14 and ViT-L/14@336px vision sequences
 )
 def test_attention_block_kernel(rng, dev, s, mask_len, causal, nseq):
     x = _t(rng.standard_normal((nseq * s, W)), dev, torch.bfloat16)
@@ -91,7 +100,7 @@ def test_mlp_block_kernel(rng, dev, rows):
     _close(T.fused_mlp_block(x, **w), T.mlp_block_plain(x, **w, eps=1e-5), _BF16_ATOL)
 
 
-@pytest.mark.parametrize("s,mask_len,nseq", [(16, 16, 3), (32, 27, 8)])
+@pytest.mark.parametrize("s,mask_len,nseq", [(16, 16, 3), (32, 27, 8), (592, 577, 2)])
 def test_layer_q8_kernel(rng, dev, s, mask_len, nseq):
     a, m = _attn(rng, dev), _mlp(rng, dev)
     qw = {k: T.quantize_weight(v.float()) for k, v in (("wqkv", a["wqkv"]), ("wo", a["wo"]), ("w1", m["w1"]), ("w2", m["w2"]))}
@@ -157,7 +166,7 @@ def test_topk_kernel(rng, dev, mode, k):
 
 def test_encode_text_fast_on_card_matches_cpu_plan(rng, dev):
     arch = CLIPArch(64, 32, 1, 128, 16, 77, 49408, W, H, 2)
-    model = build_text_model("", arch=arch, seed=1)
+    model = build_model("", arch=arch, seed=1)
     ids = np.zeros((6, 32), np.int64)
     ids[:, 0] = arch.vocab_size - 2
     for i in range(6):
@@ -174,3 +183,57 @@ def test_encode_text_fast_on_card_matches_cpu_plan(rng, dev):
         cos = torch.nn.functional.cosine_similarity(gpu.cpu(), cpu, dim=-1)
         assert cos.min().item() > 0.999, (quantize, cos)
         model = model.cpu()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize(
+    "sq,sk,d,causal",
+    [(257, 257, 64, False), (577, 577, 64, False), (150, 150, 32, True), (200, 200, 128, True),
+     (130, 130, 256, False), (64, 64, 64, True), (70, 300, 80, False), (300, 70, 64, True)],
+)
+def test_flash_attention_kernel(rng, dev, dtype, sq, sk, d, causal):
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = _t(rng.standard_normal((2, 3, sq, d)), dev, dt)
+    k, v = (_t(rng.standard_normal((2, 3, sk, d)), dev, dt) for _ in range(2))
+    before = FA.flash_attention_kernel.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.flash_attention_kernel.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    # f32: an online softmax against a one-pass one, other summation order
+    # (~1e-6); bf16: outputs |o| < 2 rounded once, so one or two bf16 steps
+    _close(got, FA.flash_attention_plain(q, k, v, causal), 2e-5 if dtype == "f32" else 2 ** -6)
+
+
+def test_mha_routes_long_sequences_to_the_kernel(rng, dev):
+    q = _t(rng.standard_normal((2, 4, 129, 64)), dev, torch.bfloat16).requires_grad_()
+    before = FA.flash_attention_kernel.launches
+    out = mha(q, q, q)
+    assert FA.flash_attention_kernel.launches == before + 1
+    mha(q[:, :, :128], q[:, :, :128], q[:, :, :128])  # s <= 128: the plain version
+    assert FA.flash_attention_kernel.launches == before + 1
+    out.float().square().sum().backward()  # backward: recompute through mha_plain
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+
+
+def test_vision_encoders_on_card_match_cpu(rng, dev):
+    """ViT token count (257 -> 272) at a narrow width: the module tower goes
+    through the flash kernel, the plans through B3a/B3b and B1."""
+    arch = CLIPArch(64, 64, 2, W, 4, 77, 49408, W, H, 1)
+    model = build_model("", arch=arch, seed=2, dtype=torch.float32)
+    imgs = rng.standard_normal((3, 64, 64, 3)).astype(np.float32)
+    with torch.no_grad():
+        ref = model.encode_image(torch.tensor(imgs))
+        card = build_model("", arch=arch, seed=2, dtype=torch.bfloat16, device=dev)
+        dispatch.reset_launch_counts()
+        got = card.encode_image(torch.tensor(imgs, device=dev))
+        assert dispatch.launch_counts()["flash_attention_kernel"] == arch.vision_layers
+        cos = torch.nn.functional.cosine_similarity(got.cpu(), ref, dim=-1)
+        assert cos.min().item() > 0.999, cos
+        for quantize in (None, "int8"):
+            cpu = encode_image_fast(arch, make_vision_plan(model, quantize=quantize), torch.tensor(imgs))
+            dispatch.reset_launch_counts()
+            gpu = encode_image_fast(arch, make_vision_plan(card, quantize=quantize), torch.tensor(imgs, device=dev))
+            counts = dispatch.launch_counts()
+            assert counts["fused_layer_q8" if quantize else "fused_attention_block"] == arch.vision_layers
+            cos = torch.nn.functional.cosine_similarity(gpu.cpu(), cpu, dim=-1)
+            assert cos.min().item() > 0.999, (quantize, cos)

@@ -7,6 +7,8 @@ The port's module tower is held to flax ``encode_text`` at f32; the port's
 mode, for the bf16 and the int8 plan.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +22,8 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as TM
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as TF
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import (
     from_flax_params,
+    arch_from_state_dict,
     load_openai_state_dict,
-    text_arch_from_state_dict,
 )
 
 # test arch: width 128, 2 heads, 2 layers, ff 512, the real CLIP vocab
@@ -57,11 +59,12 @@ def test_converter_layout(flax_params):
     sd = flax_to_openai(params)
     # OpenAI stores in_proj_weight [3W, W]; flax's kernel is [W, 3W]
     assert sd["transformer.resblocks.0.attn.in_proj_weight"].shape == (3 * 128, 128)
-    arch = text_arch_from_state_dict(sd)
+    arch = arch_from_state_dict(sd)
     assert (arch.text_width, arch.text_layers, arch.text_heads, arch.vocab_size) == (128, 2, 2, 49408)
+    assert dataclasses.astuple(arch) == dataclasses.astuple(ARCH)  # the vision side too
     tower = load_openai_state_dict(sd, dtype=torch.float32, arch=ARCH)
     np.testing.assert_array_equal(
-        tower.transformer.resblocks[1].attn.in_proj_weight.detach().numpy(),
+        tower.text.transformer.resblocks[1].attn.in_proj_weight.detach().numpy(),
         np.asarray(params["text"]["transformer"]["resblocks_1"]["attn"]["in_proj"]["kernel"]).T,
     )
 
@@ -73,7 +76,7 @@ def test_text_tower_matches_flax_f32(flax_params, rng, s):
     want = np.asarray(JM.encode_text(model, params, jnp.asarray(ids), normalize=False))
     tower = from_flax_params(params, dtype=torch.float32, arch=ARCH)
     with torch.no_grad():
-        got = tower(torch.tensor(ids, dtype=torch.long)).numpy()
+        got = tower.encode_text(torch.tensor(ids, dtype=torch.long)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
@@ -126,9 +129,11 @@ def test_make_text_plan_rejects_unknown_mode(flax_params):
 
 
 def test_build_text_model_is_seeded():
-    a = TM.build_text_model("", arch=ARCH, seed=3)
-    b = TM.build_text_model("", arch=ARCH, seed=3)
+    a = TM.build_model("", arch=ARCH, seed=3)
+    b = TM.build_model("", arch=ARCH, seed=3)
     for (na, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), na
+    c = TM.build_model("", arch=ARCH, seed=4)
+    assert not torch.equal(a.text.token_embedding.weight, c.text.token_embedding.weight)
     with pytest.raises(ValueError):
-        TM.build_text_model("ViT-X/99")
+        TM.build_model("ViT-X/99")

@@ -18,15 +18,22 @@ PKG = "knowledge_enhanced_multimodal_retrieval_tpu_torch"
 SLICE_MODULES = [
     PKG,
     f"{PKG}.ops.dispatch",
+    f"{PKG}.ops.attention",
+    f"{PKG}.ops.flash_attention",
     f"{PKG}.ops.fused_block",
     f"{PKG}.ops.similarity",
     f"{PKG}.models.clip",
     f"{PKG}.models.convert",
     f"{PKG}.models.fast_encode",
     f"{PKG}.data.tokenizer",
+    f"{PKG}.data.preprocess",
+    f"{PKG}.data.datasets",
+    f"{PKG}.eval.evaluator",
     f"{PKG}.retrieval.embedding_store",
     f"{PKG}.retrieval.clip_retrieval",
     f"{PKG}.retrieval.engine",
+    f"{PKG}.cli.common",
+    f"{PKG}.cli.precompute",
     f"{PKG}.cli.serve",
 ]
 
@@ -63,6 +70,6 @@ def test_route_follows_the_tensor_device():
 def test_build_key_covers_sources_and_flags(monkeypatch):
     key = dispatch.source_hash()
     assert dispatch.library_path().name == f"libkemr_kernels_{key}.so"
-    assert {p.name for p in dispatch.kernel_sources()} >= {"fused_block.cu", "similarity.cu", "common.cuh"}
+    assert {p.name for p in dispatch.kernel_sources()} >= {"attention.cu", "fused_block.cu", "similarity.cu", "common.cuh"}
     monkeypatch.setattr(dispatch, "NVCC_FLAGS", dispatch.NVCC_FLAGS + ["-lineinfo"])
     assert dispatch.source_hash() != key
