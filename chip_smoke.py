@@ -23,6 +23,17 @@
    ``synthetic:32`` at ViT-L/14@336px; the stores must agree row by row.
 6. Answers 64 image queries over the 43,000-row store with the 300
    precomputed rows appended.
+7. The compressed-corpus kernels against their plain versions: B2's int4
+   mode and the PQ ADC scan B5 (M = 96, K = 256) at 43,000 and 1,000,000
+   rows (random packed bytes and codes at 1M), Q = 256, k = 20.
+8. Serves the compressed-corpus tiers over a clustered 43,000-row store
+   (int4; pq; pq + OPQ; binary + rotation + rerank; int8 + truncate_dim 256
+   + rerank; IVF over int8, int4 and pq lists from ``cli.index`` caches,
+   nprobe 8), 3 batches of 256 queries each: launches, batch latency,
+   served top-k against the plain top-k on the same query embeddings,
+   reranked scores against the exact host rescore, recall@10 against the
+   exact blended ranking for the text queries and for 256 corpus rows as
+   queries (reported, not gated).
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel must have launched in the path it belongs to.
 
@@ -49,6 +60,19 @@ CORPUS, QUERIES, K = 43_000, 256, 20
 V_WIDTH, V_HEADS, V_FF, V_SEQ, V_MASK, V_BATCH = 1024, 16, 4096, 272, 257, 64  # ViT-L/14 vision
 V336_SEQ, V336_MASK = 592, 577  # ViT-L/14@336px
 N_DOCS, IMAGE_QUERIES = 300, 64
+SCALE_ROWS = 1_000_000  # the scale ladder's corpus size
+PQ_M, PQ_K = 96, 256  # ViT-L/14 width / 8 subspaces, uint8 codes
+NPROBE = 8
+CAPACITY_TIERS = {
+    "int4": dict(quantize_corpus="int4"),
+    "pq": dict(quantize_corpus="pq"),
+    "pq+opq": dict(quantize_corpus="pq", rotate="opq"),
+    "binary+rotate+rerank": dict(quantize_corpus="binary", rotate=True, rerank=True),
+    "int8+truncate256+rerank": dict(quantize_corpus="int8", truncate_dim=256, rerank=True),
+    "ivf int8": dict(quantize_corpus="int8", ann="ivf"),
+    "ivf int4": dict(quantize_corpus="int4", ann="ivf"),
+    "ivf pq": dict(quantize_corpus="pq", ann="ivf"),
+}
 MERGES = [("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")]  # synthetic BPE table (no CLIP vocab in the repo)
 
 # Kernel vs plain tolerances, in absolute output units.
@@ -64,6 +88,10 @@ TOL_TOPK = 1e-5
 # attention (B6/B7): kernel and plain version both keep f32 through p@v and
 # round once to bf16; outputs |o| < 4 (step <= 2^-6 there), one step apart.
 TOL_ATTN = 2.0 ** -6
+# IVF probes, card against the CPU in f32: other summation orders (~1e-6);
+# IVF-PQ also casts its LUTs to bf16, where an entry can round one step the
+# other way (a few 1e-4 per entry, M entries per score).
+TOL_IVF, TOL_IVF_PQ = 1e-4, 5e-3
 # precompute stores and image queries: L2-normalized rows. Stores of two
 # encoders agree per row at the int8 cosine bound; an image query finds its
 # own row at 1 - (bf16 rounding of two unit vectors, ~2^-8, and cuBLAS
@@ -113,14 +141,14 @@ def _t(torch, dev, a, dtype):
     return torch.tensor(np.asarray(a, np.float32)).to(dev, dtype).contiguous()
 
 
-def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain_fn):
+def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain_fn, plain_iters=20):
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     log(f"{name}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
     if not np.isfinite(err) or err > tol:
         raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
-    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
-    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20, CUDA events)")
+    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters)
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20 / {plain_iters}, CUDA events)")
     results[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
@@ -487,6 +515,211 @@ def image_query_phase(torch, dev, model, store_path, docs, results):
     return counts
 
 
+def capacity_kernel_phases(torch, dev, results):
+    """B2-q4 and B5 against their plain versions at the served corpus size
+    and at the scale ladder's 1M rows (random packed bytes and codes)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    norm = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)  # noqa: E731
+    qs = _t(torch, dev, norm(rng.standard_normal((QUERIES, WIDTH))), bf)
+    alpha = _t(torch, dev, rng.uniform(0.2, 0.8, (QUERIES, 1)), f32)
+    src_sim, src_pq = f"{PKG}/csrc/similarity.cu", f"{PKG}/csrc/pq.cu"
+    ref_q4 = "knowledge_enhanced_multimodal_retrieval_tpu/ops/similarity.py:619"
+    ref_pq = "knowledge_enhanced_multimodal_retrieval_tpu/ops/pq.py:708"
+    for n in (CORPUS, SCALE_ROWS):
+        t0 = time.perf_counter()
+        plain_iters = 20 if n == CORPUS else 5
+        if n == CORPUS:  # host-packed real rows
+            packs = [SIM.quantize_corpus_host_q4(norm(rng.standard_normal((n, WIDTH)))) for _ in range(2)]
+            c4 = (_t(torch, dev, packs[0][0], torch.int8), _t(torch, dev, packs[0][1], f32),
+                  _t(torch, dev, packs[1][0], torch.int8), _t(torch, dev, packs[1][1], f32))
+        else:  # random nibbles: the kernel does not care, and host packing would cost minutes
+            rand_bytes = lambda: torch.randint(0, 256, (n, WIDTH // 2), dtype=torch.uint8, device=dev, generator=gen).view(torch.int8)  # noqa: E731
+            rand_scale = lambda: 0.01 + 0.02 * torch.rand((n, 1), device=dev, generator=gen)  # noqa: E731
+            c4 = (rand_bytes(), rand_scale(), rand_bytes(), rand_scale())
+        got = SIM.fused_similarity_topk_q4(qs, *c4, K, alpha=alpha)
+        want = topk_agree(got, SIM.blended_scores_q4(qs, *c4, alpha), K, TOL_TOPK)
+        record(torch, results, f"B2-q4 similarity_topk q4 [{n}]", src_sim, ref_q4, got[0], want[0], TOL_TOPK,
+               lambda: SIM.fused_similarity_topk_q4(qs, *c4, K, alpha=alpha),
+               lambda: SIM.topk_plain(SIM.blended_scores_q4(qs, *c4, alpha), K), plain_iters)
+        del c4
+
+        luts = [(0.05 * torch.randn((PQ_M, QUERIES, PQ_K), device=dev, generator=gen)).to(bf) for _ in range(2)]
+        codes = [torch.randint(0, PQ_K, (n, PQ_M), dtype=torch.uint8, device=dev, generator=gen) for _ in range(2)]
+        scales = [0.5 + torch.rand((n, 1), device=dev, generator=gen) for _ in range(2)]
+        for sc in scales:
+            sc[-100:] = 0.0  # capacity-pad rows score exactly 0
+        args = (alpha, luts[0], luts[1], codes[0], scales[0], codes[1], scales[1])
+        got = PQ.pq_adc_topk(*args, K)
+        want = topk_agree(got, PQ.blended_adc_from_luts(*args), K, TOL_TOPK)
+        record(torch, results, f"B5 pq_adc_topk [{n}]", src_pq, ref_pq, got[0], want[0], TOL_TOPK,
+               lambda: PQ.pq_adc_topk(*args, K),
+               lambda: SIM.topk_plain(PQ.blended_adc_from_luts(*args), K), plain_iters)
+        del args, luts, codes, scales
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"capacity kernels at {n} rows: {time.perf_counter() - t0:.1f} s")
+
+
+def _ids_agree(got_v, got_i, want_v, want_i, tol, tag):
+    """Two top-k lists agree: values within ``tol``, and wherever the rows
+    differ, the two values are a near tie."""
+    np.testing.assert_allclose(got_v, want_v, rtol=tol, atol=tol, err_msg=tag)
+    diff = got_i != want_i
+    assert (np.abs(got_v - want_v)[diff] <= tol).all(), tag
+    return float(diff.mean())
+
+
+def capacity_serve_phase(torch, dev, model, store_path, tier, kw, results):
+    """Serve one compressed-corpus tier through ``CLIPRetrieval`` +
+    ``RetrievalEngine``; returns {wrapper: launches} of the batches."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import binary_sketch as BS
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.ann import ivf_search
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine
+
+    t_phase = time.perf_counter()
+    store = EmbeddingStore.load(store_path)
+    t0 = time.perf_counter()
+    retriever = CLIPRetrieval(model, CLIPTokenizer(MERGES), store, device=dev, top_k=K, use_fused_encoder=True, **kw)
+    build_s = time.perf_counter() - t0
+    engine = RetrievalEngine(retriever)
+    rng = np.random.default_rng(6)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    batches = [[" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)] for _ in range(4)]
+    engine.retrieve_text_noknowledge_batch(batches[3])  # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    lat = []
+    for b in batches[:3]:
+        t0 = time.perf_counter()
+        out = engine.retrieve_text_noknowledge_batch(b, alpha_clip=list(rng.uniform(0.2, 0.8, len(b))))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        for r in out:
+            scores = [x["score"] for x in r]
+            assert len(r) == K and all(np.isfinite(scores)) and scores == sorted(scores, reverse=True), tier
+            assert all(x["uuid"].startswith("uuid-") for x in r), tier
+    counts = dispatch.launch_counts()
+
+    # the served top-k against the plain top-k on the same query embeddings
+    c = retriever._corpus
+    q = retriever.encode_queries(batches[1]).float()
+    a = 0.5
+    fetch = retriever._k_fetch(c, K)
+    got = retriever._score(c, q, a, fetch)
+    if "ivf" in tier:
+        sub = q[:32]
+        got = retriever._score(c, sub, a, fetch)
+        cpu = ivf_search(sub.cpu(), c.ivf.to("cpu"), k=fetch, nprobe=c.nprobe, alpha=a)
+        tol = TOL_IVF_PQ if kw["quantize_corpus"] == "pq" else TOL_IVF
+        swapped = _ids_agree(got[0].cpu().numpy(), got[1].cpu().numpy(), cpu[0].numpy(), cpu[1].numpy(), tol, tier)
+        check = f"probe on the card == probe on the CPU (rows swapped at near ties: {swapped:.4f})"
+    else:
+        qt = SIM.prefix_normalize(q, retriever.truncate_dim) if retriever.truncate_dim else q
+        qr = qt @ retriever._rot if retriever._rot is not None else qt
+        qm = qr.to(model.dtype)
+        if kw["quantize_corpus"] == "int4":
+            scores = SIM.blended_scores_q4(qm, c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, a)
+        elif kw["quantize_corpus"] == "int8":
+            scores = SIM.blended_scores_q8(qm, c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, a)
+        elif kw["quantize_corpus"] == "pq":
+            (ci, cbi), (ct, cbt) = c.corpus_img, c.corpus_txt
+            # the card serves B5's ADC scores (the CPU the decode path)
+            plain = PQ.blended_scores_pq_adc if qm.is_cuda else PQ.blended_scores_pq
+            scores = plain(qm, ci, c.corpus_img_scale, ct, c.corpus_txt_scale, cbi, cbt, a)
+        else:  # binary: the Hamming proxies, on a CPU copy
+            dim = c.store.dim
+            qb = BS.pack_sign_bits(qr.cpu())
+            prox = [1.0 - torch.tensor(2.0 / dim) * BS.hamming_scores(qb, w.cpu()).float()
+                    for w in (c.corpus_img, c.corpus_txt)]
+            scores = a * prox[0] + (1.0 - a) * prox[1]
+        topk_agree(got, scores, fetch, TOL_TOPK)
+        check = "served top-k == plain top-k"
+    if retriever.rerank:
+        # reranked scores are the exact host rescore of the fetched rows
+        qn = q.cpu().numpy()
+        res = retriever.retrieval_embeddings_batch(q, alpha=a)
+        row = {u: i for i, u in enumerate(c.store.uuids)}
+        for qi, r in enumerate(res):
+            rows = np.array([row[x["uuid"]] for x in r])
+            exact = a * (c.store.image[rows] @ qn[qi]) + (1.0 - a) * (c.store.text[rows] @ qn[qi])
+            np.testing.assert_allclose([x["score"] for x in r], exact, rtol=1e-6, atol=1e-7, err_msg=tier)
+        check += "; reranked scores == exact host rescore"
+
+    # recall@10 against the exact blended ranking of the f32 store, for the
+    # text queries (random-weight encoder: they sit off the corpus, so their
+    # true top-10 margins are thin) and for 256 corpus text rows as queries
+    # (the calibrate_nprobe default: queries on the corpus distribution)
+    img = torch.as_tensor(store.image, device=dev)
+    txt = torch.as_tensor(store.text, device=dev)
+
+    def recall_at_10(qq):
+        res = retriever.retrieval_embeddings_batch(qq, alpha=a, top_k=10)
+        exact_ids = torch.topk(a * (qq @ img.T) + (1.0 - a) * (qq @ txt.T), 10, dim=1).indices.cpu().numpy()
+        return float(np.mean([len({store.uuids[i] for i in e} & {x["uuid"] for x in r}) / 10.0
+                              for e, r in zip(exact_ids, res)]))
+
+    recall = recall_at_10(q)
+    recall_rows = recall_at_10(txt[torch.as_tensor(rng.choice(CORPUS, QUERIES, replace=False), device=dev)])
+    med = float(np.median(lat) * 1e3)
+    secs = time.perf_counter() - t_phase
+    log(f"serve {tier}: build {build_s:.1f} s; 256-query batch median {med:.2f} ms; recall@10 {recall:.4f} "
+        f"(corpus rows as queries {recall_rows:.4f}); {check}; launches {counts}; phase {secs:.1f} s")
+    results.setdefault("capacity_tiers", {})[tier] = dict(
+        batch_ms=med, recall_at_10=recall, recall_at_10_corpus_rows=recall_rows, build_s=build_s)
+    del engine, retriever, img, txt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def capacity_phases(torch, dev, model, tmp, results):
+    """The compressed-corpus tiers over a clustered 43,000-row store; the
+    IVF tiers serve caches written by ``cli.index``."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import index as index_cli
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+
+    rng = np.random.default_rng(8)
+    centers = rng.standard_normal((1000, WIDTH)).astype(np.float32)
+    pick = rng.integers(0, 1000, CORPUS)
+
+    def tower():
+        x = centers[pick] + 0.6 * rng.standard_normal((CORPUS, WIDTH)).astype(np.float32)
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+    path = os.path.join(tmp, "clustered.npz")
+    EmbeddingStore(image=tower(), text=tower(), uuids=[f"uuid-{i:06d}" for i in range(CORPUS)]).save(path)
+    counts = {}
+    for tier, kw in CAPACITY_TIERS.items():
+        kw = dict(kw)
+        if kw.get("ann"):
+            out = os.path.join(tmp, f"ivf_{kw['quantize_corpus']}.npz")
+            t0 = time.perf_counter()
+            index_cli.main(["--store", path, "--out", out, f"--eval.quantize_corpus={kw['quantize_corpus']}",
+                            "--device=cuda"])
+            torch.cuda.synchronize()
+            log(f"cli.index {kw['quantize_corpus']}: {time.perf_counter() - t0:.1f} s")
+            stamp = os.stat(out).st_mtime_ns
+            # the pq lists' default budget refuses 256-query batches at nprobe 8
+            kw |= dict(ann_nprobe=NPROBE, ann_index_path=out, ann_max_batch_lookups=0)
+        counts[tier] = capacity_serve_phase(torch, dev, model, path, tier, kw, results)
+        if kw.get("ann"):
+            assert os.stat(out).st_mtime_ns == stamp, f"{tier} rebuilt its index instead of loading cli.index's"
+    assert counts["int4"]["similarity_topk_kernel"] > 0, "B2-q4 never launched while serving int4"
+    for tier in ("pq", "pq+opq"):
+        assert counts[tier]["pq_adc_topk_kernel"] > 0, f"B5 never launched while serving {tier}"
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -515,6 +748,7 @@ def main() -> int:
     results = {}
     kernel_phases(torch, dev, results)
     vision_kernel_phases(torch, dev, results)
+    capacity_kernel_phases(torch, dev, results)
 
     rng = np.random.default_rng(2)
     norm = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
@@ -530,6 +764,9 @@ def main() -> int:
         ).save(store_path)
         fast = serve_phase(torch, dev, model, store_path, "fast", results)
         int8 = serve_phase(torch, dev, model, store_path, "int8", results)
+        t0 = time.perf_counter()
+        cap = capacity_phases(torch, dev, model, tmp, results)
+        log(f"capacity serve phases: {time.perf_counter() - t0:.1f} s")
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -563,6 +800,10 @@ def main() -> int:
         f"B1 fused_layer_q8{v336}": pre336["int8"]["fused_layer_q8"],
         "B7 flash_attention s=577": pre336["flax"]["flash_attention_kernel"],
         "B2 similarity_topk exact, image queries": iq["similarity_topk_kernel"],
+        f"B2-q4 similarity_topk q4 [{CORPUS}]": cap["int4"]["similarity_topk_kernel"],
+        f"B2-q4 similarity_topk q4 [{SCALE_ROWS}]": cap["int4"]["similarity_topk_kernel"],
+        f"B5 pq_adc_topk [{CORPUS}]": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
+        f"B5 pq_adc_topk [{SCALE_ROWS}]": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
     }
     for name, n in launches.items():
         if n <= 0:
@@ -570,6 +811,9 @@ def main() -> int:
         results[name]["launches"] = n
     kernels = [results[name] for name in launches]
     log(f"serve batch medians: fast {results['serve_fast_batch_ms']:.2f} ms, int8 {results['serve_int8_batch_ms']:.2f} ms")
+    log("capacity tiers (256-query batch ms, recall@10 text queries / corpus rows): " + "; ".join(
+        f"{tier} {v['batch_ms']:.2f} ms, {v['recall_at_10']:.4f} / {v['recall_at_10_corpus_rows']:.4f}"
+        for tier, v in results["capacity_tiers"].items()))
     log("precompute images/s (build_embedding_store, synthetic:300, batch 256): " + ", ".join(
         f"{enc} {results[f'precompute_{enc}']['images_per_s']:.1f}" for enc in ("flax", "fast", "int8")))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -10,6 +10,14 @@ Text2SPARQL retriever when its endpoints are configured, and answer:
         --eval.encoder=int8 --eval.quantize_corpus=int8 \
         [--device=cuda] [--query="madonna and child" | --batch < queries.txt]
 
+The capacity tiers take the JAX CLI's flags: ``--eval.quantize_corpus=
+int4|pq|binary``, ``--eval.pq_m``, ``--eval.pq_aniso_t``, ``--eval.rotate``
+with ``--eval.rotate_mode=random|opq`` and ``--eval.rotate_seed``,
+``--eval.truncate_dim``, ``--eval.rerank`` with ``--eval.rerank_factor``,
+and ``--eval.ann=ivf`` with ``--eval.ann_nlist``, ``--eval.ann_nprobe``,
+``--eval.ann_index`` (an index cache, e.g. from ``cli.index``) and
+``--eval.ann_max_batch_lookups``.
+
 ``--device`` defaults to ``cuda`` and never falls back: serving on the CPU
 (the kernels' plain versions) takes ``--device=cpu``.
 """
@@ -67,9 +75,15 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
         shard_corpus=cfg.eval.shard_corpus,
         shard_queries=cfg.eval.shard_queries,
         ann=cfg.eval.ann or None,
+        ann_nlist=cfg.eval.ann_nlist or None,
+        ann_nprobe=cfg.eval.ann_nprobe,
+        ann_index_path=cfg.eval.ann_index or None,
+        ann_max_batch_lookups=cfg.eval.ann_max_batch_lookups,
         rerank=cfg.eval.rerank,
+        rerank_factor=cfg.eval.rerank_factor,
         truncate_dim=cfg.eval.truncate_dim,
-        rotate=cfg.eval.rotate,
+        rotate=(cfg.eval.rotate_mode if cfg.eval.rotate else False),
+        rotate_seed=cfg.eval.rotate_seed,
         pq_m=cfg.eval.pq_m,
         pq_aniso_t=cfg.eval.pq_aniso_t,
     )

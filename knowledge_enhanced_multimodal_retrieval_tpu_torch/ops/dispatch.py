@@ -5,10 +5,11 @@ PyTorch version beside the kernel; a CUDA tensor launches the hand-written
 kernel or raises. Nothing falls back from one to the other.
 
 The kernels (``csrc/*.cu``) are compiled on first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``. The build lands in ``<package>/_build/`` under a name keyed by the
-hash of the sources and flags, so a fresh checkout builds once and later
-processes reuse the library.
+``sm_90a``, one ``nvcc`` per source, all started together, and linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build lands in ``<package>/_build/`` under a name keyed by the hash of the
+sources and flags, so a fresh checkout builds once and later processes
+reuse the library.
 """
 
 from __future__ import annotations
@@ -28,11 +29,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit installs it
 
@@ -86,28 +84,37 @@ def library_path() -> Path:
 
 
 def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    """Compile ``csrc/*.cu`` into the shared library unless it exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        objects = [os.path.join(tmp_dir, src.stem + ".o") for src in sources]
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        cmds = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(src), "-o", obj] for src, obj in zip(sources, objects)]
+        compiles = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for cmd in cmds
+        ]
+        failed = []
+        for cmd, proc in compiles:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
+            elif verbose and stderr:
+                print(stderr, flush=True)
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        tmp = os.path.join(tmp_dir, "lib.so")
+        cmd = [nvcc, *GENCODE, "-shared", "-o", tmp, *objects]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose and proc.stderr:
-            print(proc.stderr, flush=True)
+            raise KernelBuildError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: two processes building at once both land a whole file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

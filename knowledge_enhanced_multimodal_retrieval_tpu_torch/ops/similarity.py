@@ -1,16 +1,21 @@
 """Blended two-tower similarity + top-k: the retrieval scan.
 
 Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/ops/similarity.py``
-for the exact and int8 corpus modes:
+for the exact, int8 and int4 corpus modes:
 
     scores = alpha * (Q @ IMG^T) + (1 - alpha) * (Q @ TXT^T);  top-k(scores)
 
-:func:`fused_similarity_topk` / :func:`fused_similarity_topk_q8` launch the
-kernel B2 (``csrc/similarity.cu``) on CUDA tensors and run the plain
-version on CPU tensors. Selection semantics are the TPU kernel's: pad and
+:func:`fused_similarity_topk` / :func:`fused_similarity_topk_q8` /
+:func:`fused_similarity_topk_q4` launch the kernel B2
+(``csrc/similarity.cu``) on CUDA tensors and run the plain version on CPU
+tensors. Selection semantics are the TPU kernel's: pad and
 NaN scores become float32 min, ties go to the lowest corpus row, and a
 query with fewer than k finite scores is filled with (float32 min, row 0).
 k > 128 takes the segmented exact selection over plain scores, as in JAX.
+
+Also here, as in JAX, the host helpers the capacity tiers share: the
+Matryoshka prefix renormalization, the seeded random rotation and the exact
+f32 host rerank of fetched candidates.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ _NEG_INF = float(np.finfo(np.float32).min)
 _MAX_KERNEL_K = 128  # per-tile candidate lists hold at most the 128-row tile
 _TILE = 128  # corpus rows per kernel tile (csrc/similarity.cu TK_T)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q4_CODE = 3  # nibble-packed int4 corpus rows (int8 [N, D/2])
 
 
 def alpha_column(alpha, n_queries: int, device) -> torch.Tensor:
@@ -71,6 +77,127 @@ def quantize_corpus_host(emb) -> Tuple[np.ndarray, np.ndarray]:
     return q, scale.astype(np.float32)
 
 
+def dequantize_corpus(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale.float()).to(dtype)
+
+
+def prefix_normalize(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """First ``dim`` coordinates, re-L2-normalized (f32 norm math): the
+    Matryoshka serving primitive. Zero rows stay zero (guarded divide)."""
+    if not 0 < dim <= x.shape[-1]:
+        raise ValueError(f"truncate dim {dim} not in 1..{x.shape[-1]}")
+    t = x[..., :dim].float()
+    n = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+    return (t / torch.clamp(n, min=1e-12)).to(x.dtype)
+
+
+def prefix_normalize_host(x, dim: int) -> np.ndarray:
+    """NumPy twin of :func:`prefix_normalize` for host-side corpus staging."""
+    x = np.asarray(x)
+    if not 0 < dim <= x.shape[-1]:
+        raise ValueError(f"truncate dim {dim} not in 1..{x.shape[-1]}")
+    t = x[..., :dim].astype(np.float32)
+    n = np.linalg.norm(t, axis=-1, keepdims=True)
+    return t / np.maximum(n, 1e-12)
+
+
+def random_rotation(dim: int, seed: int = 0) -> np.ndarray:
+    """Seeded random orthonormal rotation ``R [dim, dim]`` (f32 NumPy): QR
+    of a Gaussian with the R-diagonal sign fix, the JAX package's draw bit
+    for bit. Rotating corpus rows and queries by the same R leaves exact
+    inner products unchanged but spreads each row's energy across
+    coordinates, so int4/int8 grids and sign sketches lose less recall."""
+    rng = np.random.default_rng(np.uint64(seed) + 0x5EED)
+    g = rng.standard_normal((dim, dim))
+    q, r = np.linalg.qr(g)
+    return (q * np.sign(np.diag(r))).astype(np.float32)
+
+
+# int4 corpus, plane layout: packed byte column j holds dim j in the LOW
+# nibble and dim j + D/2 in the HIGH nibble (both 4-bit two's complement),
+# so q . row == q_lo . lo + q_hi . hi over two contiguous [N, D/2] planes.
+
+
+def quantize_corpus_host_q4(emb) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int4, nibble-packed: ``(packed int8 [N, D/2],
+    scale f32 [N, 1])``, ``emb ~= unpack(packed) * scale``. ``D`` must be
+    even. Host-side, so the f32 corpus never stages on the device."""
+    emb = np.asarray(emb, np.float32)
+    n, d = emb.shape
+    if d % 2:
+        raise ValueError(f"int4 packing needs an even embedding dim, got {d}")
+    scale = np.maximum(np.max(np.abs(emb), axis=1, keepdims=True) / 7.0, 1e-12)
+    q = np.clip(np.round(emb / scale), -8, 7).astype(np.int8)
+    lo, hi = q[:, : d // 2], q[:, d // 2 :]
+    packed = ((hi.astype(np.uint8) << 4) | (lo.astype(np.uint8) & 0xF)).view(np.int8)
+    return packed, scale.astype(np.float32)
+
+
+def _unpack_q4(packed: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, D/2] packed int8 -> (lo, hi) planes in ``dtype`` (exact: 4-bit
+    values fit every float mantissa). The high nibble is the arithmetic
+    shift of the sign-extended byte; the low one sign-extends 4 bits."""
+    b = packed.to(torch.int32)
+    hi = b >> 4
+    lo = ((b & 0xF) ^ 8) - 8
+    return lo.to(dtype), hi.to(dtype)
+
+
+def dequantize_corpus_q4(packed: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    lo, hi = _unpack_q4(packed, torch.float32)
+    return (torch.cat([lo, hi], dim=1) * scale.float()).to(dtype)
+
+
+def blended_scores_q4(queries, img_p, img_scale, txt_p, txt_scale, alpha, queries_txt=None) -> torch.Tensor:
+    """[Q, N] scores over a nibble-packed int4 corpus, op-order-matched to
+    the kernel: unpack the planes to the query dtype, one half-width dot per
+    plane with f32 accumulation, per-row scales on the f32 score columns."""
+    a = alpha_column(alpha, queries.shape[0], queries.device)
+    q_txt = queries if queries_txt is None else queries_txt
+    d2 = img_p.shape[1]
+
+    def plane_scores(q, packed):
+        lo, hi = _unpack_q4(packed, q.dtype)
+        return q[:, :d2].float() @ lo.float().T + q[:, d2:].float() @ hi.float().T
+
+    t2i = plane_scores(queries, img_p)
+    t2t = plane_scores(q_txt, txt_p)
+    img_s = img_scale.float().reshape(1, -1)
+    txt_s = txt_scale.float().reshape(1, -1)
+    return a * (t2i * img_s) + (1.0 - a) * (t2t * txt_s)
+
+
+def rerank_scores_host(queries, image, text, idx, alpha) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact f32 host rescore of fetched candidates (the JAX package's
+    two-tier rerank semantics, in NumPy). ``queries`` [Q, D], ``image`` /
+    ``text`` [N, D] f32 host rows, ``idx`` [Q, R] candidate rows (-1 = ann
+    sentinel, masked to -inf). Returns ``(scores, idx)`` sorted descending
+    with stable ties. ``KEMR_NATIVE_RERANK=1`` opts into the JAX package's
+    native C++ rescore (its ctypes wrapper loads no JAX)."""
+    import os
+
+    queries = np.asarray(queries, np.float32)
+    idx = np.asarray(idx)
+    s = None
+    if os.environ.get("KEMR_NATIVE_RERANK"):
+        from knowledge_enhanced_multimodal_retrieval_tpu.native.rerank_wrapper import rerank_scores_native
+
+        s = rerank_scores_native(queries, np.asarray(image), np.asarray(text), idx, alpha)
+    if s is None:
+        # per-query row gathers + BLAS matvec (the JAX package's loop)
+        a = np.broadcast_to(np.asarray(alpha, np.float32).reshape(-1), (queries.shape[0],))
+        image = np.asarray(image)
+        text = np.asarray(text)
+        safe = np.maximum(idx, 0)
+        s = np.empty(idx.shape, np.float32)
+        for q in range(idx.shape[0]):
+            rows = safe[q]
+            s[q] = a[q] * (image[rows] @ queries[q]) + (1.0 - a[q]) * (text[rows] @ queries[q])
+        s = np.where(idx >= 0, s, -np.inf).astype(np.float32)
+    order = np.argsort(-s, axis=1, kind="stable")
+    return np.take_along_axis(s, order, 1), np.take_along_axis(idx, order, 1)
+
+
 def _stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, ties to the lowest position."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -107,9 +234,10 @@ _TOPK_ARGS = [I, I] + [P] * 7 + [I] * 4 + [P] * 4 + [P]
 
 @dispatch.counted
 def similarity_topk_kernel(
-    queries_img, queries_txt, img, txt, img_scale, txt_scale, alpha_col, k: int
+    queries_img, queries_txt, img, txt, img_scale, txt_scale, alpha_col, k: int, q4: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B2 on CUDA tensors (exact mode when the scales are None)."""
+    """Launch B2 on CUDA tensors (exact mode when the scales are None; with
+    ``q4`` the int8 corpus holds nibble-packed rows of ``D / 2`` bytes)."""
     dev = queries_img.device
     qn, d = queries_img.shape
     n = img.shape[0]
@@ -118,14 +246,17 @@ def similarity_topk_kernel(
         raise ValueError(f"unsupported dtypes: queries {qdt}, corpus {cdt}")
     if (img_scale is None) != (cdt != torch.int8):
         raise ValueError("per-row scales go with an int8 corpus, and only with one")
+    if q4 and (cdt != torch.int8 or d % 2):
+        raise ValueError(f"q4 mode needs an int8 packed corpus and an even query width, got {cdt}, {d}")
     if cdt != torch.int8 and cdt != qdt:
         raise ValueError(f"exact mode needs queries in the corpus dtype ({cdt}), got {qdt}")
     if not 0 < k <= _MAX_KERNEL_K:
         raise ValueError(f"kernel k must be in 1..{_MAX_KERNEL_K}, got {k}")
     dispatch.require(queries_img, "queries_img", qdt, dev, (qn, d))
     dispatch.require(queries_txt, "queries_txt", qdt, dev, (qn, d))
-    dispatch.require(img, "img", cdt, dev, (n, d))
-    dispatch.require(txt, "txt", cdt, dev, (n, d))
+    dc = d // 2 if q4 else d
+    dispatch.require(img, "img", cdt, dev, (n, dc))
+    dispatch.require(txt, "txt", cdt, dev, (n, dc))
     dispatch.require(alpha_col, "alpha", torch.float32, dev, (qn, 1))
     if img_scale is not None:
         dispatch.require(img_scale, "img_scale", torch.float32, dev, (n, 1))
@@ -139,7 +270,7 @@ def similarity_topk_kernel(
     idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
     fn = dispatch.kernel("kemr_similarity_topk", _TOPK_ARGS)
     status = fn(
-        _DTYPE_CODE[qdt], _DTYPE_CODE[cdt], queries_img.data_ptr(), queries_txt.data_ptr(),
+        _DTYPE_CODE[qdt], _Q4_CODE if q4 else _DTYPE_CODE[cdt], queries_img.data_ptr(), queries_txt.data_ptr(),
         img.data_ptr(), txt.data_ptr(),
         None if img_scale is None else img_scale.data_ptr(),
         None if txt_scale is None else txt_scale.data_ptr(),
@@ -195,4 +326,31 @@ def fused_similarity_topk_q8(
     a = alpha_column(alpha, qn, queries_img.device)
     return similarity_topk_kernel(
         queries_img, q_txt, img_q, txt_q, img_scale.reshape(-1, 1), txt_scale.reshape(-1, 1), a, k
+    )
+
+
+def fused_similarity_topk_q4(
+    queries_img: torch.Tensor,
+    img_p: torch.Tensor,
+    img_scale: torch.Tensor,
+    txt_p: torch.Tensor,
+    txt_scale: torch.Tensor,
+    k: int,
+    alpha=0.5,
+    queries_txt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blend + top-k over a nibble-packed int4 corpus
+    (:func:`quantize_corpus_host_q4`): B2's q4 mode on CUDA tensors."""
+    qn = queries_img.shape[0]
+    q_txt = queries_img if queries_txt is None else queries_txt
+    k = min(k, img_p.shape[0])
+    if k > _MAX_KERNEL_K:
+        scores = blended_scores_q4(queries_img, img_p, img_scale, txt_p, txt_scale, alpha, queries_txt)
+        return _segmented_topk_from_scores(scores, k, segment=4096)
+    if not dispatch.use_kernel(queries_img):
+        scores = blended_scores_q4(queries_img, img_p, img_scale, txt_p, txt_scale, alpha, queries_txt)
+        return topk_plain(scores, k)
+    a = alpha_column(alpha, qn, queries_img.device)
+    return similarity_topk_kernel(
+        queries_img, q_txt, img_p, txt_p, img_scale.reshape(-1, 1), txt_scale.reshape(-1, 1), a, k, q4=True
     )

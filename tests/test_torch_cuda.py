@@ -22,6 +22,7 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import flash_attention as FA
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as T
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as S
 
 pytestmark = pytest.mark.cuda
@@ -162,6 +163,81 @@ def test_topk_kernel(rng, dev, mode, k):
     assert (gi[5] == 0).all() and (got[0][5].cpu().numpy() == np.finfo(np.float32).min).all()
     if k > 1 and mode != "q8":
         assert gi[6, 0] == 17 and gi[6, 1] == 900
+
+
+@pytest.mark.parametrize("qdtype", ["bf16", "f32"])
+@pytest.mark.parametrize("k", [1, 20, 128])
+def test_topk_q4_kernel(rng, dev, qdtype, k):
+    """B2's q4 mode: odd N (ragged last tile), ragged query group, per-query
+    alpha, a NaN query and zero pad rows."""
+    n, q, d = 4321, 37, 96
+    norm = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    img, txt, qs = norm(rng.standard_normal((n, d))), norm(rng.standard_normal((n, d))), norm(rng.standard_normal((q, d)))
+    img[-9:] = 0.0
+    txt[-9:] = 0.0
+    qs[5] = np.nan
+    ip, is_ = S.quantize_corpus_host_q4(img)
+    tp, ts = S.quantize_corpus_host_q4(txt)
+    c = (_t(ip, dev, torch.int8), _t(is_, dev, torch.float32), _t(tp, dev, torch.int8), _t(ts, dev, torch.float32))
+    qd = _t(qs, dev, torch.bfloat16 if qdtype == "bf16" else torch.float32)
+    alpha = torch.tensor(rng.uniform(0.2, 0.8, q), device=dev)
+    before = S.similarity_topk_kernel.launches
+    got = S.fused_similarity_topk_q4(qd, *c, k, alpha=alpha)
+    assert S.similarity_topk_kernel.launches == before + 1
+    _topk_check(got, S.blended_scores_q4(qd, *c, alpha), k)
+    assert (got[1][5].cpu().numpy() == 0).all()
+
+
+@pytest.mark.parametrize("m,n_k", [(8, 32), (96, 256), (12, 100)])
+@pytest.mark.parametrize("k", [1, 20, 128])
+def test_pq_adc_kernel(rng, dev, m, n_k, k):
+    """B5 against its plain version: ragged tiles and query group, per-query
+    alpha, pad rows with scale 0, a NaN query; K = 100 takes the scalar
+    LUT copy."""
+    n, q, ds = 3001, 21, 4
+    lut_i, lut_t = (_t(rng.standard_normal((m, q, n_k)), dev, torch.bfloat16) for _ in range(2))
+    lut_i[:, 3] = float("nan")
+    codes_i, codes_t = (torch.tensor(rng.integers(0, n_k, (n, m)), dtype=torch.uint8, device=dev) for _ in range(2))
+    scale_i, scale_t = (_t(rng.uniform(0.5, 1.5, (n, 1)), dev, torch.float32) for _ in range(2))
+    scale_i[-13:] = 0.0
+    scale_t[-13:] = 0.0
+    alpha = _t(rng.uniform(0.2, 0.8, (q, 1)), dev, torch.float32)
+    args = (alpha, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t)
+    before = PQ.pq_adc_topk_kernel.launches
+    got = PQ.pq_adc_topk(*args, k)
+    assert PQ.pq_adc_topk_kernel.launches == before + 1
+    scores = PQ.blended_adc_from_luts(*args)
+    _topk_check(got, scores, k)
+    assert (got[1][3].cpu().numpy() == 0).all()
+    # the router at the serving shape: codebooks in, LUTs made on the card
+    cb_i, cb_t = (_t(rng.standard_normal((m, n_k, ds)), dev, torch.float32) for _ in range(2))
+    emb = _t(rng.standard_normal((q, m * ds)), dev, torch.bfloat16)
+    got = PQ.pq_similarity_topk(emb, codes_i, scale_i, codes_t, scale_t, cb_i, cb_t, k, alpha=alpha)
+    assert PQ.pq_adc_topk_kernel.launches == before + 2
+    _topk_check(got, PQ.blended_scores_pq_adc(emb, codes_i, scale_i, codes_t, scale_t, cb_i, cb_t, alpha), k)
+
+
+def test_capacity_kernels_refuse_wrong_operands(rng, dev):
+    q = _t(rng.standard_normal((4, 64)), dev, torch.bfloat16)
+    packed = torch.zeros((100, 32), dtype=torch.int8, device=dev)
+    scale = torch.ones((100, 1), dtype=torch.float32, device=dev)
+    a = torch.full((4, 1), 0.5, device=dev)
+    with pytest.raises(ValueError, match="shape"):  # q4 rows are D/2 bytes
+        S.similarity_topk_kernel(q, q, packed.repeat(1, 2), packed.repeat(1, 2), scale, scale, a, 5, q4=True)
+    with pytest.raises(ValueError, match="q4 mode"):
+        S.similarity_topk_kernel(q, q, q, q, None, None, a, 5, q4=True)
+    lut = torch.zeros((8, 4, 256), dtype=torch.bfloat16, device=dev)
+    codes = torch.zeros((100, 8), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        PQ.pq_adc_topk_kernel(a, lut.float(), lut, codes, scale, codes, scale, 5)
+    with pytest.raises(ValueError, match="expected cuda"):
+        PQ.pq_adc_topk_kernel(a, lut, lut, codes.cpu(), scale, codes, scale, 5)
+    with pytest.raises(ValueError, match="kernel k"):
+        PQ.pq_adc_topk_kernel(a, lut, lut, codes, scale, codes, scale, 129)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((768, 4, 256), dtype=torch.bfloat16, device=dev)
+        c = torch.zeros((100, 768), dtype=torch.uint8, device=dev)
+        PQ.pq_adc_topk_kernel(a, big, big, c, scale, c, scale, 5)
 
 
 def test_encode_text_fast_on_card_matches_cpu_plan(rng, dev):

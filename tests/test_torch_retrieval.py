@@ -178,8 +178,10 @@ def test_flax_encoder_mode_matches_fused(world):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"ann": "ivf"}, {"rerank": True}, {"truncate_dim": 32}, {"shard_corpus": True},
-     {"quantize_corpus": "int4"}, {"quantize_corpus": "pq"}],
+    # the parallel modes (A8) stay out on every corpus tier
+    [{"shard_corpus": True}, {"shard_queries": True}, {"rt": object()},
+     {"shard_corpus": True, "quantize_corpus": "int4"}, {"shard_queries": True, "ann": "ivf"},
+     {"rt": object(), "quantize_corpus": "pq"}],
 )
 def test_out_of_slice_options_raise(world, kwargs):
     _, params, path = world
