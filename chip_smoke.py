@@ -34,6 +34,20 @@
    reranked scores against the exact host rescore, recall@10 against the
    exact blended ranking for the text queries and for 256 corpus rows as
    queries (reported, not gated).
+9. The per-block int8 route and the vision-interior profiler: B4a, B4b, S1
+   (both interiors) and S2 (three flag settings) against their plain
+   versions at 64 x 272 rows x 1024 (ff 4096), B4a and S1 also at 4 x 592
+   rows; B4b(B4a(x)) == B1(x), S1 interior 0 == B4a and S2 gelu + requant
+   == B4b bit for bit; ``scripts.profile_vision_interior.main`` at its
+   defaults (seven medians at full ViT-L/14 vision width); and a vision
+   tower whose int8 layers exceed the routing cap (width 1536, 24 heads,
+   2 layers) through ``encode_image_fast``, batch 64: B4a and B4b launch
+   once per layer, B1 never, the result equals the whole-layer route's and
+   agrees with the same plan on the CPU.
+Each kernel's line also carries its bound (the larger of bytes over
+3.35 TB/s and operations over the card's peak for their type: 989 TFLOP/s
+bf16, 1,979 TOP/s int8, 67 TFLOP/s f32 outside the tensor cores) and, where
+one PyTorch call computes the same function, that call's time.
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel must have launched in the path it belongs to.
 
@@ -99,6 +113,61 @@ TOL_IVF, TOL_IVF_PQ = 1e-4, 5e-3
 STORE_COS = 0.999
 TOL_SELF = 1e-2
 
+# Published peaks of one H100 SXM at its full power limit (NVIDIA's data
+# sheet, dense): device memory bytes/s, bf16 and int8 tensor-core
+# operations/s, f32 operations/s outside the tensor cores.
+HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 989e12, 1979e12, 67e12
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the least time the card could take. ``bytes_moved``
+    counts each input read once and each output written once; ``ops`` is a
+    list of (operations, peak rate for their type)."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, sum(n / rate for n, rate in ops)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def layer_bounds(rows, width, ff, seq_len, mask_len, causal):
+    """Bounds of the layer kernels at one shape, from the shapes alone.
+    A multiply-add is 2 operations. Attention: q.k and p.v over the keys a
+    row may see (mask_len of them; on average (keys + 1) / 2 when causal)."""
+    keys = min(seq_len, mask_len)
+    attn = 4 * rows * width * ((keys + 1) / 2 if causal else keys)
+    act = 2 * rows * width * 2  # x read, out written, bf16
+    small = 4 * (6 * width + ff)  # LayerNorm vectors and biases, f32 (per half: less)
+    wa, wm = 4 * width * width, 2 * width * ff  # weight elements of the two halves
+    scales = 4 * (5 * width + ff)  # f32 per-output-channel scales
+    pa, pm = 2 * rows * wa, 2 * rows * wm  # projection operations of the two halves
+    return {
+        "B3a": bound(act + 2 * wa + small, [(pa + attn, BF16_OPS_S)]),
+        "B3b": bound(act + 2 * wm + small, [(pm, BF16_OPS_S)]),
+        "B1": bound(act + wa + wm + scales + small, [(pa + pm, INT8_OPS_S), (attn, BF16_OPS_S)]),
+        "B4a": bound(act + wa + scales + small, [(pa, INT8_OPS_S), (attn, BF16_OPS_S)]),
+        "B4b": bound(act + wm + scales + small, [(pm, INT8_OPS_S)]),
+        # S2 without requantization: c_proj is a bf16 product
+        "S2-bf16": bound(act + wm + scales + small, [(pm / 2, INT8_OPS_S), (pm / 2, BF16_OPS_S)]),
+    }
+
+
+def topk_bound(q, n, d, k, corpus_bytes_per_row):
+    """B2 in every mode: both towers' rows read once (``corpus_bytes_per_row``
+    each, scales included), queries and alpha read, k (value, row) pairs
+    written; two q x n x d products. The queries are bf16, so the products
+    count at the bf16 rate whatever the corpus is stored in."""
+    return bound(2 * n * corpus_bytes_per_row + q * d * 2 + q * 4 + q * k * 8, [(2 * 2 * q * n * d, BF16_OPS_S)])
+
+
+def pq_bound(q, n, m, n_k, k):
+    """B5: codes and scales of both towers, both LUTs (bf16) and alpha read,
+    k pairs written; one f32 add per (query, row, subspace, tower) and the
+    scale and blend per (query, row), outside the tensor cores."""
+    return bound(2 * n * (m + 4) + 2 * m * q * n_k * 2 + q * 4 + q * k * 8, [(2 * q * n * m + 4 * q * n, F32_OPS_S)])
+
+
+def attention_bound(b, h, s, d):
+    """B6 / B7: q, k, v read and o written (bf16); q.k and p.v."""
+    return bound(4 * b * h * s * d * 2, [(4 * b * h * s * s * d, BF16_OPS_S)])
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -141,7 +210,11 @@ def _t(torch, dev, a, dtype):
     return torch.tensor(np.asarray(a, np.float32)).to(dev, dtype).contiguous()
 
 
-def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain_fn, plain_iters=20):
+def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain_fn, plain_iters=20, *,
+           bound_of, library_fn=None):
+    """Hold ``got`` to ``want``, time the kernel, its plain version and (where
+    one PyTorch call computes the same function) that call, and keep the
+    kernel's line. ``bound_of`` is ``bound(...)``'s pair for this shape."""
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     log(f"{name}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
@@ -149,8 +222,12 @@ def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain
         raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20 / {plain_iters}, CUDA events)")
-    results[name] = dict(name=name, route="cuda", source=src, replaces=replaces,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    library_ms = median_ms(library_fn) if library_fn is not None else None
+    bound_ms, bound_by = bound_of
+    log(f"{name}: bound {bound_ms:.4f} ms by {bound_by} ({ms / bound_ms:.1f}x over it)"
+        + (f"; library call {library_ms:.4f} ms" if library_ms is not None else ""))
+    results[name] = dict(name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 SRC_FB = f"{PKG}/csrc/fused_block.cu"
@@ -177,17 +254,19 @@ def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, lay
 
     x = _t(torch, dev, rng.standard_normal((rows, width)), torch.bfloat16)
     ln, w, wb = _layer_weights(torch, dev, rng, width, ff)
+    bounds = layer_bounds(rows, width, ff, attn_kw["seq_len"], attn_kw["mask_len"], attn_kw["causal"])
     if "B3a" in layers:
         args = (x, ln["ln_scale"], ln["ln_bias"], wb["wqkv"], wb["bqkv"], wb["wo"], wb["bo"])
         record(torch, results, f"B3a fused_attention_block{tag}", SRC_FB, f"{REF_FB}:139",
                FB.fused_attention_block(*args, **attn_kw), FB.attention_block_plain(*args, **attn_kw, eps=1e-5),
                TOL_BF16_BLOCK, lambda: FB.fused_attention_block(*args, **attn_kw),
-               lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5))
+               lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5), bound_of=bounds["B3a"])
     if "B3b" in layers:
         margs = (x, ln["ln_scale"], ln["ln_bias"], wb["w1"], wb["b1"], wb["w2"], wb["b2"])
         record(torch, results, f"B3b fused_mlp_block{tag}", SRC_FB, f"{REF_FB}:226",
                FB.fused_mlp_block(*margs), FB.mlp_block_plain(*margs, eps=1e-5),
-               TOL_BF16_BLOCK, lambda: FB.fused_mlp_block(*margs), lambda: FB.mlp_block_plain(*margs, eps=1e-5))
+               TOL_BF16_BLOCK, lambda: FB.fused_mlp_block(*margs), lambda: FB.mlp_block_plain(*margs, eps=1e-5),
+               bound_of=bounds["B3b"])
     if "B1" in layers:
         q = {k: FB.quantize_weight(_t(torch, dev, w[k], torch.float32)) for k in ("wqkv", "wo", "w1", "w2")}
         qargs = (x, ln["ln_scale"], ln["ln_bias"], *q["wqkv"], wb["bqkv"], *q["wo"], wb["bo"],
@@ -199,8 +278,16 @@ def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, lay
         assert cos > 0.999, cos
         record(torch, results, f"B1 fused_layer_q8{tag}", SRC_FB, f"{REF_FB}:556", got, want, TOL_Q8_LAYER,
                lambda: FB.fused_layer_q8(*qargs, **attn_kw),
-               lambda: FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(ff), eps=1e-5))
+               lambda: FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(ff), eps=1e-5),
+               bound_of=bounds["B1"])
     torch.cuda.synchronize()
+
+
+def _matmul_topk(torch, q, ci, ct, alpha, k):
+    """The library yardstick for B2 exact: two ``matmul``s, the blend and
+    ``topk``. Timed beside the kernel; the port never calls it."""
+    a = alpha.reshape(-1, 1) if torch.is_tensor(alpha) else alpha
+    return lambda: torch.topk(a * (q @ ci.T).float() + (1.0 - a) * (q @ ct.T).float(), k, dim=1)
 
 
 def kernel_phases(torch, dev, results):
@@ -229,7 +316,8 @@ def kernel_phases(torch, dev, results):
     want = topk_agree(got, SIM.blended_scores(qs, ci, ct, alpha), K, TOL_TOPK)
     record(torch, results, "B2 similarity_topk exact", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
            lambda: SIM.fused_similarity_topk(qs, ci, ct, K, alpha=alpha),
-           lambda: SIM.topk_plain(SIM.blended_scores(qs, ci, ct, alpha), K))
+           lambda: SIM.topk_plain(SIM.blended_scores(qs, ci, ct, alpha), K),
+           bound_of=topk_bound(QUERIES, CORPUS, WIDTH, K, 2 * WIDTH), library_fn=_matmul_topk(torch, qs, ci, ct, alpha, K))
     iq, is_ = SIM.quantize_corpus_host(img)
     tq, ts = SIM.quantize_corpus_host(txt)
     c8 = (t(iq, torch.int8), t(is_, f32), t(tq, torch.int8), t(ts, f32))
@@ -237,7 +325,8 @@ def kernel_phases(torch, dev, results):
     want = topk_agree(got, SIM.blended_scores_q8(qs, *c8, alpha), K, TOL_TOPK)
     record(torch, results, "B2 similarity_topk q8", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
            lambda: SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha),
-           lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), K))
+           lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), K),
+           bound_of=topk_bound(QUERIES, CORPUS, WIDTH, K, WIDTH + 4))
     torch.cuda.synchronize()
 
 
@@ -260,8 +349,141 @@ def vision_kernel_phases(torch, dev, results):
     ):
         q, k, v = (_t(torch, dev, rng.standard_normal(shape), torch.bfloat16) for _ in range(3))
         record(torch, results, name, src, ref, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
-               TOL_ATTN, lambda: FA.flash_attention(q, k, v), lambda: FA.flash_attention_plain(q, k, v))
+               TOL_ATTN, lambda: FA.flash_attention(q, k, v), lambda: FA.flash_attention_plain(q, k, v),
+               bound_of=attention_bound(*shape),
+               library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
     torch.cuda.synchronize()
+
+
+SRC_PV = f"{PKG}/scripts/profile_vision_interior.py + {SRC_FB}"
+REF_PV = "scripts/profile_vision_interior.py"
+S2_SETTINGS = {"gelu+requant": (True, True), "no requant": (True, False), "no gelu no requant": (False, False)}
+
+
+def block_q8_phases(torch, dev, results):
+    """B4a, B4b, S1 and S2 against their plain versions at the profiler's
+    shape, B4a and S1 also at ViT-L/14@336px's sequence; and the three bit
+    equalities (pair == B1, S1 interior 0 == B4a, S2 gelu + requant == B4b)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import profile_vision_interior as PV
+
+    rng = np.random.default_rng(9)
+    ln, w, wb = _layer_weights(torch, dev, rng, V_WIDTH, V_FF)
+    ln2 = _layer_weights(torch, dev, rng, V_WIDTH, V_FF)[0]
+    lp = dict(ln1_scale=ln["ln_scale"], ln1_bias=ln["ln_bias"], ln2_scale=ln2["ln_scale"], ln2_bias=ln2["ln_bias"],
+              **{k: wb[k] for k in ("bqkv", "bo", "b1", "b2")})
+    for k in ("wqkv", "wo", "w1", "w2"):
+        lp[k], lp[k + "_s"] = FB.quantize_weight(_t(torch, dev, w[k], torch.float32))
+    a, m = PV.attn_operands(lp), PV.mlp_operands(lp)
+    n_chunks = FB.default_mlp_chunks(V_FF)
+    for nseq, seq, mask, tag in ((V_BATCH, V_SEQ, V_MASK, f" vision [{V_BATCH}x{V_SEQ}]"),
+                                 (4, V336_SEQ, V336_MASK, f" 336px [4x{V336_SEQ}]")):
+        x = _t(torch, dev, rng.standard_normal((nseq * seq, V_WIDTH)), torch.bfloat16)
+        kw = dict(seq_len=seq, heads=V_HEADS, mask_len=mask, causal=False)
+        bounds = layer_bounds(nseq * seq, V_WIDTH, V_FF, seq, mask, False)
+        y = FB.fused_attention_block_q8(x, *a, **kw)
+        record(torch, results, f"B4a fused_attention_block_q8{tag}", SRC_FB, f"{REF_FB}:403", y,
+               FB.attention_block_q8_plain(x, *a, **kw, eps=1e-5), TOL_Q8_LAYER,
+               lambda: FB.fused_attention_block_q8(x, *a, **kw),
+               lambda: FB.attention_block_q8_plain(x, *a, **kw, eps=1e-5), bound_of=bounds["B4a"])
+        for interior, label in ((PV.INTERIOR_PRODUCTION, "production"), (PV.INTERIOR_NOMAX, "no-max")):
+            got = PV.attn_q8_variant(x, lp, interior=interior, **kw)
+            record(torch, results, f"S1 attn_q8_variant {label}{tag}", SRC_PV, f"{REF_PV}:108", got,
+                   PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), TOL_Q8_LAYER,
+                   lambda: PV.attn_q8_variant(x, lp, interior=interior, **kw),
+                   lambda: PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), bound_of=bounds["B4a"])
+            if interior == PV.INTERIOR_PRODUCTION:
+                assert torch.equal(got, y), f"S1 interior 0 differs from B4a{tag}"
+        if seq != V_SEQ:
+            continue
+        out = FB.fused_mlp_block_q8(y, *m)
+        record(torch, results, f"B4b fused_mlp_block_q8{tag}", SRC_FB, f"{REF_FB}:478", out,
+               FB.mlp_block_q8_plain(y, *m, n_chunks=n_chunks, eps=1e-5), TOL_Q8_LAYER,
+               lambda: FB.fused_mlp_block_q8(y, *m),
+               lambda: FB.mlp_block_q8_plain(y, *m, n_chunks=n_chunks, eps=1e-5), bound_of=bounds["B4b"])
+        whole = FB.fused_layer_q8(x, *a, *m, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, whole), "B4b(B4a(x)) differs from B1(x)"
+        for label, (gelu, requant) in S2_SETTINGS.items():
+            got = PV.mlp_q8_diag(y, lp, gelu=gelu, requant=requant)
+            record(torch, results, f"S2 mlp_q8_diag {label}{tag}", SRC_PV, f"{REF_PV}:177", got,
+                   PV.mlp_q8_diag_plain(y, lp, gelu=gelu, requant=requant), TOL_Q8_LAYER,
+                   lambda: PV.mlp_q8_diag(y, lp, gelu=gelu, requant=requant),
+                   lambda: PV.mlp_q8_diag_plain(y, lp, gelu=gelu, requant=requant),
+                   bound_of=bounds["B4b" if requant else "S2-bf16"])
+            if gelu and requant:
+                assert torch.equal(got, out), "S2 with gelu and requant differs from B4b"
+        log(f"bit equalities at{tag}: B4b(B4a(x)) == B1(x), S1 interior 0 == B4a, S2 gelu+requant == B4b")
+    torch.cuda.synchronize()
+
+
+def profiler_phase(torch):
+    """``scripts.profile_vision_interior.main`` at its defaults (full
+    ViT-L/14 vision width); returns ({label: median ms}, launches)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import profile_vision_interior as PV
+
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    medians = PV.main([])
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert len(medians) == 7 and all(np.isfinite(v) and v > 0 for v in medians.values()), medians
+    log(f"vision-interior profiler: {time.perf_counter() - t0:.1f} s (model build included); launches {counts}")
+    torch.cuda.empty_cache()
+    return medians, counts
+
+
+def routing_phase(torch, dev, results):
+    """A vision tower whose int8 layers exceed the routing cap (width 1536:
+    12 x 1536^2 = 27 MiB a layer against 24 MiB) through ``make_vision_plan``
+    and ``encode_image_fast``: B4a and B4b once per layer, B1 never. Depth is
+    cut to 2 layers; the widths are whole. Returns the launches."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as FE
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.clip import CLIPArch, build_model
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+
+    arch = CLIPArch(embed_dim=768, image_resolution=224, vision_layers=2, vision_width=1536, vision_patch_size=14,
+                    context_length=77, vocab_size=49408, text_width=512, text_heads=8, text_layers=1, vision_heads=24)
+    model = build_model("", arch=arch, dtype=torch.bfloat16, seed=4, device=dev)
+    plan = FE.make_vision_plan(model, quantize="int8")
+    del model
+    layer_bytes = FE._layer_weight_bytes(plan["layers"][0])
+    assert layer_bytes > FE._LAYER_Q8_WIDE_CAP, (layer_bytes, FE._LAYER_Q8_WIDE_CAP)
+    rng = np.random.default_rng(10)
+    images = _t(torch, dev, rng.standard_normal((V_BATCH, 224, 224, 3)), torch.float32)
+    with torch.no_grad():
+        FE.encode_image_fast(arch, plan, images[:2])  # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = FE.encode_image_fast(arch, plan, images)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dispatch.launch_counts()
+        n = arch.vision_layers
+        assert (counts["fused_attention_block_q8"], counts["fused_mlp_block_q8"], counts["fused_layer_q8"]) == (n, n, 0), counts
+        assert tuple(got.shape) == (V_BATCH, arch.embed_dim) and bool(torch.isfinite(got).all())
+        # the same plan through the whole-layer route (the cap lifted for this one call): the same bits
+        cap = FE._LAYER_Q8_WIDE_CAP
+        FE._LAYER_Q8_WIDE_CAP = layer_bytes
+        try:
+            whole = FE.encode_image_fast(arch, plan, images)
+        finally:
+            FE._LAYER_Q8_WIDE_CAP = cap
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole), "the per-block route differs from the whole-layer route"
+        # and the plain versions on a CPU copy of the plan, for two images
+        want = FE.encode_image_fast(arch, _cpu_plan(plan), images[:2].cpu())
+    cos = torch.nn.functional.cosine_similarity(got[:2].cpu(), want, dim=-1).min().item()
+    log(f"over-the-cap route: int8 layer {layer_bytes / 2**20:.1f} MiB > cap {cap / 2**20:.0f} MiB; batch {V_BATCH} in "
+        f"{ms:.1f} ms (host clock around synchronize); launches {counts}; == whole-layer route; "
+        f"min cosine to the plain versions (CPU, 2 images) {cos:.6f}")
+    assert cos > 0.999, cos
+    results["routing_batch_ms"] = ms
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _cpu_plan(plan):
@@ -274,7 +496,7 @@ def _cpu_plan(plan):
 
 def serve_phase(torch, dev, model, store_path, mode, results):
     """Drive the served slice in one mode; returns {wrapper: launches}."""
-    from knowledge_enhanced_multimodal_retrieval_tpu.knowledge import (
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.knowledge import (
         FakeKGSparqlClient,
         FakeLLMClient,
         Text2SparqlRetrieval,
@@ -509,7 +731,9 @@ def image_query_phase(torch, dev, model, store_path, docs, results):
     record(torch, results, "B2 similarity_topk exact, image queries", f"{PKG}/csrc/similarity.cu",
            "knowledge_enhanced_multimodal_retrieval_tpu/ops/similarity.py:680", got[0], want[0], TOL_TOPK,
            lambda: SIM.fused_similarity_topk(q, c.corpus_img, c.corpus_txt, K, alpha=1.0),
-           lambda: SIM.topk_plain(SIM.blended_scores(q, c.corpus_img, c.corpus_txt, 1.0), K))
+           lambda: SIM.topk_plain(SIM.blended_scores(q, c.corpus_img, c.corpus_txt, 1.0), K),
+           bound_of=topk_bound(IMAGE_QUERIES, len(store), WIDTH, K, 2 * WIDTH),
+           library_fn=_matmul_topk(torch, q, c.corpus_img, c.corpus_txt, 1.0, K))
     del engine, retriever
     torch.cuda.empty_cache()
     return counts
@@ -545,7 +769,8 @@ def capacity_kernel_phases(torch, dev, results):
         want = topk_agree(got, SIM.blended_scores_q4(qs, *c4, alpha), K, TOL_TOPK)
         record(torch, results, f"B2-q4 similarity_topk q4 [{n}]", src_sim, ref_q4, got[0], want[0], TOL_TOPK,
                lambda: SIM.fused_similarity_topk_q4(qs, *c4, K, alpha=alpha),
-               lambda: SIM.topk_plain(SIM.blended_scores_q4(qs, *c4, alpha), K), plain_iters)
+               lambda: SIM.topk_plain(SIM.blended_scores_q4(qs, *c4, alpha), K), plain_iters,
+               bound_of=topk_bound(QUERIES, n, WIDTH, K, WIDTH // 2 + 4))
         del c4
 
         luts = [(0.05 * torch.randn((PQ_M, QUERIES, PQ_K), device=dev, generator=gen)).to(bf) for _ in range(2)]
@@ -558,7 +783,8 @@ def capacity_kernel_phases(torch, dev, results):
         want = topk_agree(got, PQ.blended_adc_from_luts(*args), K, TOL_TOPK)
         record(torch, results, f"B5 pq_adc_topk [{n}]", src_pq, ref_pq, got[0], want[0], TOL_TOPK,
                lambda: PQ.pq_adc_topk(*args, K),
-               lambda: SIM.topk_plain(PQ.blended_adc_from_luts(*args), K), plain_iters)
+               lambda: SIM.topk_plain(PQ.blended_adc_from_luts(*args), K), plain_iters,
+               bound_of=pq_bound(QUERIES, n, PQ_M, PQ_K, K))
         del args, luts, codes, scales
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -749,6 +975,9 @@ def main() -> int:
     kernel_phases(torch, dev, results)
     vision_kernel_phases(torch, dev, results)
     capacity_kernel_phases(torch, dev, results)
+    block_q8_phases(torch, dev, results)
+    prof_ms, prof = profiler_phase(torch)
+    route = routing_phase(torch, dev, results)
 
     rng = np.random.default_rng(2)
     norm = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
@@ -804,7 +1033,17 @@ def main() -> int:
         f"B2-q4 similarity_topk q4 [{SCALE_ROWS}]": cap["int4"]["similarity_topk_kernel"],
         f"B5 pq_adc_topk [{CORPUS}]": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
         f"B5 pq_adc_topk [{SCALE_ROWS}]": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
+        # the profiler's run (its shape is the vision one) plus the over-the-cap route
+        f"B4a fused_attention_block_q8{vis}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],
+        f"B4a fused_attention_block_q8{v336}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],
+        f"B4b fused_mlp_block_q8{vis}": prof["fused_mlp_block_q8"] + route["fused_mlp_block_q8"],
     }
+    for name in results:
+        if name.startswith("S1 "):
+            launches[name] = prof["attn_q8_variant"]
+        elif name.startswith("S2 "):
+            launches[name] = prof["mlp_q8_diag"]
+    assert prof["fused_layer_q8"] > 0, "the profiler's whole-layer line never launched B1"
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched in the path it belongs to")
@@ -814,6 +1053,7 @@ def main() -> int:
     log("capacity tiers (256-query batch ms, recall@10 text queries / corpus rows): " + "; ".join(
         f"{tier} {v['batch_ms']:.2f} ms, {v['recall_at_10']:.4f} / {v['recall_at_10_corpus_rows']:.4f}"
         for tier, v in results["capacity_tiers"].items()))
+    log("vision-interior profiler medians (ms): " + "; ".join(f"{k} {v:.3f}" for k, v in prof_ms.items()))
     log("precompute images/s (build_embedding_store, synthetic:300, batch 256): " + ", ".join(
         f"{enc} {results[f'precompute_{enc}']['images_per_s']:.1f}" for enc in ("flax", "fast", "int8")))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import Config
+from ..utils.config import Config
 
 from ..data.datasets import DataPipeline, load_hf_source, make_synthetic_source
 from ..data.tokenizer import CLIPTokenizer

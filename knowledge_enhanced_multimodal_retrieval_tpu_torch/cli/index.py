@@ -23,7 +23,7 @@ import sys
 
 import numpy as np
 
-from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import config_from_argv, resolve_quantize_corpus
+from ..utils.config import config_from_argv, resolve_quantize_corpus
 
 from ..retrieval.ann import build_ivf_index, calibrate_nprobe, corpus_fingerprint, save_ivf_index
 from ..retrieval.embedding_store import EmbeddingStore

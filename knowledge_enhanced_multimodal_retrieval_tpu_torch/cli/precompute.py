@@ -17,7 +17,7 @@ import logging
 import os
 import sys
 
-from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import config_from_argv, resolve_encoder
+from ..utils.config import config_from_argv, resolve_encoder
 
 from ..retrieval.embedding_store import build_embedding_store
 from .common import build_model, build_pipeline, pop_flag, resolve_device

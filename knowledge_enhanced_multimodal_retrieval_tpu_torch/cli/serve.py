@@ -27,7 +27,7 @@ from __future__ import annotations
 import json
 import sys
 
-from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import (
+from ..utils.config import (
     Endpoints,
     config_from_argv,
     resolve_encoder,
@@ -91,18 +91,18 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
     env = Endpoints.from_env()
     has_kg = bool(kg_path) or bool(env.sparql_endpoint)
     if has_kg and env.mistral_api_key and env.mistral_agent_id:
-        from knowledge_enhanced_multimodal_retrieval_tpu.knowledge.circuit import (
+        from ..knowledge.circuit import (
             CachedRetrieval,
             CircuitBreakerRetrieval,
         )
-        from knowledge_enhanced_multimodal_retrieval_tpu.knowledge.clients import (
+        from ..knowledge.clients import (
             HTTPSparqlClient,
             MistralAgentClient,
         )
-        from knowledge_enhanced_multimodal_retrieval_tpu.knowledge.text2sparql import Text2SparqlRetrieval
+        from ..knowledge.text2sparql import Text2SparqlRetrieval
 
         if kg_path:
-            from knowledge_enhanced_multimodal_retrieval_tpu.knowledge.kg import LocalKGSparqlClient
+            from ..knowledge.kg import LocalKGSparqlClient
 
             sparql_client = LocalKGSparqlClient(kg_path)
         else:

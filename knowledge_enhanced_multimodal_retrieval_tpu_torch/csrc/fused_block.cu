@@ -1,9 +1,16 @@
 // Transformer-layer kernels of the serving encoders (text and vision), for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels of knowledge_enhanced_multimodal_retrieval_tpu/ops/fused_block.py:
-//   B3a fused_attention_block  (_attention_block_kernel, _attention_interior)
-//   B3b fused_mlp_block        (_mlp_block_kernel)
-//   B1  fused_layer_q8         (_layer_q8_kernel = _attn_half_q8 + _mlp_half_q8)
+// Replaces five Pallas TPU kernels of knowledge_enhanced_multimodal_retrieval_tpu/ops/fused_block.py:
+//   B3a fused_attention_block     (_attention_block_kernel, _attention_interior)
+//   B3b fused_mlp_block           (_mlp_block_kernel)
+//   B1  fused_layer_q8            (_layer_q8_kernel = _attn_half_q8 + _mlp_half_q8)
+//   B4a fused_attention_block_q8  (_attention_block_q8_kernel = _attn_half_q8)
+//   B4b fused_mlp_block_q8        (_mlp_block_q8_kernel = _mlp_half_q8)
+// and the two diagnostic kernels of scripts/profile_vision_interior.py:
+//   S1  attn_q8_variant  (B4a with a selectable softmax interior)
+//   S2  mlp_q8_diag      (B4b with QuickGELU and the requantization switchable)
+// B1 is attn_half_q8 then mlp_half_q8 below; B4a, B4b, S1 and S2 call the
+// same two functions, so the pair and the whole layer are one arithmetic.
 //
 // What bounds them on the H100: at ViT-L/14 text serving shapes
 // ([256 x 32, 768], ff 3072) the four projections are ~116 GFLOP per layer
@@ -29,6 +36,10 @@
 // before p@v, the residual added in bf16, and in B1 the c_fc activations
 // requantized per FF chunk of ff / n_chunks columns (materialized in f32,
 // then one row-max pass, then the int8 c_proj GEMM accumulating in f32).
+// S1's other interior drops the row-max pass of the softmax (mask to -1e9,
+// exp, divide by the row sum, p cast to bf16); S2 without requantization
+// casts f and the int8 c_proj chunk to bf16 (exact), multiplies them on the
+// tensor cores in f32 and scales by the weight scales after the product.
 
 #include "common.cuh"
 
@@ -108,6 +119,8 @@ enum {
   EPI_BIAS_GELU_BF16 = 2,  // out = bf16(quick_gelu(v + bias))
   EPI_BIAS_GELU_F32 = 3,   // out_f32 = quick_gelu(v + bias)
   EPI_ACC_F32 = 4,         // acc (+)= v; on the last chunk out = res + bf16(acc + bias)
+  EPI_BIAS_F32 = 5,        // out_f32 = v + bias                   (S2 without QuickGELU)
+  EPI_SCALE_ACC_F32 = 6,   // EPI_ACC_F32 with v = acc_f32 * col_scale (S2's bf16 c_proj)
 };
 
 struct Epi {
@@ -197,6 +210,8 @@ gemm_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B, int ldb, 
     if constexpr (std::is_same<TAcc, int>::value) {
       // acc.astype(f32) * r_row * s_col, in that order
       v = (float)Cs[r][c] * ep.row_scale[gm] * ep.col_scale[gn];
+    } else if constexpr (EPI == EPI_SCALE_ACC_F32) {
+      v = Cs[r][c] * ep.col_scale[gn];  // scaled after the product
     } else {
       v = Cs[r][c];
     }
@@ -209,7 +224,9 @@ gemm_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B, int ldb, 
       ep.out[o] = f2bf(quick_gelu(v + ep.bias[gn]));
     } else if constexpr (EPI == EPI_BIAS_GELU_F32) {
       ep.out_f32[o] = quick_gelu(v + ep.bias[gn]);
-    } else {  // EPI_ACC_F32
+    } else if constexpr (EPI == EPI_BIAS_F32) {
+      ep.out_f32[o] = v + ep.bias[gn];
+    } else {  // EPI_ACC_F32, EPI_SCALE_ACC_F32
       const float a = ep.first ? v : ep.out_f32[o] + v;
       if (ep.last)
         ep.out[o] = f2bf(to_f(ep.res[o]) + to_f(f2bf(a + ep.bias[gn])));
@@ -248,7 +265,9 @@ constexpr int ATTN_THREADS = 128;
 // K and V of the whole sequence sit in shared memory; each warp copies only
 // the query row it is working on, so the need is 2·S·(hd+2)·2 + 4·S·4 bytes
 // plus four query rows: ~166 KB at S = 592 (ViT-L/14@336px), inside the
-// H100's 227 KB opt-in.
+// H100's 227 KB opt-in. NOMAX is S1's diagnostic interior: the same order of
+// operations without the row-max pass (exp of the masked, scaled score).
+template <bool NOMAX>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int W, int heads, int S,
                  int mask_len, int causal, float scale) {
@@ -296,7 +315,7 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int W, in
     mx = warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < S; j += 32) {
-      const float e = expf(p[j] - mx);
+      const float e = NOMAX ? expf(p[j]) : expf(p[j] - mx);
       p[j] = e;
       sum += e;
     }
@@ -318,21 +337,30 @@ attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int W, in
   }
 }
 
-static int attention(const bf16* qkv, bf16* out, int N, int W, int heads, int S, int mask_len,
-                     int causal, cudaStream_t st) {
+template <bool NOMAX>
+static int attention_launch(const bf16* qkv, bf16* out, int N, int W, int heads, int S,
+                            int mask_len, int causal, cudaStream_t st) {
   const int hd = W / heads;
   const size_t nw = ATTN_THREADS / 32;
   const size_t smem = (2 * (size_t)S + nw) * (hd + 2) * sizeof(bf16) + nw * (size_t)S * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel,
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<NOMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const float scale = 1.0f / sqrtf((float)hd);
   dim3 grid(N / S, heads);
-  attention_kernel<<<grid, ATTN_THREADS, smem, st>>>(qkv, out, W, heads, S, mask_len, causal,
-                                                     scale);
+  attention_kernel<NOMAX><<<grid, ATTN_THREADS, smem, st>>>(qkv, out, W, heads, S, mask_len,
+                                                            causal, scale);
   return (int)cudaGetLastError();
+}
+
+// interior: 0 = the production softmax, 1 = S1's no-max-subtract diagnostic.
+static int attention(const bf16* qkv, bf16* out, int N, int W, int heads, int S, int mask_len,
+                     int causal, int interior, cudaStream_t st) {
+  if (interior == 0) return attention_launch<false>(qkv, out, N, W, heads, S, mask_len, causal, st);
+  if (interior == 1) return attention_launch<true>(qkv, out, N, W, heads, S, mask_len, causal, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 static int ln_rows(const bf16* x, const float* g, const float* b, int N, int W, float eps,
@@ -345,6 +373,97 @@ template <typename TX>
 static int quant_rows(const TX* x, int N, int C, int8_t* q, float* r, cudaStream_t st) {
   quant_rows_kernel<TX><<<N, 256, 0, st>>>(x, C, q, r);
   return (int)cudaGetLastError();
+}
+
+// int8 -> bf16, exact (|v| <= 127): S2's bf16 copy of one c_proj chunk.
+__global__ void i8_to_bf16_kernel(const int8_t* __restrict__ x, bf16* __restrict__ y, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = f2bf((float)x[i]);
+}
+
+static int i8_to_bf16(const int8_t* x, bf16* y, size_t n, cudaStream_t st) {
+  i8_to_bf16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The two halves of a W8A8 layer (_attn_half_q8, _mlp_half_q8): the one
+// implementation behind B1, B4a, B4b, S1 and S2.
+// ---------------------------------------------------------------------------
+
+// out = x + out_proj_q8(attention(qkv_q8(LN(x)))). Scratch: hq int8 [N, W],
+// hr f32 [N], qkv bf16 [N, 3W], attn bf16 [N, W].
+static int attn_half_q8(const bf16* x, const float* ln_g, const float* ln_b, const int8_t* wqkv_q,
+                        const float* wqkv_s, const float* bqkv, const int8_t* wo_q,
+                        const float* wo_s, const float* bo, bf16* out, int8_t* hq, float* hr,
+                        bf16* qkv, bf16* attn, int N, int W, int heads, int S, int mask_len,
+                        int causal, int interior, float eps, cudaStream_t st) {
+  KEMR_TRY(ln_rows(x, ln_g, ln_b, N, W, eps, nullptr, hq, hr, st));
+  Epi e = epi(bqkv, qkv, 3 * W);
+  e.row_scale = hr;
+  e.col_scale = wqkv_s;
+  KEMR_TRY((gemm<int8_t, int, EPI_BIAS_BF16>(hq, W, wqkv_q, 3 * W, N, 3 * W, W, e, st)));
+  KEMR_TRY(attention(qkv, attn, N, W, heads, S, mask_len, causal, interior, st));
+  KEMR_TRY(quant_rows<bf16>(attn, N, W, hq, hr, st));
+  e = epi(bo, out, W);
+  e.row_scale = hr;
+  e.col_scale = wo_s;
+  e.res = x;
+  KEMR_TRY((gemm<int8_t, int, EPI_BIAS_RES_BF16>(hq, W, wo_q, W, N, W, W, e, st)));
+  return 0;
+}
+
+// out = x + c_proj(act(c_fc_q8(LN(x)))), FF-chunked (ck = FF / n_chunks) with
+// an f32 accumulator over the chunks. gelu: act is QuickGELU, else identity.
+// requant: each chunk of f is requantized per row and c_proj is s8 x s8;
+// else f and the int8 c_proj chunk go to bf16 (fbf [N, ck], w2bf [ck, W])
+// and the product is bf16 x bf16 in f32, times w2_s. Scratch: hq int8 [N, W],
+// hr f32 [N], fbuf f32 [N, ck], fq int8 [N, ck], fr f32 [N], acc f32 [N, W];
+// fbf and w2bf only when requant == 0 (fbuf, fq and fr only otherwise).
+static int mlp_half_q8(const bf16* x, const float* ln_g, const float* ln_b, const int8_t* w1_q,
+                       const float* w1_s, const float* b1, const int8_t* w2_q, const float* w2_s,
+                       const float* b2, bf16* out, int8_t* hq, float* hr, float* fbuf, int8_t* fq,
+                       float* fr, float* acc, bf16* fbf, bf16* w2bf, int N, int W, int FF,
+                       int n_chunks, int gelu, int requant, float eps, cudaStream_t st) {
+  KEMR_TRY(ln_rows(x, ln_g, ln_b, N, W, eps, nullptr, hq, hr, st));
+  const int ck = FF / n_chunks;
+  for (int c = 0; c < n_chunks; ++c) {
+    Epi e1{};
+    e1.bias = b1 + c * ck;
+    e1.row_scale = hr;
+    e1.col_scale = w1_s + c * ck;
+    e1.out_f32 = fbuf;
+    e1.out = fbf;
+    e1.ldo = ck;
+    const int8_t* w1_c = w1_q + c * ck;
+    const int8_t* w2_c = w2_q + (size_t)c * ck * W;
+    Epi e2{};
+    e2.bias = b2;
+    e2.col_scale = w2_s;
+    e2.res = x;
+    e2.out = out;
+    e2.out_f32 = acc;
+    e2.ldo = W;
+    e2.first = c == 0;
+    e2.last = c == n_chunks - 1;
+    if (requant) {
+      if (gelu)
+        KEMR_TRY((gemm<int8_t, int, EPI_BIAS_GELU_F32>(hq, W, w1_c, FF, N, ck, W, e1, st)));
+      else
+        KEMR_TRY((gemm<int8_t, int, EPI_BIAS_F32>(hq, W, w1_c, FF, N, ck, W, e1, st)));
+      KEMR_TRY(quant_rows<float>(fbuf, N, ck, fq, fr, st));
+      e2.row_scale = fr;
+      KEMR_TRY((gemm<int8_t, int, EPI_ACC_F32>(fq, ck, w2_c, W, N, W, ck, e2, st)));
+    } else {
+      if (gelu)
+        KEMR_TRY((gemm<int8_t, int, EPI_BIAS_GELU_BF16>(hq, W, w1_c, FF, N, ck, W, e1, st)));
+      else
+        KEMR_TRY((gemm<int8_t, int, EPI_BIAS_BF16>(hq, W, w1_c, FF, N, ck, W, e1, st)));
+      KEMR_TRY(i8_to_bf16(w2_c, w2bf, (size_t)ck * W, st));
+      KEMR_TRY((gemm<bf16, float, EPI_SCALE_ACC_F32>(fbf, ck, w2bf, W, N, W, ck, e2, st)));
+    }
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -369,7 +488,7 @@ int kemr_attention_block_bf16(const void* x, const void* ln_g, const void* ln_b,
   KEMR_TRY((gemm<bf16, float, EPI_BIAS_BF16>((const bf16*)h, W, (const bf16*)wqkv, 3 * W, N,
                                               3 * W, W, epi((const float*)bqkv, (bf16*)qkv, 3 * W),
                                               st)));
-  KEMR_TRY(attention((const bf16*)qkv, (bf16*)attn, N, W, heads, S, mask_len, causal, st));
+  KEMR_TRY(attention((const bf16*)qkv, (bf16*)attn, N, W, heads, S, mask_len, causal, 0, st));
   Epi e = epi((const float*)bo, (bf16*)out, W);
   e.res = xb;
   KEMR_TRY((gemm<bf16, float, EPI_BIAS_RES_BF16>((const bf16*)attn, W, (const bf16*)wo, W, N, W,
@@ -408,55 +527,68 @@ int kemr_layer_q8(const void* x, const void* ln1_g, const void* ln1_b, const voi
                   void* fbuf, void* fq, void* fr, void* acc, int N, int W, int FF, int heads,
                   int S, int mask_len, int n_chunks, int causal, float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const bf16* xb = (const bf16*)x;
-  int8_t* hq8 = (int8_t*)hq;
-  float* hrf = (float*)hr;
+  KEMR_TRY(attn_half_q8((const bf16*)x, (const float*)ln1_g, (const float*)ln1_b,
+                        (const int8_t*)wqkv_q, (const float*)wqkv_s, (const float*)bqkv,
+                        (const int8_t*)wo_q, (const float*)wo_s, (const float*)bo, (bf16*)y,
+                        (int8_t*)hq, (float*)hr, (bf16*)qkv, (bf16*)attn, N, W, heads, S, mask_len,
+                        causal, 0, eps, st));
+  return mlp_half_q8((const bf16*)y, (const float*)ln2_g, (const float*)ln2_b,
+                     (const int8_t*)w1_q, (const float*)w1_s, (const float*)b1,
+                     (const int8_t*)w2_q, (const float*)w2_s, (const float*)b2, (bf16*)out,
+                     (int8_t*)hq, (float*)hr, (float*)fbuf, (int8_t*)fq, (float*)fr, (float*)acc,
+                     nullptr, nullptr, N, W, FF, n_chunks, 1, 1, eps, st);
+}
 
-  // attention half (_attn_half_q8)
-  KEMR_TRY(ln_rows(xb, (const float*)ln1_g, (const float*)ln1_b, N, W, eps, nullptr, hq8, hrf,
-                   st));
-  Epi e = epi((const float*)bqkv, (bf16*)qkv, 3 * W);
-  e.row_scale = hrf;
-  e.col_scale = (const float*)wqkv_s;
-  KEMR_TRY((gemm<int8_t, int, EPI_BIAS_BF16>(hq8, W, (const int8_t*)wqkv_q, 3 * W, N, 3 * W, W, e,
-                                             st)));
-  KEMR_TRY(attention((const bf16*)qkv, (bf16*)attn, N, W, heads, S, mask_len, causal, st));
-  KEMR_TRY(quant_rows<bf16>((const bf16*)attn, N, W, hq8, hrf, st));
-  e = epi((const float*)bo, (bf16*)y, W);
-  e.row_scale = hrf;
-  e.col_scale = (const float*)wo_s;
-  e.res = xb;
-  KEMR_TRY((gemm<int8_t, int, EPI_BIAS_RES_BF16>(hq8, W, (const int8_t*)wo_q, W, N, W, W, e, st)));
+// S1 (and, with interior 0, B4a): the attention half of B1 as its own
+// launch. interior 0 = production softmax, 1 = no-max-subtract diagnostic.
+int kemr_attention_block_q8_variant(const void* x, const void* ln_g, const void* ln_b,
+                                    const void* wqkv_q, const void* wqkv_s, const void* bqkv,
+                                    const void* wo_q, const void* wo_s, const void* bo, void* out,
+                                    void* hq, void* hr, void* qkv, void* attn, int N, int W,
+                                    int heads, int S, int mask_len, int causal, int interior,
+                                    float eps, void* stream) {
+  return attn_half_q8((const bf16*)x, (const float*)ln_g, (const float*)ln_b,
+                      (const int8_t*)wqkv_q, (const float*)wqkv_s, (const float*)bqkv,
+                      (const int8_t*)wo_q, (const float*)wo_s, (const float*)bo, (bf16*)out,
+                      (int8_t*)hq, (float*)hr, (bf16*)qkv, (bf16*)attn, N, W, heads, S, mask_len,
+                      causal, interior, eps, (cudaStream_t)stream);
+}
 
-  // MLP half (_mlp_half_q8), FF-chunked with per-chunk requantization
-  KEMR_TRY(ln_rows((const bf16*)y, (const float*)ln2_g, (const float*)ln2_b, N, W, eps, nullptr,
-                   hq8, hrf, st));
-  const int ck = FF / n_chunks;
-  for (int c = 0; c < n_chunks; ++c) {
-    Epi e1{};
-    e1.bias = (const float*)b1 + c * ck;
-    e1.row_scale = hrf;
-    e1.col_scale = (const float*)w1_s + c * ck;
-    e1.out_f32 = (float*)fbuf;
-    e1.ldo = ck;
-    KEMR_TRY((gemm<int8_t, int, EPI_BIAS_GELU_F32>(hq8, W, (const int8_t*)w1_q + c * ck, FF, N, ck,
-                                                   W, e1, st)));
-    KEMR_TRY(quant_rows<float>((const float*)fbuf, N, ck, (int8_t*)fq, (float*)fr, st));
-    Epi e2{};
-    e2.bias = (const float*)b2;
-    e2.row_scale = (const float*)fr;
-    e2.col_scale = (const float*)w2_s;
-    e2.res = (const bf16*)y;
-    e2.out = (bf16*)out;
-    e2.out_f32 = (float*)acc;
-    e2.ldo = W;
-    e2.first = c == 0;
-    e2.last = c == n_chunks - 1;
-    KEMR_TRY((gemm<int8_t, int, EPI_ACC_F32>((const int8_t*)fq, ck,
-                                             (const int8_t*)w2_q + (size_t)c * ck * W, W, N, W,
-                                             ck, e2, st)));
-  }
-  return 0;
+// B4a: out = x + out_proj_q8(attention(qkv_q8(LN1(x)))).
+int kemr_attention_block_q8(const void* x, const void* ln_g, const void* ln_b, const void* wqkv_q,
+                            const void* wqkv_s, const void* bqkv, const void* wo_q,
+                            const void* wo_s, const void* bo, void* out, void* hq, void* hr,
+                            void* qkv, void* attn, int N, int W, int heads, int S, int mask_len,
+                            int causal, float eps, void* stream) {
+  return kemr_attention_block_q8_variant(x, ln_g, ln_b, wqkv_q, wqkv_s, bqkv, wo_q, wo_s, bo, out,
+                                         hq, hr, qkv, attn, N, W, heads, S, mask_len, causal, 0,
+                                         eps, stream);
+}
+
+// S2 (and, with gelu = requant = 1, B4b): the MLP half of B1 as its own
+// launch; fbf bf16 [N, ck] and w2bf bf16 [ck, W] are read only when
+// requant == 0 (and fbuf, fq, fr only when it is 1).
+int kemr_mlp_block_q8_diag(const void* x, const void* ln_g, const void* ln_b, const void* w1_q,
+                           const void* w1_s, const void* b1, const void* w2_q, const void* w2_s,
+                           const void* b2, void* out, void* hq, void* hr, void* fbuf, void* fq,
+                           void* fr, void* acc, void* fbf, void* w2bf, int N, int W, int FF,
+                           int n_chunks, int gelu, int requant, float eps, void* stream) {
+  return mlp_half_q8((const bf16*)x, (const float*)ln_g, (const float*)ln_b, (const int8_t*)w1_q,
+                     (const float*)w1_s, (const float*)b1, (const int8_t*)w2_q,
+                     (const float*)w2_s, (const float*)b2, (bf16*)out, (int8_t*)hq, (float*)hr,
+                     (float*)fbuf, (int8_t*)fq, (float*)fr, (float*)acc, (bf16*)fbf, (bf16*)w2bf,
+                     N, W, FF, n_chunks, gelu, requant, eps, (cudaStream_t)stream);
+}
+
+// B4b: out = x + c_proj_q8(quick_gelu(c_fc_q8(LN2(x)))), per-chunk requant.
+int kemr_mlp_block_q8(const void* x, const void* ln_g, const void* ln_b, const void* w1_q,
+                      const void* w1_s, const void* b1, const void* w2_q, const void* w2_s,
+                      const void* b2, void* out, void* hq, void* hr, void* fbuf, void* fq,
+                      void* fr, void* acc, int N, int W, int FF, int n_chunks, float eps,
+                      void* stream) {
+  return kemr_mlp_block_q8_diag(x, ln_g, ln_b, w1_q, w1_s, b1, w2_q, w2_s, b2, out, hq, hr, fbuf,
+                                fq, fr, acc, nullptr, nullptr, N, W, FF, n_chunks, 1, 1, eps,
+                                stream);
 }
 
 }  // extern "C"

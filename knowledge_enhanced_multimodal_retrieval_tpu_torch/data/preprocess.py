@@ -8,7 +8,7 @@ round-half-even crop offsets, as ``clip.load``) and ``"hf"``
 the shortest edge with PIL's antialiased bicubic, rescale by 1/255 and
 normalize with the CLIP mean/std.
 
-The compute half runs in the JAX package's jax-free native engine
+The compute half runs in the port's native engine
 (``native/image.cpp``, bit-exact with the PIL path) when it builds. An RGB
 ``uint8`` array goes to it as it is: ``Image.fromarray(a).convert("RGB")``
 returns the same pixels, so such input needs no PIL at all. Decode
@@ -22,7 +22,7 @@ from typing import Tuple
 
 import numpy as np
 
-from knowledge_enhanced_multimodal_retrieval_tpu.native.image_wrapper import clip_preprocess_native
+from ..native.image_wrapper import clip_preprocess_native
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)

@@ -10,13 +10,12 @@ reference relies on (``clip.tokenize(..., truncate=True)`` at reference
 Vocabulary files are loaded at runtime — either the OpenAI
 ``bpe_simple_vocab_16e6.txt.gz`` format or HuggingFace ``vocab.json`` +
 ``merges.txt`` — so no third-party tokenizer package is needed. The encoder is
-on the host (the C++ merge engine of the JAX package's jax-free
+on the host (the C++ merge engine of the port's
 ``native.bpe_wrapper`` when it builds, pure Python otherwise); output is a
 dense int32 ``[N, context_length]`` array ready for device transfer.
 
 The port's copy of ``knowledge_enhanced_multimodal_retrieval_tpu/data/tokenizer.py``:
-that module's package imports JAX on the way in, so the port carries this
-numpy-only copy until the JAX package's imports are made lazy.
+the port imports nothing of that package, so it carries this numpy-only copy.
 """
 
 from __future__ import annotations
@@ -114,7 +113,7 @@ class CLIPTokenizer:
         self._native = None
         if use_native or use_native is None:
             try:
-                from knowledge_enhanced_multimodal_retrieval_tpu.native.bpe_wrapper import NativeBPE
+                from ..native.bpe_wrapper import NativeBPE
 
                 self._native = NativeBPE.create(merges)
             except Exception:

@@ -66,14 +66,3 @@ def load_openai_state_dict(
     with torch.no_grad():
         model.logit_scale.copy_(t(sd["logit_scale"]).reshape(()))
     return model.to(device) if device is not None else model
-
-
-def from_flax_params(
-    params: Mapping, device=None, dtype: torch.dtype = torch.bfloat16, arch: Optional[CLIPArch] = None
-) -> CLIP:
-    """The port's CLIP from a flax CLIP parameter tree, through the JAX
-    package's ``flax_to_openai`` layout. The caller holds flax params, so
-    JAX is already loaded; the port imports it nowhere else."""
-    from knowledge_enhanced_multimodal_retrieval_tpu.models.convert import flax_to_openai
-
-    return load_openai_state_dict(flax_to_openai(params), device=device, dtype=dtype, arch=arch)

@@ -8,13 +8,15 @@ Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/models/fast_encode.
   layer become per-output-channel int8 + f32 scales (W8A8 dynamic).
   :func:`make_encode_plans` packs both, keyed ``visual`` / ``text``.
 - :func:`encode_text_fast` / :func:`encode_image_fast` run the embeddings,
-  the layers (B3a + B3b per layer for a bf16 plan, B1 per layer for an int8
-  plan), the pooling, the final LayerNorm and the projection.
+  the layers (B3a + B3b per layer for a bf16 plan; for an int8 plan B1 per
+  layer, or B4a then B4b for a layer over ``_LAYER_Q8_WIDE_CAP``), the
+  pooling, the final LayerNorm and the projection.
 
-The JAX module's VMEM caps and wide-band routing are TPU artifacts: here a
-plan's weight dtype alone picks the layer kernel. Semantics match the
-towers (causal text / bidirectional vision attention, f32 LayerNorm, EOT /
-class-token pooling).
+The JAX module's other VMEM caps, and its branches that give an oversized
+block to the XLA reference, are TPU artifacts and are not carried over: a
+plan's weight dtype and that one size rule pick the layer kernels.
+Semantics match the towers (causal text / bidirectional vision attention,
+f32 LayerNorm, EOT / class-token pooling).
 """
 
 from __future__ import annotations
@@ -23,7 +25,15 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..ops.fused_block import _ln_f32, fused_attention_block, fused_layer_q8, fused_mlp_block, quantize_weight
+from ..ops.fused_block import (
+    _ln_f32,
+    fused_attention_block,
+    fused_attention_block_q8,
+    fused_layer_q8,
+    fused_mlp_block,
+    fused_mlp_block_q8,
+    quantize_weight,
+)
 from .clip import CLIP, Transformer
 
 _SEQ_MULTIPLE = 16  # sequences pad to a multiple of 16 rows (mask_len = s)
@@ -113,10 +123,32 @@ def plan_is_quantized(plan: Dict[str, Any]) -> bool:
     return plan["layers"][0]["wqkv"].dtype == torch.int8
 
 
+# The reference's routing rule (its ``models/fast_encode.py``), kept by name
+# and value so both packages split the same layers; it was sized for the
+# TPU's VMEM and is no Hopper limit. An int8 layer whose four projections
+# hold at most this many bytes runs the whole-layer kernel B1, a larger one
+# runs the per-block pair B4a then B4b (the same arithmetic, bit for bit).
+# No arch in ``models.clip.ARCHS`` crosses it (ViT-L/14 vision: 12 MiB).
+_LAYER_Q8_WIDE_CAP = 24 * 2**20
+
+
+def _layer_weight_bytes(lp: Dict[str, torch.Tensor]) -> int:
+    return sum(lp[k].numel() * lp[k].element_size() for k in ("wqkv", "wo", "w1", "w2"))
+
+
 def _apply_layers(x: torch.Tensor, layers, *, s_pad: int, heads: int, mask_len: int, causal: bool) -> torch.Tensor:
-    """The residual layers, routed by the plan's weight dtype only."""
+    """The residual layers, routed by the plan's weight dtype and, for an
+    int8 layer, by its weight bytes against ``_LAYER_Q8_WIDE_CAP``."""
     for lp in layers:
-        if lp["wqkv"].dtype == torch.int8:
+        if lp["wqkv"].dtype == torch.int8 and _layer_weight_bytes(lp) > _LAYER_Q8_WIDE_CAP:
+            x = fused_attention_block_q8(
+                x, lp["ln1_scale"], lp["ln1_bias"], lp["wqkv"], lp["wqkv_s"], lp["bqkv"],
+                lp["wo"], lp["wo_s"], lp["bo"], seq_len=s_pad, heads=heads, mask_len=mask_len, causal=causal,
+            )
+            x = fused_mlp_block_q8(
+                x, lp["ln2_scale"], lp["ln2_bias"], lp["w1"], lp["w1_s"], lp["b1"], lp["w2"], lp["w2_s"], lp["b2"],
+            )
+        elif lp["wqkv"].dtype == torch.int8:
             x = fused_layer_q8(
                 x, lp["ln1_scale"], lp["ln1_bias"], lp["wqkv"], lp["wqkv_s"], lp["bqkv"],
                 lp["wo"], lp["wo_s"], lp["bo"], lp["ln2_scale"], lp["ln2_bias"],

@@ -5,7 +5,12 @@ Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/ops/fused_block.py`
 - :func:`fused_attention_block` (B3a) — ``x + out_proj(attn(LN1(x)))``;
 - :func:`fused_mlp_block` (B3b) — ``x + c_proj(QuickGELU(c_fc(LN2(x))))``;
 - :func:`fused_layer_q8` (B1) — one whole W8A8 pre-LN layer with dynamic
-  per-row int8 activations and per-FF-chunk requantization.
+  per-row int8 activations and per-FF-chunk requantization;
+- :func:`fused_attention_block_q8` (B4a) and :func:`fused_mlp_block_q8`
+  (B4b) — B1's two halves, each as its own launch. The pair and the whole
+  layer share one body on either route (``_attn_half_q8`` / ``_mlp_half_q8``
+  here, ``attn_half_q8`` / ``mlp_half_q8`` in the CUDA source), so
+  ``B4b(B4a(x))`` equals ``B1(x)`` bit for bit.
 
 Layout contract as in the JAX package: ``x`` is ``[rows, width]`` with whole
 sequences of ``seq_len`` rows stored contiguously, weights are ``[in, out]``.
@@ -79,10 +84,13 @@ def _q8_matmul(h: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Ten
 
 
 def _attention_interior(
-    qkv: torch.Tensor, *, seq_len: int, mask_len: int, heads: int, causal: bool, out_dtype
+    qkv: torch.Tensor, *, seq_len: int, mask_len: int, heads: int, causal: bool, out_dtype,
+    subtract_max: bool = True,
 ) -> torch.Tensor:
     """[N, 3W] -> [N, W]: per-sequence attention, f32 scores and softmax,
-    p cast to the qkv dtype before p@v (f32 accumulation)."""
+    p cast to the qkv dtype before p@v (f32 accumulation).
+    ``subtract_max=False`` is the vision profiler's diagnostic interior: the
+    same order of operations without the row-max pass."""
     n, w3 = qkv.shape
     width = w3 // 3
     hd = width // heads
@@ -94,7 +102,8 @@ def _attention_interior(
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     s = q.float() @ k.float().transpose(-1, -2)
     s = torch.where(ok, s * scale, torch.full_like(s, -1e9))
-    s = s - s.amax(-1, keepdim=True)
+    if subtract_max:
+        s = s - s.amax(-1, keepdim=True)
     e = torch.exp(s)
     p = (e / e.sum(-1, keepdim=True)).to(qkv.dtype)
     o = p.float() @ v.float()  # [nseq, H, S, hd]
@@ -121,17 +130,25 @@ def mlp_block_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps):
     return x + (acc + b2.float()).to(x.dtype)
 
 
-def _attn_half_q8(x, g, c, wqkv_q, wqkv_s, bqkv, wo_q, wo_s, bo, *, seq_len, heads, mask_len, eps, causal):
+def _attn_half_q8(
+    x, g, c, wqkv_q, wqkv_s, bqkv, wo_q, wo_s, bo, *, seq_len, heads, mask_len, eps, causal,
+    subtract_max=True,
+):
     h = _ln_f32(x, g, c, eps)
     qkv = (_q8_matmul(h, wqkv_q, wqkv_s) + bqkv.float()).to(x.dtype)
     attn = _attention_interior(
-        qkv, seq_len=seq_len, mask_len=mask_len, heads=heads, causal=causal, out_dtype=x.dtype
+        qkv, seq_len=seq_len, mask_len=mask_len, heads=heads, causal=causal, out_dtype=x.dtype,
+        subtract_max=subtract_max,
     )
     out = _q8_matmul(attn.float(), wo_q, wo_s) + bo.float()
     return x + out.to(x.dtype)
 
 
-def _mlp_half_q8(x, g, c, w1_q, w1_s, b1, w2_q, w2_s, b2, *, n_chunks, eps):
+def _mlp_half_q8(x, g, c, w1_q, w1_s, b1, w2_q, w2_s, b2, *, n_chunks, eps, gelu=True, requant=True):
+    """``gelu=False`` / ``requant=False`` are the vision profiler's
+    diagnostics: no QuickGELU; and f cast to bf16 times the int8 c_proj chunk
+    cast to bf16 (exact), f32 accumulation, scaled by ``w2_s`` after the
+    product, with no activation quantization."""
     h = _ln_f32(x, g, c, eps)
     hq, hr = _quantize_rows(h)
     ck = w1_q.shape[1] // n_chunks
@@ -140,11 +157,30 @@ def _mlp_half_q8(x, g, c, w1_q, w1_s, b1, w2_q, w2_s, b2, *, n_chunks, eps):
         sl = slice(i * ck, (i + 1) * ck)
         f = _int_matmul(hq, w1_q[:, sl]) * hr * w1_s[:, sl]
         f = f + b1.float()[sl]
-        f = f * torch.sigmoid(1.702 * f)
-        fq, fr = _quantize_rows(f)
-        part = _int_matmul(fq, w2_q[sl, :]) * fr * w2_s
+        if gelu:
+            f = f * torch.sigmoid(1.702 * f)
+        if requant:
+            fq, fr = _quantize_rows(f)
+            part = _int_matmul(fq, w2_q[sl, :]) * fr * w2_s
+        else:
+            part = (f.to(torch.bfloat16).float() @ w2_q[sl, :].float()) * w2_s
         acc = part if acc is None else acc + part
     return x + (acc + b2.float()).to(x.dtype)
+
+
+def attention_block_q8_plain(
+    x, ln_scale, ln_bias, wqkv_q, wqkv_s, bqkv, wo_q, wo_s, bo, *, seq_len, heads, mask_len, eps, causal
+):
+    """B4a's plain version: the attention half of :func:`layer_q8_plain`."""
+    return _attn_half_q8(
+        x, ln_scale, ln_bias, wqkv_q, wqkv_s, bqkv, wo_q, wo_s, bo,
+        seq_len=seq_len, heads=heads, mask_len=mask_len, eps=eps, causal=causal,
+    )
+
+
+def mlp_block_q8_plain(x, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, *, n_chunks, eps):
+    """B4b's plain version: the MLP half of :func:`layer_q8_plain`."""
+    return _mlp_half_q8(x, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2, n_chunks=n_chunks, eps=eps)
 
 
 def layer_q8_plain(
@@ -183,6 +219,67 @@ def _check_ff(ff: int, n_chunks: int) -> None:
 _ATTN_ARGS = [P] * 11 + [I] * 6 + [F, P]
 _MLP_ARGS = [P] * 10 + [I] * 3 + [F, P]
 _LAYER_Q8_ARGS = [P] * 27 + [I] * 8 + [F, P]
+_ATTN_Q8_ARGS = [P] * 14 + [I] * 6 + [F, P]
+_MLP_Q8_ARGS = [P] * 16 + [I] * 4 + [F, P]
+
+
+def _attn_q8_specs(width: int, n: str = ""):
+    """(name, dtype, shape) of the q8 attention half's operands after ``x``."""
+    f32, i8 = torch.float32, torch.int8
+    return (
+        (f"ln{n}_scale", f32, (width,)), (f"ln{n}_bias", f32, (width,)),
+        ("wqkv_q", i8, (width, 3 * width)), ("wqkv_s", f32, (1, 3 * width)),
+        ("bqkv", f32, (3 * width,)), ("wo_q", i8, (width, width)), ("wo_s", f32, (1, width)),
+        ("bo", f32, (width,)),
+    )
+
+
+def _mlp_q8_specs(width: int, ff: int, n: str = ""):
+    """(name, dtype, shape) of the q8 MLP half's operands after ``x``."""
+    f32, i8 = torch.float32, torch.int8
+    return (
+        (f"ln{n}_scale", f32, (width,)), (f"ln{n}_bias", f32, (width,)),
+        ("w1_q", i8, (width, ff)), ("w1_s", f32, (1, ff)), ("b1", f32, (ff,)),
+        ("w2_q", i8, (ff, width)), ("w2_s", f32, (1, width)), ("b2", f32, (width,)),
+    )
+
+
+def _require_all(args, specs) -> None:
+    """``x`` (bf16, any shape already checked) then one operand per spec,
+    all on ``x``'s device."""
+    dispatch.require(args[0], "x", torch.bfloat16, args[0].device)
+    for t, (name, dt, shape) in zip(args[1:], specs):
+        dispatch.require(t, name, dt, args[0].device, shape)
+
+
+def _row_quant_scratch(x: torch.Tensor):
+    """hq int8 [N, W] and hr f32 [N]: the quantized rows a half projects."""
+    n, width = x.shape
+    return (
+        torch.empty((n, width), dtype=torch.int8, device=x.device),
+        torch.empty((n,), dtype=torch.float32, device=x.device),
+    )
+
+
+def _attn_q8_scratch(x: torch.Tensor):
+    """qkv and attn of the q8 attention half."""
+    n, width = x.shape
+    return (
+        torch.empty((n, 3 * width), dtype=torch.bfloat16, device=x.device),
+        torch.empty((n, width), dtype=torch.bfloat16, device=x.device),
+    )
+
+
+def _mlp_q8_scratch(x: torch.Tensor, ck: int):
+    """fbuf, fq, fr, acc of the q8 MLP half (``ck`` = ff / n_chunks)."""
+    n, width = x.shape
+    f32, dev = torch.float32, x.device
+    return (
+        torch.empty((n, ck), dtype=f32, device=dev),
+        torch.empty((n, ck), dtype=torch.int8, device=dev),
+        torch.empty((n,), dtype=f32, device=dev),
+        torch.empty((n, width), dtype=f32, device=dev),
+    )
 
 
 @dispatch.counted
@@ -319,31 +416,11 @@ def fused_layer_q8(
             *args, seq_len=seq_len, heads=heads, mask_len=mask_len, n_chunks=n_chunks,
             eps=eps, causal=causal,
         )
-    n, dev = x.shape[0], x.device
-    f32, i8, bf = torch.float32, torch.int8, torch.bfloat16
-    specs = (
-        ("x", bf, None), ("ln1_scale", f32, (width,)), ("ln1_bias", f32, (width,)),
-        ("wqkv_q", i8, (width, 3 * width)), ("wqkv_s", f32, (1, 3 * width)),
-        ("bqkv", f32, (3 * width,)), ("wo_q", i8, (width, width)), ("wo_s", f32, (1, width)),
-        ("bo", f32, (width,)), ("ln2_scale", f32, (width,)), ("ln2_bias", f32, (width,)),
-        ("w1_q", i8, (width, ff)), ("w1_s", f32, (1, ff)), ("b1", f32, (ff,)),
-        ("w2_q", i8, (ff, width)), ("w2_s", f32, (1, width)), ("b2", f32, (width,)),
-    )
-    for t, (name, dt, shape) in zip(args, specs):
-        dispatch.require(t, name, dt, dev, shape)
-    ck = ff // n_chunks
+    _require_all(args, _attn_q8_specs(width, "1") + _mlp_q8_specs(width, ff, "2"))
+    n = x.shape[0]
     out = torch.empty_like(x)
-    scratch = (
-        torch.empty((n, width), dtype=i8, device=dev),  # hq
-        torch.empty((n,), dtype=f32, device=dev),  # hr
-        torch.empty((n, 3 * width), dtype=bf, device=dev),  # qkv
-        torch.empty((n, width), dtype=bf, device=dev),  # attn
-        torch.empty((n, width), dtype=bf, device=dev),  # y
-        torch.empty((n, ck), dtype=f32, device=dev),  # fbuf
-        torch.empty((n, ck), dtype=i8, device=dev),  # fq
-        torch.empty((n,), dtype=f32, device=dev),  # fr
-        torch.empty((n, width), dtype=f32, device=dev),  # acc
-    )
+    y = torch.empty_like(x)  # after the attention half
+    scratch = (*_row_quant_scratch(x), *_attn_q8_scratch(x), y, *_mlp_q8_scratch(x, ff // n_chunks))
     fn = dispatch.kernel("kemr_layer_q8", _LAYER_Q8_ARGS)
     status = fn(
         *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
@@ -352,4 +429,84 @@ def fused_layer_q8(
     )
     dispatch.check(status, "fused_layer_q8")
     fused_layer_q8.launches += 1
+    return out
+
+
+@dispatch.counted
+def fused_attention_block_q8(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wqkv_q: torch.Tensor,
+    wqkv_s: torch.Tensor,
+    bqkv: torch.Tensor,
+    wo_q: torch.Tensor,
+    wo_s: torch.Tensor,
+    bo: torch.Tensor,
+    *,
+    seq_len: int,
+    heads: int,
+    mask_len: Optional[int] = None,
+    eps: float = 1e-5,
+    causal: bool = True,
+) -> torch.Tensor:
+    """B4a: B1's attention half as one launch,
+    ``x + out_proj_q8(attention(qkv_q8(LN(x))))``."""
+    width = wqkv_q.shape[0]
+    _check_layout(x, width, seq_len, heads)
+    mask_len = seq_len if mask_len is None else mask_len
+    args = (x, ln_scale, ln_bias, wqkv_q, wqkv_s, bqkv, wo_q, wo_s, bo)
+    if not dispatch.use_kernel(x):
+        return attention_block_q8_plain(
+            *args, seq_len=seq_len, heads=heads, mask_len=mask_len, eps=eps, causal=causal
+        )
+    _require_all(args, _attn_q8_specs(width))
+    out = torch.empty_like(x)
+    scratch = (*_row_quant_scratch(x), *_attn_q8_scratch(x))
+    fn = dispatch.kernel("kemr_attention_block_q8", _ATTN_Q8_ARGS)
+    status = fn(
+        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        x.shape[0], width, heads, seq_len, mask_len, int(causal), eps, dispatch.stream_of(x),
+    )
+    dispatch.check(status, "fused_attention_block_q8")
+    fused_attention_block_q8.launches += 1
+    return out
+
+
+@dispatch.counted
+def fused_mlp_block_q8(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1_q: torch.Tensor,
+    w1_s: torch.Tensor,
+    b1: torch.Tensor,
+    w2_q: torch.Tensor,
+    w2_s: torch.Tensor,
+    b2: torch.Tensor,
+    *,
+    n_chunks: Optional[int] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """B4b: B1's MLP half as one launch,
+    ``x + c_proj_q8(quick_gelu(c_fc_q8(LN(x))))`` with the activations
+    requantized per FF chunk and an f32 accumulator over the chunks."""
+    width, ff = w1_q.shape
+    if x.ndim != 2 or x.shape[1] != width:
+        raise ValueError(f"x must be [rows, {width}], got {tuple(x.shape)}")
+    n_chunks = default_mlp_chunks(ff) if n_chunks is None else n_chunks
+    _check_ff(ff, n_chunks)
+    args = (x, ln_scale, ln_bias, w1_q, w1_s, b1, w2_q, w2_s, b2)
+    if not dispatch.use_kernel(x):
+        return mlp_block_q8_plain(*args, n_chunks=n_chunks, eps=eps)
+    _require_all(args, _mlp_q8_specs(width, ff))
+    out = torch.empty_like(x)
+    scratch = (*_row_quant_scratch(x), *_mlp_q8_scratch(x, ff // n_chunks))
+    fn = dispatch.kernel("kemr_mlp_block_q8", _MLP_Q8_ARGS)
+    status = fn(
+        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        x.shape[0], width, ff, n_chunks, eps, dispatch.stream_of(x),
+    )
+    dispatch.check(status, "fused_mlp_block_q8")
+    fused_mlp_block_q8.launches += 1
     return out

@@ -172,15 +172,15 @@ def rerank_scores_host(queries, image, text, idx, alpha) -> Tuple[np.ndarray, np
     two-tier rerank semantics, in NumPy). ``queries`` [Q, D], ``image`` /
     ``text`` [N, D] f32 host rows, ``idx`` [Q, R] candidate rows (-1 = ann
     sentinel, masked to -inf). Returns ``(scores, idx)`` sorted descending
-    with stable ties. ``KEMR_NATIVE_RERANK=1`` opts into the JAX package's
-    native C++ rescore (its ctypes wrapper loads no JAX)."""
+    with stable ties. ``KEMR_NATIVE_RERANK=1`` opts into the
+    native C++ rescore of ``native/rerank.cpp``."""
     import os
 
     queries = np.asarray(queries, np.float32)
     idx = np.asarray(idx)
     s = None
     if os.environ.get("KEMR_NATIVE_RERANK"):
-        from knowledge_enhanced_multimodal_retrieval_tpu.native.rerank_wrapper import rerank_scores_native
+        from ..native.rerank_wrapper import rerank_scores_native
 
         s = rerank_scores_native(queries, np.asarray(image), np.asarray(text), idx, alpha)
     if s is None:

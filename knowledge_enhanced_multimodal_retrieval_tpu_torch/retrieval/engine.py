@@ -13,15 +13,15 @@ The port's copy of the text- and image-query API of
 - ``retrieve_image`` / ``retrieve_image_batch`` — visual search, CLIP only
   (Text2SPARQL has no image modality).
 
-The Text2SPARQL side and ``FusionConfig`` are the JAX package's jax-free
-``knowledge.*`` and ``utils.config`` modules, used as they are.
+The Text2SPARQL side and ``FusionConfig`` are the port's own copies of the
+reference package's ``knowledge.*`` and ``utils.config`` modules.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
-from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import FusionConfig
+from ..utils.config import FusionConfig
 
 from .clip_retrieval import CLIPRetrieval
 

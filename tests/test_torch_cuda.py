@@ -24,6 +24,7 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as T
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as S
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import profile_vision_interior as PV
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +113,87 @@ def test_layer_q8_kernel(rng, dev, s, mask_len, nseq):
     want = T.layer_q8_plain(x, *args, seq_len=s, heads=H, mask_len=mask_len, n_chunks=4, eps=1e-5, causal=True)
     # one flipped int8 rounding (ulp-level LN / GEMM order) adds ~1e-3
     _close(got, want, 2 * _BF16_ATOL)
+
+
+def _q8_layer(rng, dev):
+    """The int8 layer plan of ``_attn`` + ``_mlp`` weights, keyed as
+    ``make_vision_plan`` packs a layer."""
+    a, m = _attn(rng, dev), _mlp(rng, dev)
+    lp = dict(ln1_scale=a["ln_scale"], ln1_bias=a["ln_bias"], bqkv=a["bqkv"], bo=a["bo"],
+              ln2_scale=m["ln_scale"], ln2_bias=m["ln_bias"], b1=m["b1"], b2=m["b2"])
+    for name, w in (("wqkv", a["wqkv"]), ("wo", a["wo"]), ("w1", m["w1"]), ("w2", m["w2"])):
+        lp[name], lp[name + "_s"] = T.quantize_weight(w.float())
+    return lp
+
+
+@pytest.mark.parametrize(
+    "s,mask_len,causal,nseq", [(16, 16, True, 3), (32, 27, False, 8), (272, 257, False, 2), (592, 577, False, 2)]
+)
+def test_block_q8_kernels_and_their_pair(rng, dev, s, mask_len, causal, nseq):
+    """B4a and B4b against their plain versions; B4b(B4a(x)) is B1(x) bit
+    for bit (one body in the CUDA source)."""
+    lp = _q8_layer(rng, dev)
+    a, m = PV.attn_operands(lp), PV.mlp_operands(lp)
+    x = _t(rng.standard_normal((nseq * s, W)), dev, torch.bfloat16)
+    kw = dict(seq_len=s, heads=H, mask_len=mask_len, causal=causal)
+    before = (T.fused_attention_block_q8.launches, T.fused_mlp_block_q8.launches)
+    y = T.fused_attention_block_q8(x, *a, **kw)
+    out = T.fused_mlp_block_q8(y, *m)
+    assert (T.fused_attention_block_q8.launches, T.fused_mlp_block_q8.launches) == (before[0] + 1, before[1] + 1)
+    _close(y, T.attention_block_q8_plain(x, *a, **kw, eps=1e-5), 2 * _BF16_ATOL)
+    _close(out, T.mlp_block_q8_plain(y, *m, n_chunks=4, eps=1e-5), 2 * _BF16_ATOL)
+    whole = T.fused_layer_q8(x, *a, *m, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, whole)
+
+
+@pytest.mark.parametrize("interior", [0, 1])
+@pytest.mark.parametrize("s,mask_len,nseq", [(16, 13, 4), (272, 257, 2), (592, 577, 2)])
+def test_attn_q8_variant_kernel(rng, dev, interior, s, mask_len, nseq):
+    """S1 against its plain version; interior 0 is B4a bit for bit."""
+    lp = _q8_layer(rng, dev)
+    x = _t(rng.standard_normal((nseq * s, W)) * 0.5, dev, torch.bfloat16)
+    kw = dict(seq_len=s, heads=H, mask_len=mask_len, causal=False)
+    before = PV.attn_q8_variant.launches
+    got = PV.attn_q8_variant(x, lp, interior=interior, **kw)
+    assert PV.attn_q8_variant.launches == before + 1
+    _close(got, PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), 2 * _BF16_ATOL)
+    if interior == 0:
+        assert torch.equal(got, T.fused_attention_block_q8(x, *PV.attn_operands(lp), **kw))
+
+
+@pytest.mark.parametrize("gelu,requant", [(True, True), (True, False), (False, False), (False, True)])
+@pytest.mark.parametrize("n_chunks", [None, 1])
+def test_mlp_q8_diag_kernel(rng, dev, gelu, requant, n_chunks):
+    """S2 against its plain version; gelu = requant = 1 is B4b bit for bit."""
+    lp = _q8_layer(rng, dev)
+    x = _t(rng.standard_normal((96, W)), dev, torch.bfloat16)
+    before = PV.mlp_q8_diag.launches
+    got = PV.mlp_q8_diag(x, lp, gelu=gelu, requant=requant, n_chunks=n_chunks)
+    assert PV.mlp_q8_diag.launches == before + 1
+    _close(got, PV.mlp_q8_diag_plain(x, lp, gelu=gelu, requant=requant, n_chunks=n_chunks), 2 * _BF16_ATOL)
+    if gelu and requant:
+        assert torch.equal(got, T.fused_mlp_block_q8(x, *PV.mlp_operands(lp), n_chunks=n_chunks))
+
+
+def test_over_the_cap_layers_launch_the_block_pair(rng, dev, monkeypatch):
+    """An int8 plan whose layers exceed the routing cap launches B4a + B4b
+    once per layer and B1 never, with the same embeddings."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as FE
+
+    arch = CLIPArch(embed_dim=64, image_resolution=32, vision_layers=2, vision_width=W, vision_patch_size=8,
+                    context_length=16, vocab_size=512, text_width=W, text_heads=H, text_layers=2)
+    model = build_model("", arch=arch, seed=0, device=dev)
+    plan = make_vision_plan(model, quantize="int8")
+    images = _t(rng.standard_normal((3, 32, 32, 3)), dev, torch.float32)
+    whole = encode_image_fast(arch, plan, images)
+    monkeypatch.setattr(FE, "_LAYER_Q8_WIDE_CAP", 0)
+    dispatch.reset_launch_counts()
+    pair = encode_image_fast(arch, plan, images)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert (counts["fused_attention_block_q8"], counts["fused_mlp_block_q8"], counts["fused_layer_q8"]) == (2, 2, 0)
+    assert torch.equal(pair, whole)
 
 
 def test_kernels_refuse_wrong_operands(rng, dev):

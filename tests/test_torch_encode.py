@@ -21,10 +21,16 @@ from knowledge_enhanced_multimodal_retrieval_tpu.models.convert import flax_to_o
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as TM
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as TF
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import (
-    from_flax_params,
     arch_from_state_dict,
     load_openai_state_dict,
 )
+
+
+def from_flax_params(params, **kw):
+    """The port's CLIP from a flax parameter tree: the JAX package's
+    ``flax_to_openai`` layout handed to the port's ``load_openai_state_dict``."""
+    return load_openai_state_dict(flax_to_openai(params), **kw)
+
 
 # test arch: width 128, 2 heads, 2 layers, ff 512, the real CLIP vocab
 ARCH = JM.CLIPArch(

@@ -1,0 +1,269 @@
+"""The port's own copies of the host modules, each held to its original.
+
+The port imports nothing of the JAX package, so it carries copies of
+``utils.config``, ``utils.logging_utils``, ``native.*`` and ``knowledge.*``.
+Each copy gets the same inputs as its original here and must give the same
+answers. The native engines build with ``g++`` into the port's ``_build/``.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+from knowledge_enhanced_multimodal_retrieval_tpu import knowledge as JK
+from knowledge_enhanced_multimodal_retrieval_tpu.data.tokenizer import CLIPTokenizer as JTok
+from knowledge_enhanced_multimodal_retrieval_tpu.native import bpe_wrapper as JBpe
+from knowledge_enhanced_multimodal_retrieval_tpu.native import build as JBuild
+from knowledge_enhanced_multimodal_retrieval_tpu.native import image_wrapper as JImage
+from knowledge_enhanced_multimodal_retrieval_tpu.native import rerank_wrapper as JRerank
+from knowledge_enhanced_multimodal_retrieval_tpu.utils import config as JC
+from knowledge_enhanced_multimodal_retrieval_tpu.utils import logging_utils as JLog
+from knowledge_enhanced_multimodal_retrieval_tpu_torch import knowledge as TK
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer as TTok
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.native import bpe_wrapper as TBpe
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.native import build as TBuild
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.native import image_wrapper as TImage
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.native import rerank_wrapper as TRerank
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.dispatch import BUILD_DIR
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils import config as TC
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils import logging_utils as TLog
+
+# ---------------------------------------------------------------------------
+# utils.config
+# ---------------------------------------------------------------------------
+
+_ARGVS = {
+    "defaults": [],
+    "serve": ["--model.name=ViT-L/14", "--eval.encoder=int8", "--eval.quantize_corpus=int4", "--eval.rerank_factor=8",
+              "--eval.ann=ivf", "--eval.ann_nprobe=8", "--fusion.alpha=0.6", "--fusion.beta=0.4"],
+    "precompute": ["--model.name=ViT-L/14@336px", "--data.dataset=synthetic:32", "--data.image_size=336",
+                   "--eval.batch_size=256", "--eval.encoder=fast"],
+    "train": ["--train.epochs=3", "--train.lr=1e-5", "--mesh.data_parallel=4", "--model.dtype=float32"],
+    "bools": ["--eval.rerank=true", "--eval.mmap_store=1", "--train.resume=false"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ARGVS))
+def test_config_from_argv_equals_the_original(case):
+    want, got = JC.config_from_argv(_ARGVS[case]), TC.config_from_argv(_ARGVS[case])
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [f.name for f in dataclasses.fields(TC.EvalConfig)] == [f.name for f in dataclasses.fields(JC.EvalConfig)]
+
+
+def test_config_file_and_roundtrip(tmp_path):
+    path = str(tmp_path / "cfg.json")
+    JC.save_json(JC.config_from_argv(["--eval.pq_m=96", "--train.epochs=2"]), path)
+    want = JC.config_from_argv(["--config", path, "--fusion.alpha_clip=0.25"])
+    got = TC.config_from_argv(["--config", path, "--fusion.alpha_clip=0.25"])
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    out = str(tmp_path / "out.json")
+    TC.save_json(got, out)
+    assert dataclasses.asdict(JC.load_json(JC.Config, out)) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("argv", [["--train.no_such_key=1"], ["--nosection.x=1"], ["--eval.encoder.deep=1"]])
+def test_config_bad_key_raises_the_same_keyerror(argv):
+    with pytest.raises(KeyError) as want:
+        JC.config_from_argv(argv)
+    with pytest.raises(KeyError) as got:
+        TC.config_from_argv(argv)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("encoder", ["flax", "fast", "int8", "bogus"])
+def test_resolve_encoder_equals_the_original(encoder):
+    try:
+        want = JC.resolve_encoder(encoder)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            TC.resolve_encoder(encoder)
+        assert str(got.value) == str(e)
+        return
+    assert TC.resolve_encoder(encoder) == want
+
+
+@pytest.mark.parametrize("value", ["", "none", "int8", "int4", "pq", "binary", "true", "bogus"])
+def test_resolve_quantize_corpus_equals_the_original(value):
+    try:
+        want = JC.resolve_quantize_corpus(value)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            TC.resolve_quantize_corpus(value)
+        assert str(got.value) == str(e)
+        return
+    assert TC.resolve_quantize_corpus(value) == want
+
+
+def test_endpoints_and_fusion_defaults(monkeypatch):
+    monkeypatch.setenv("SPARQL_ENDPOINT", "http://localhost:9/sparql")
+    assert dataclasses.asdict(TC.FusionConfig()) == dataclasses.asdict(JC.FusionConfig())
+    assert dataclasses.asdict(TC.Endpoints.from_env()) == dataclasses.asdict(JC.Endpoints.from_env())
+
+
+def test_logging_utils_copy(tmp_path):
+    assert TLog.is_coordinator() is True  # one process, no process group
+    metrics = {"loss": np.float32(0.5), "hist": np.arange(3), "nested": {"k": [np.int64(2)]}}
+    assert TLog._jsonable(metrics) == JLog._jsonable(metrics)
+    TLog.MetricsWriter(str(tmp_path), "run").log(1, metrics)
+    line = json.loads((tmp_path / "run_metrics.jsonl").read_text())
+    assert line == {"step": 1, "loss": 0.5, "hist": [0, 1, 2], "nested": {"k": [2]}}
+    logger = TLog.setup_logger("kemr_torch.test", console=False)
+    assert logger.name == "kemr_torch.test" and not logger.propagate
+
+
+# ---------------------------------------------------------------------------
+# native.* (g++ at first use, into the port's _build/)
+# ---------------------------------------------------------------------------
+
+MERGES = [("l", "o</w>"), ("h", "e"), ("he", "l"), ("hel", "lo</w>"), ("c", "a"), ("ca", "t</w>")]
+
+
+def _needs(name):
+    if not (JBuild.native_available(name) and TBuild.native_available(name)):
+        pytest.skip("no g++ toolchain for the native engines")
+
+
+def test_native_builds_land_in_the_ports_build_dir():
+    _needs("bpe")
+    assert os.path.samefile(TBuild._build_dir(), BUILD_DIR)
+    assert os.path.exists(os.path.join(BUILD_DIR, "libbpe.so"))
+    assert not os.path.samefile(TBuild._build_dir(), JBuild._build_dir())
+    for name in ("bpe", "image", "rerank"):
+        with open(os.path.join(TBuild._SRC_DIR, f"{name}.cpp")) as f:
+            assert f.read().strip(), name  # the port carries its own sources
+
+
+@pytest.mark.parametrize("text", ["hello cat", "hellocat hhee xyz", "Hello,   CAT!", "", "h " * 40])
+def test_bpe_ids_equal_the_original(text):
+    _needs("bpe")
+    want = JTok(MERGES, use_native=True)
+    got = TTok(MERGES, use_native=True)
+    assert got._native is not None and type(got._native).__module__ == TBpe.__name__
+    assert type(want._native).__module__ == JBpe.__name__
+    np.testing.assert_array_equal(got([text], context_length=16), want([text], context_length=16))
+    for word in text.split():
+        assert got.bpe(word.lower()) == want.bpe(word.lower())
+
+
+@pytest.mark.parametrize("mode", ["openai", "hf"])
+def test_clip_preprocess_native_pixels_equal_the_original(rng, mode):
+    _needs("image")
+    for h, w in [(480, 640), (100, 300), (224, 224), (37, 500)]:
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        want = JImage.clip_preprocess_native(arr, 224, mode, CLIP_MEAN, CLIP_STD)
+        got = TImage.clip_preprocess_native(arr, 224, mode, CLIP_MEAN, CLIP_STD)
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(TImage.resize_bicubic_u8(arr, 64, 80), JImage.resize_bicubic_u8(arr, 64, 80))
+
+
+@pytest.mark.parametrize("per_query_alpha", [False, True])
+def test_rerank_scores_native_equal_the_original(rng, per_query_alpha):
+    _needs("rerank")
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    queries, image, text = norm(rng.standard_normal((9, 48))), norm(rng.standard_normal((200, 48))), norm(rng.standard_normal((200, 48)))
+    idx = rng.integers(0, 200, (9, 12)).astype(np.int32)
+    idx[0, :3] = -1  # ann sentinels
+    idx[1, 0] = 205  # out of range: -inf
+    alpha = rng.uniform(0, 1, 9).astype(np.float32) if per_query_alpha else 0.5
+    want = JRerank.rerank_scores_native(queries, image, text, idx, alpha)
+    got = TRerank.rerank_scores_native(queries, image, text, idx, alpha)
+    np.testing.assert_array_equal(got, want)
+    assert np.isneginf(got[0, :3]).all() and np.isneginf(got[1, 0])
+
+
+# ---------------------------------------------------------------------------
+# knowledge.*
+# ---------------------------------------------------------------------------
+
+RDF_TYPE = "http://www.w3.org/1999/02/22-rdf-syntax-ns#type"
+RDFS_LABEL = "http://www.w3.org/2000/01/rdf-schema#label"
+CRM = "http://www.cidoc-crm.org/cidoc-crm"
+CH = "https://example.org/ch"
+DA = f"{CH}/DigitalArtefact"
+P62 = f"{CRM}/P62_depicts"
+P43 = f"{CRM}/P43_has_dimension"
+P90 = f"{CRM}/P90_has_value"
+E54 = f"{CRM}/E54_Dimension"
+
+
+def _graph(K):
+    """A small Cultural-Heritage graph built with package ``K``'s types."""
+    store = K.TripleStore()
+    for uuid, label, depicted, height in [
+        ("uuid-000", "madonna and child", "mary", 50), ("uuid-001", "blue temple", None, 80),
+        ("uuid-002", "madonna della seggiola", "mary", 110), ("uuid-003", "portrait of a man", "leonardo", 80),
+    ]:
+        art = f"{CH}/artefact/{uuid}"
+        store.add(art, RDF_TYPE, K.URI(DA))
+        store.add(art, RDFS_LABEL, K.Literal(label, lang="en"))
+        if depicted:
+            store.add(art, P62, K.URI(f"{CH}/entity/{depicted}"))
+        dim = f"{CH}/dim/{uuid}"
+        store.add(art, P43, K.URI(dim))
+        store.add(dim, RDF_TYPE, K.URI(E54))
+        store.add(dim, P90, K.Literal(str(height), "http://www.w3.org/2001/XMLSchema#integer"))
+    store.add(f"{CH}/entity/mary", RDFS_LABEL, K.Literal("madonna", lang="en"))
+    store.add(f"{CH}/entity/mary", RDF_TYPE, K.URI(f"{CH}/Person"))
+    store.add(f"{CH}/entity/leonardo", RDFS_LABEL, K.Literal("leonardo da vinci"))
+    store.add(f"{CH}/entity/leonardo", RDF_TYPE, K.URI(f"{CH}/Person"))
+    return store
+
+
+def _doc(K, label):
+    return {
+        "distinct": True,
+        "variables": [{"termType": "Variable", "value": "DigitalArtefact"}],
+        "branches": [{"line": {
+            "s": "DigitalArtefact", "p": P62, "o": "Entity_1", "sType": [DA], "oType": [],
+            "values": [{"label": label, "rdfTerm": {"type": "uri", "value": K.PLACEHOLDER}}],
+        }}],
+    }
+
+
+@pytest.mark.parametrize("label", ["madonna", "leonardo da vinci", "zzz-no-such-entity"])
+def test_text2sparql_pipeline_equals_the_original(label):
+    """Fake LLM + LocalKGSparqlClient: equal SPARQL text, equal hits."""
+    out = {}
+    for name, K in (("jax", JK), ("port", TK)):
+        assert K.PLACEHOLDER == JK.PLACEHOLDER
+        client = K.LocalKGSparqlClient(_graph(K))
+        _, sparql = K.Text2JsonToSparqlPipeline(client).process_json_to_sparql(_doc(K, label))
+        llm = K.FakeLLMClient({"q": "```json\n" + json.dumps(_doc(K, label)) + "\n```"})
+        hits = K.Text2SparqlRetrieval(llm, K.LocalKGSparqlClient(_graph(K)), raise_errors=True).retrieval("q")
+        out[name] = (sparql, sorted(hits), K.execute(_graph(K), sparql))
+    assert out["port"] == out["jax"]
+    assert out["port"][1] == {"madonna": ["uuid-000", "uuid-002"], "leonardo da vinci": ["uuid-003"]}.get(
+        label, ["uuid-000", "uuid-001", "uuid-002", "uuid-003"])
+
+
+def test_convert_and_engine_equal_the_original():
+    doc = {
+        "distinct": True,
+        "variables": [{"termType": "Variable", "value": "DigitalArtefact"}],
+        "branches": [{"line": {"s": "DigitalArtefact", "p": P43, "o": "Dimension_1", "sType": [DA], "oType": [E54]},
+                      "children": [{"line": {"s": "Dimension_1", "p": P90, "o": "Value_1", "sType": [E54], "oType": [],
+                                             "values": [{"label": "x", "rdfTerm": {"type": "literal", "value": "80",
+                                                         "datatype": "http://www.w3.org/2001/XMLSchema#integer"}}]}}]}],
+    }
+    want, got = JK.convert(doc), TK.convert(doc)
+    assert got == want
+    assert TK.execute(_graph(TK), got) == JK.execute(_graph(JK), want)
+    assert TK.strip_json_fences("```json\n{}\n```") == JK.strip_json_fences("```json\n{}\n```")
+    for value in ("80", "3.5", "2020-01-01", "plain"):
+        assert TK.infer_datatype(value) == JK.infer_datatype(value)
+    with pytest.raises(TK.SparqlSyntaxError):
+        TK.parse_query("SELECT ?a WHERE { ?a")
+
+
+def test_fake_clients_and_circuit_wrappers_equal_the_original():
+    for K in (JK, TK):
+        fake = K.FakeKGSparqlClient(entities={}, artefacts=[f"{CH}/artefact/uuid-007"])
+        t2s = K.Text2SparqlRetrieval(K.FakeLLMClient({}, default=json.dumps(_doc(K, "x"))), fake)
+        wrapped = K.CachedRetrieval(K.CircuitBreakerRetrieval(t2s))
+        assert wrapped.retrieval("anything") == ["uuid-007"]
+        assert wrapped.retrieval("anything") == ["uuid-007"]  # served from the cache
+    assert set(TK.__dict__) >= {n for n in JK.__dict__ if not n.startswith("_")}

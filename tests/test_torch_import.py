@@ -1,9 +1,11 @@
-"""The port imports without JAX or Triton, and its kernel loader fails clearly.
+"""The port imports without JAX, Triton or the JAX package, and its kernel
+loader fails clearly.
 
 Importing must happen in a fresh interpreter: this suite's conftest has
 already imported JAX into the test process.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +17,7 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = "knowledge_enhanced_multimodal_retrieval_tpu_torch"
+JAX_PKG = "knowledge_enhanced_multimodal_retrieval_tpu"
 SLICE_MODULES = [
     PKG,
     f"{PKG}.ops.dispatch",
@@ -39,6 +42,21 @@ SLICE_MODULES = [
     f"{PKG}.cli.precompute",
     f"{PKG}.cli.serve",
     f"{PKG}.cli.index",
+    f"{PKG}.utils.config",
+    f"{PKG}.utils.logging_utils",
+    f"{PKG}.native",
+    f"{PKG}.native.build",
+    f"{PKG}.native.bpe_wrapper",
+    f"{PKG}.native.image_wrapper",
+    f"{PKG}.native.rerank_wrapper",
+    f"{PKG}.knowledge",
+    f"{PKG}.knowledge.circuit",
+    f"{PKG}.knowledge.clients",
+    f"{PKG}.knowledge.entity_linking",
+    f"{PKG}.knowledge.json2sparql",
+    f"{PKG}.knowledge.kg",
+    f"{PKG}.knowledge.text2sparql",
+    f"{PKG}.scripts.profile_vision_interior",
 ]
 
 
@@ -47,12 +65,41 @@ def test_port_imports_without_jax_or_triton():
         "import importlib, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton', {JAX_PKG!r}))\n"
         "print('LEAKED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_port_module_is_in_the_import_list():
+    have = {
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in (REPO / PKG).rglob("*.py") if "_build" not in p.parts
+    }
+    assert have - set(SLICE_MODULES) <= {f"{PKG}.{sub}" for sub in
+                                         ("cli", "data", "eval", "models", "ops", "retrieval", "scripts", "utils")}
+
+
+_IMPORT_OF_JAX_PKG = re.compile(rf"^\s*(from|import)\s+{JAX_PKG}(\.|\s|$)", re.MULTILINE)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(REPO)) for p in (REPO / PKG).rglob("*.py") if "_build" not in p.parts) + ["chip_smoke.py"]
+)
+def test_no_source_imports_the_jax_package(path):
+    """No ``import`` / ``from`` line names the JAX package or JAX itself
+    (docstrings may name them)."""
+    text = (REPO / path).read_text()
+    assert not _IMPORT_OF_JAX_PKG.search(text), path
+    assert not re.search(r"^\s*(from|import)\s+(jax|jaxlib|flax)(\.|\s|$)", text, re.MULTILINE), path
+
+
+def test_the_import_pattern_catches_an_import():
+    assert _IMPORT_OF_JAX_PKG.search(f"x = 1\n    from {JAX_PKG}.utils.config import Config\n")
+    assert _IMPORT_OF_JAX_PKG.search(f"import {JAX_PKG}\n")
+    assert not _IMPORT_OF_JAX_PKG.search(f"from {PKG}.utils import config\n# the copy of {JAX_PKG}/utils\n")
 
 
 def test_loader_without_nvcc_raises_clearly(tmp_path, monkeypatch):

@@ -26,10 +26,17 @@ from knowledge_enhanced_multimodal_retrieval_tpu.retrieval.engine import Retriev
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import precompute
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import make_synthetic_source as t_source
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer as TTok
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import from_flax_params
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import load_openai_state_dict
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval as TRetrieval
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore as TStore
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine as TEngine
+
+
+def from_flax_params(params, **kw):
+    """The port's CLIP from a flax parameter tree: the JAX package's
+    ``flax_to_openai`` layout handed to the port's ``load_openai_state_dict``."""
+    return load_openai_state_dict(flax_to_openai(params), **kw)
+
 
 ARCH = JM.CLIPArch(
     embed_dim=64, image_resolution=32, vision_layers=2, vision_width=128, vision_patch_size=8,

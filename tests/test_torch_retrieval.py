@@ -27,10 +27,17 @@ from knowledge_enhanced_multimodal_retrieval_tpu.retrieval.embedding_store impor
 from knowledge_enhanced_multimodal_retrieval_tpu.retrieval.engine import RetrievalEngine as JEngine
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import serve
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer as TTok
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import from_flax_params
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import load_openai_state_dict
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval as TRetrieval
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore as TStore
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine as TEngine
+
+
+def from_flax_params(params, **kw):
+    """The port's CLIP from a flax parameter tree: the JAX package's
+    ``flax_to_openai`` layout handed to the port's ``load_openai_state_dict``."""
+    return load_openai_state_dict(flax_to_openai(params), **kw)
+
 
 MERGES = [("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")]
 ARCH = JM.CLIPArch(

@@ -28,7 +28,14 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.data import datasets as T
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.data import preprocess as TP
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer as TTok
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as TF
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import arch_from_state_dict, from_flax_params
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import arch_from_state_dict, load_openai_state_dict
+
+
+def from_flax_params(params, **kw):
+    """The port's CLIP from a flax parameter tree: the JAX package's
+    ``flax_to_openai`` layout handed to the port's ``load_openai_state_dict``."""
+    return load_openai_state_dict(flax_to_openai(params), **kw)
+
 
 ARCHS = {
     "p8": JM.CLIPArch(
