@@ -12,7 +12,9 @@
    43,000 x 768, Q = 256, k = 20), and the corpus-precompute path at
    ViT-L/14 vision shapes (64 x 272 rows x 1024, 16 heads, ff 4096, not
    causal; 4 x 592 rows at 336 px; attention [64, 16, 257, 64] and
-   [16, 16, 577, 64]).
+   [16, 16, 577, 64]). Correctness only: attention at head dims 32 and 128
+   and under the causal mask, B2 at 1 and 3 queries and with text queries
+   that differ from the image queries.
 4. Serves the text slice: a seeded ViT-L/14 CLIP in the ``fast`` (bf16
    encoder + bf16 corpus) and ``int8`` (W8A8 encoder + int8 corpus) modes
    over a 43,000-row synthetic store saved to ``.npz`` and loaded back,
@@ -47,7 +49,12 @@
 Each kernel's line also carries its bound (the larger of bytes over
 3.35 TB/s and operations over the card's peak for their type: 989 TFLOP/s
 bf16, 1,979 TOP/s int8, 67 TFLOP/s f32 outside the tensor cores) and, where
-one PyTorch call computes the same function, that call's time.
+one PyTorch call (or, for B2, a short sequence of calls) computes the same
+function, that call's time. ``ms``, ``plain_ms`` and ``library_ms`` are
+medians of CUDA-event intervals around one call each, so they hold the
+wrapper's host time where the card waits for it; ``device_ms`` and
+``library_device_ms`` are the same medians with the card kept busy while
+the host enqueues, which leaves the kernels' own time.
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel must have launched in the path it belongs to.
 
@@ -99,8 +106,12 @@ TOL_BF16_BLOCK = 2 * 2.0 ** -5
 TOL_Q8_LAYER = 4 * 2.0 ** -5
 # top-k values: f32 sums of exact products in another order (~1e-7 rel).
 TOL_TOPK = 1e-5
-# attention (B6/B7): kernel and plain version both keep f32 through p@v and
-# round once to bf16; outputs |o| < 4 (step <= 2^-6 there), one step apart.
+# attention (B6/B7), bf16: kernel and plain version both round the
+# unnormalized p to bf16 before p@v, sum the f32 p and round the output once;
+# the kernel rounds p against the running maximum and the plain version
+# against the final one (2^-9 relative per weight, averaged over the keys),
+# and the sums run in another order. Outputs |o| < 4 (step <= 2^-6 there):
+# one step apart.
 TOL_ATTN = 2.0 ** -6
 # IVF probes, card against the CPU in f32: other summation orders (~1e-6);
 # IVF-PQ also casts its LUTs to bf16, where an entry can round one step the
@@ -189,6 +200,26 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Median CUDA-event interval around one call while the card is still
+    busy with a spin kernel queued just before: the host enqueues ahead of
+    the card, so the interval holds no host time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # ~0.5 ms of spinning on the card
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def topk_agree(got, scores, k: int, tol: float):
     """The kernel's top-k is a correct top-k of the plain score matrix up to
     near ties: its values match the plain top-k values, every returned row
@@ -223,11 +254,14 @@ def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20 / {plain_iters}, CUDA events)")
     library_ms = median_ms(library_fn) if library_fn is not None else None
+    dev_ms = device_ms(kernel_fn)
+    library_dev_ms = device_ms(library_fn) if library_fn is not None else None
     bound_ms, bound_by = bound_of
-    log(f"{name}: bound {bound_ms:.4f} ms by {bound_by} ({ms / bound_ms:.1f}x over it)"
-        + (f"; library call {library_ms:.4f} ms" if library_ms is not None else ""))
+    log(f"{name}: bound {bound_ms:.4f} ms by {bound_by} ({ms / bound_ms:.1f}x over it); device only {dev_ms:.4f} ms"
+        + (f"; library call {library_ms:.4f} ms (device only {library_dev_ms:.4f} ms)" if library_ms is not None else ""))
     results[name] = dict(name=name, route="cuda", source=src, replaces=replaces, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                         device_ms=dev_ms, library_device_ms=library_dev_ms)
 
 
 SRC_FB = f"{PKG}/csrc/fused_block.cu"
@@ -290,6 +324,58 @@ def _matmul_topk(torch, q, ci, ct, alpha, k):
     return lambda: torch.topk(a * (q @ ci.T).float() + (1.0 - a) * (q @ ct.T).float(), k, dim=1)
 
 
+def _matmul_topk_q8(torch, q, c8, alpha, k):
+    """The yardstick for B2 q8, a sequence of PyTorch calls: the int8 rows
+    cast to bf16, two ``matmul``s, the per-row scales, the blend, ``topk``."""
+    iq, is_, tq, ts = c8
+    a = alpha.reshape(-1, 1)
+
+    def run():
+        t2i, t2t = (q @ iq.to(q.dtype).T).float(), (q @ tq.to(q.dtype).T).float()
+        return torch.topk(a * (t2i * is_.reshape(1, -1)) + (1.0 - a) * (t2t * ts.reshape(1, -1)), k, dim=1)
+
+    return run
+
+
+def _matmul_topk_q4(torch, q, c4, alpha, k):
+    """The yardstick for B2-q4, a sequence of PyTorch calls: the nibbles
+    unpacked and cast to bf16, one ``matmul`` per tower over the joined
+    planes, the per-row scales, the blend, ``topk``."""
+    ip, is_, tp, ts = c4
+    a = alpha.reshape(-1, 1)
+
+    def unpack(p):
+        b = p.to(torch.int16)
+        return torch.cat([((b & 0xF) ^ 8) - 8, b >> 4], dim=1).to(q.dtype)
+
+    def run():
+        t2i, t2t = (q @ unpack(ip).T).float(), (q @ unpack(tp).T).float()
+        return torch.topk(a * (t2i * is_.reshape(1, -1)) + (1.0 - a) * (t2t * ts.reshape(1, -1)), k, dim=1)
+
+    return run
+
+
+def topk_edge_cases(torch, dev, rng, ci, ct, c8):
+    """B2 at 1 and 3 queries and with text queries that differ from the image
+    queries, exact and q8, against the plain versions (correctness only)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+
+    norm = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)  # noqa: E731
+    for qn in (1, 3, QUERIES):
+        qi = _t(torch, dev, norm(rng.standard_normal((qn, WIDTH))), torch.bfloat16)
+        qt = _t(torch, dev, norm(rng.standard_normal((qn, WIDTH))), torch.bfloat16)
+        alpha = _t(torch, dev, rng.uniform(0.2, 0.8, qn), torch.float32)
+        for q_txt in (None, qt):
+            if q_txt is None and qn == QUERIES:
+                continue  # the timed case
+            got = SIM.fused_similarity_topk(qi, ci, ct, K, alpha=alpha, queries_txt=q_txt)
+            topk_agree(got, SIM.blended_scores(qi, ci, ct, alpha, queries_txt=q_txt), K, TOL_TOPK)
+            got = SIM.fused_similarity_topk_q8(qi, *c8, K, alpha=alpha, queries_txt=q_txt)
+            topk_agree(got, SIM.blended_scores_q8(qi, *c8, alpha, queries_txt=q_txt), K, TOL_TOPK)
+    torch.cuda.synchronize()
+    log(f"B2 exact and q8 at Q = 1, 3 and with queries_txt != queries_img (Q = 1, 3, {QUERIES}): == plain top-k")
+
+
 def kernel_phases(torch, dev, results):
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
 
@@ -326,7 +412,9 @@ def kernel_phases(torch, dev, results):
     record(torch, results, "B2 similarity_topk q8", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
            lambda: SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha),
            lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), K),
-           bound_of=topk_bound(QUERIES, CORPUS, WIDTH, K, WIDTH + 4))
+           bound_of=topk_bound(QUERIES, CORPUS, WIDTH, K, WIDTH + 4),
+           library_fn=_matmul_topk_q8(torch, qs, c8, alpha, K))
+    topk_edge_cases(torch, dev, rng, ci, ct, c8)
     torch.cuda.synchronize()
 
 
@@ -352,6 +440,16 @@ def vision_kernel_phases(torch, dev, results):
                TOL_ATTN, lambda: FA.flash_attention(q, k, v), lambda: FA.flash_attention_plain(q, k, v),
                bound_of=attention_bound(*shape),
                library_fn=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    # correctness only: the other head-dim instantiations and the causal mask
+    for shape, causal in (((8, 4, 257, 32), False), ((8, 4, 577, 128), False), ((8, 4, 257, 64), True),
+                          ((8, 4, 300, 128), True)):
+        q, k, v = (_t(torch, dev, rng.standard_normal(shape), torch.bfloat16) for _ in range(3))
+        got, want = FA.flash_attention(q, k, v, causal=causal), FA.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        log(f"B6/B7 flash_attention {list(shape)} causal={causal}: max_abs_err {err:.6g} (tolerance {TOL_ATTN:.6g})")
+        if not np.isfinite(err) or err > TOL_ATTN:
+            raise AssertionError(f"flash_attention {shape} causal={causal} disagrees with its plain version: {err}")
     torch.cuda.synchronize()
 
 
@@ -770,7 +868,8 @@ def capacity_kernel_phases(torch, dev, results):
         record(torch, results, f"B2-q4 similarity_topk q4 [{n}]", src_sim, ref_q4, got[0], want[0], TOL_TOPK,
                lambda: SIM.fused_similarity_topk_q4(qs, *c4, K, alpha=alpha),
                lambda: SIM.topk_plain(SIM.blended_scores_q4(qs, *c4, alpha), K), plain_iters,
-               bound_of=topk_bound(QUERIES, n, WIDTH, K, WIDTH // 2 + 4))
+               bound_of=topk_bound(QUERIES, n, WIDTH, K, WIDTH // 2 + 4),
+               library_fn=_matmul_topk_q4(torch, qs, c4, alpha, K))
         del c4
 
         luts = [(0.05 * torch.randn((PQ_M, QUERIES, PQ_K), device=dev, generator=gen)).to(bf) for _ in range(2)]

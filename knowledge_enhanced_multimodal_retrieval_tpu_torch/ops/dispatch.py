@@ -134,12 +134,18 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+_KERNELS: Dict[str, object] = {}
+
+
 def kernel(name: str, argtypes: list):
     """The C entry ``name`` with its argument types set (pointers and the
     stream as ``c_void_p``: a bare Python int would be cut to 32 bits)."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = I
+    fn = _KERNELS.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = I
+        _KERNELS[name] = fn
     return fn
 
 

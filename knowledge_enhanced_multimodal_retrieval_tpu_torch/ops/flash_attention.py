@@ -8,7 +8,9 @@ function on ``[B, H, S, D]``:
 
 The short/flash split sized the sequence to the TPU's VMEM; on Hopper one
 kernel (``csrc/attention.cu``) streams K/V tiles through shared memory for
-every length. :func:`flash_attention` launches it on CUDA tensors and runs
+every length: on the tensor cores for bf16 inputs (p rounded to bf16 before
+p@v, as ``mha_plain`` and the JAX ``mha_xla`` do), on the CUDA cores in f32
+for f32 inputs. :func:`flash_attention` launches it on CUDA tensors and runs
 :func:`flash_attention_plain` on CPU tensors. The gradient recomputes
 through ``ops.attention.mha_plain``, as both JAX ``_bwd`` rules recompute
 through ``mha_xla``, so there is no backward kernel.
@@ -23,7 +25,7 @@ from . import dispatch
 from .dispatch import F, I, P
 
 _NEG_INF = float(np.finfo(np.float32).min)
-MAX_HEAD_DIM = 256  # head dims the kernel takes (its tile pads to 32, 64, 128 or 256)
+MAX_HEAD_DIM = 256  # head dims the kernel takes (its tiles pad to 64, 128 or 256; 32 too in f32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_ARGS = [I] + [P] * 4 + [I] * 5 + [F, P]
 
@@ -33,11 +35,14 @@ def _scale(d: int) -> float:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
-    """The Pallas kernels' arithmetic on ``[B, H, S, D]``: q/k/v as f32,
-    scores scaled after the dot, masked scores at f32 min with p = 0 there,
-    p kept in f32 through p@v, a zero denominator replaced by 1, one cast to
-    the input dtype. (The Pallas kernels also mask the columns they pad the
-    sequence with; unpadded, there are none.)"""
+    """The kernel's arithmetic on ``[B, H, S, D]``: q/k/v as f32, scores
+    scaled after the dot, masked scores at f32 min with p = 0 there, a zero
+    denominator replaced by 1, one cast to the input dtype. For f32 inputs p
+    stays f32 through p@v, as in the Pallas kernels. For bf16 inputs the
+    unnormalized p = exp(s - max) is rounded to bf16 before p@v (the tensor
+    cores take bf16), the sum is taken from the f32 p, and the division comes
+    after the product. (The Pallas kernels also mask the columns they pad
+    the sequence with; unpadded, there are none.)"""
     sq, sk = q.shape[-2], k.shape[-2]
     s = (q.float() @ k.float().transpose(-1, -2)) * _scale(q.shape[-1])
     if causal:
@@ -49,8 +54,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     if causal:
         p = torch.where(keep, p, torch.zeros_like(p))
     denom = p.sum(-1, keepdim=True)
-    p = p / torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    return (p @ v.float()).to(q.dtype)
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    if q.dtype == torch.bfloat16:
+        return ((p.to(torch.bfloat16).float() @ v.float()) / denom).to(q.dtype)
+    return ((p / denom) @ v.float()).to(q.dtype)
 
 
 @dispatch.counted
@@ -101,4 +108,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
     """Attention on ``[B, H, S, D]`` -> ``[B, H, S, D]`` in the input dtype;
     differentiable (backward by recompute through ``mha_plain``)."""
-    return _FlashAttention.apply(q, k, v, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    # no graph to record: skip the autograd wrapper (tens of microseconds a call)
+    if not dispatch.use_kernel(q):
+        return flash_attention_plain(q, k, v, causal)
+    return flash_attention_kernel(q, k, v, causal)

@@ -20,6 +20,7 @@ f32 host rerank of fetched candidates.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,8 +30,10 @@ from . import dispatch
 from .dispatch import I, P
 
 _NEG_INF = float(np.finfo(np.float32).min)
-_MAX_KERNEL_K = 128  # per-tile candidate lists hold at most the 128-row tile
+_MAX_KERNEL_K = 128  # the kernel's running lists hold at most one 128-row tile
 _TILE = 128  # corpus rows per kernel tile (csrc/similarity.cu TK_T)
+_F32_QUERY_GROUP = 16  # queries per block on the f32 route (TK_QG)
+_F32_BLOCKS_PER_SM = 3  # f32-route blocks that fit an SM (about 70 KB of shared memory each at D = 768)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q4_CODE = 3  # nibble-packed int4 corpus rows (int8 [N, D/2])
 
@@ -229,7 +232,28 @@ def topk_plain(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     return vals, idx.to(torch.int32)
 
 
-_TOPK_ARGS = [I, I] + [P] * 7 + [I] * 4 + [P] * 4 + [P]
+_TOPK_ARGS = [I, I] + [P] * 7 + [I] * 5 + [P] * 4 + [P]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _query_block(q_code: int, qn: int, k: int) -> int:
+    """Queries one block of the kernel takes (the kernel's own rule)."""
+    return dispatch.kernel("kemr_topk_query_block", [I, I, I])(q_code, qn, k)
+
+
+def scan_strips(n_rows: int, query_blocks: int, blocks_wanted: int) -> int:
+    """Strips the kernel cuts the corpus into: each block walks one strip of
+    128-row tiles for one block of queries and carries the running top-k, so
+    the grid is ``(strips, query blocks)`` and about ``blocks_wanted`` in all
+    (the device's SM count on the tensor-core route); never more strips than
+    tiles."""
+    n_tiles = -(-n_rows // _TILE)
+    return max(1, min(n_tiles, blocks_wanted // max(1, query_blocks)))
 
 
 @dispatch.counted
@@ -261,11 +285,14 @@ def similarity_topk_kernel(
     if img_scale is not None:
         dispatch.require(img_scale, "img_scale", torch.float32, dev, (n, 1))
         dispatch.require(txt_scale, "txt_scale", torch.float32, dev, (n, 1))
-    if (16 * d + 2 * 16 * _TILE) * 4 > 227 * 1024:
+    if qdt == torch.float32 and (_F32_QUERY_GROUP * (d + 2 * k + 2 * _TILE)) * 4 > 227 * 1024:
         raise ValueError(f"embedding width {d} exceeds the kernel's shared-memory budget")
-    n_tiles = -(-n // _TILE)
-    cand_v = torch.empty((qn, n_tiles, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((qn, n_tiles, k), dtype=torch.int32, device=dev)
+    sms = _sm_count(dev)
+    per_block = _query_block(_DTYPE_CODE[qdt], qn, k)
+    wanted = sms * (_F32_BLOCKS_PER_SM if qdt == torch.float32 else 1)
+    n_strips = scan_strips(n, -(-qn // per_block), wanted)
+    cand_v = torch.empty((qn, n_strips, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((qn, n_strips, k), dtype=torch.int32, device=dev)
     vals = torch.empty((qn, k), dtype=torch.float32, device=dev)
     idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
     fn = dispatch.kernel("kemr_similarity_topk", _TOPK_ARGS)
@@ -274,7 +301,7 @@ def similarity_topk_kernel(
         img.data_ptr(), txt.data_ptr(),
         None if img_scale is None else img_scale.data_ptr(),
         None if txt_scale is None else txt_scale.data_ptr(),
-        alpha_col.data_ptr(), qn, n, d, k, cand_v.data_ptr(), cand_i.data_ptr(),
+        alpha_col.data_ptr(), qn, n, d, k, n_strips, cand_v.data_ptr(), cand_i.data_ptr(),
         vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(queries_img),
     )
     dispatch.check(status, "similarity_topk_kernel")

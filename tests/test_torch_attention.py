@@ -3,7 +3,9 @@
 ``flash_attention_plain`` (the CPU route of the port's B6/B7 kernel) is held
 to the Pallas ``short_attention`` and ``flash_attention`` kernels in
 interpret mode, at the sizes and the 2e-3 tolerance of
-``tests/test_short_attention.py`` / ``tests/test_flash_attention.py``;
+``tests/test_short_attention.py`` / ``tests/test_flash_attention.py`` in f32
+and at their 3e-2 in bf16, where the port rounds p to bf16 before p@v as its
+tensor-core kernel does (and is held to ``mha_plain``, which rounds there too);
 ``mha_plain`` to ``mha_xla``; the autograd gradient to ``jax.vjp`` of
 ``mha_xla``. Inputs are seeded numpy arrays handed to both.
 """
@@ -72,8 +74,34 @@ def test_plain_bf16_matches_pallas(rng, kernel):
     want = jfn(*_jax(arrs, jnp.bfloat16), interpret=True)
     got = FA.flash_attention(*_torch(arrs, torch.bfloat16))
     assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
-    # both keep f32 through p@v and round once at the output: one bf16 step
+    # the Pallas kernels keep p in f32 through p@v, the port rounds p to bf16
+    # (2^-9 relative per weight, averaged over the keys) and both round the
+    # output once: the tolerance the JAX tests hold the kernels to in bf16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("s", [77, 257, 577])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_bf16_rounds_p_like_mha_plain(rng, s, causal):
+    """In bf16 ``flash_attention_plain`` rounds the unnormalized p to bf16
+    before p@v and divides after it; ``mha_plain`` rounds the logits and the
+    normalized weights to bf16. The two differ by those roundings: two bf16
+    steps of the output, or, where the weighted values cancel, one step of
+    the O(1) terms that were summed (2^-7)."""
+    q, k, v = _torch(_qkv(rng, 1, 2, s, 64), torch.bfloat16)
+    got = FA.flash_attention_plain(q, k, v, causal).float().numpy()
+    want = mha_plain(q, k, v, causal).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -6, atol=2.0 ** -7)
+
+
+def test_plain_bf16_p_is_rounded_before_the_product(rng):
+    """The bf16 route is not the f32 route cast at the end: with p kept in
+    f32 some outputs land on another bf16 value."""
+    q, k, v = _torch(_qkv(rng, 1, 2, 257, 64), torch.bfloat16)
+    rounded = FA.flash_attention_plain(q, k, v).float()
+    unrounded = FA.flash_attention_plain(q.float(), k.float(), v.float()).to(torch.bfloat16).float()
+    assert (rounded != unrounded).any()
+    np.testing.assert_allclose(rounded.numpy(), unrounded.numpy(), rtol=2.0 ** -6, atol=2.0 ** -7)
 
 
 @pytest.mark.parametrize("causal", [False, True])

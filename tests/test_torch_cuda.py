@@ -247,6 +247,90 @@ def test_topk_kernel(rng, dev, mode, k):
         assert gi[6, 0] == 17 and gi[6, 1] == 900
 
 
+def _unit(a):
+    return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("q", [1, 3, 70, 200])
+def test_topk_kernel_ties_across_strips(rng, dev, dtype, q):
+    """Equal rows far apart land in different strips of the scan; they must
+    come back lowest row first. Query 0 is the tied row itself."""
+    n, d, k = 20000, 64, 8
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    img, txt, qs = _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((q, d)))
+    twins = [19999, 12345, 7000, 130, 5]  # one tile apart up to the whole corpus apart
+    for r in twins:
+        img[r], txt[r] = img[5], txt[5]
+    qs[0] = img[5]
+    c = (_t(img, dev, dt), _t(txt, dev, dt))
+    qd = _t(qs, dev, dt)
+    before = S.similarity_topk_kernel.launches
+    got = S.fused_similarity_topk(qd, *c, k, alpha=1.0)
+    assert S.similarity_topk_kernel.launches == before + 1
+    want = _topk_check(got, S.blended_scores(qd, *c, 1.0), k)
+    assert got[1][0, :5].cpu().tolist() == sorted(twins)
+    assert torch.equal(got[1].cpu(), want[1].cpu())  # random rows: no other near ties
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32", "q8", "q4"])
+def test_topk_kernel_fillers_nan_and_two_query_sets(rng, dev, mode):
+    """Fewer than k finite scores (N < k), a NaN query, Q = 1, and
+    ``queries_txt`` that differ from ``queries_img``, in every corpus mode."""
+    d = 64
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+
+    def corpus(n):
+        img, txt = _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((n, d)))
+        if mode in ("bf16", "f32"):
+            c = (_t(img, dev, dt), _t(txt, dev, dt))
+            return c, S.fused_similarity_topk, S.blended_scores
+        quant = S.quantize_corpus_host if mode == "q8" else S.quantize_corpus_host_q4
+        (iq, is_), (tq, ts) = quant(img), quant(txt)
+        c = (_t(iq, dev, torch.int8), _t(is_, dev, torch.float32), _t(tq, dev, torch.int8), _t(ts, dev, torch.float32))
+        if mode == "q8":
+            return c, S.fused_similarity_topk_q8, S.blended_scores_q8
+        return c, S.fused_similarity_topk_q4, S.blended_scores_q4
+
+    # N = 5 rows, k = 20 asked: the wrapper cuts k to N; one row is all NaN
+    c, fused, plain = corpus(5)
+    qd = _t(_unit(rng.standard_normal((3, d))), dev, dt)
+    qd[1] = float("nan")
+    got = fused(qd, *c, 20, alpha=0.3)
+    assert got[0].shape == (3, 5)
+    _topk_check(got, plain(qd, *c, 0.3), 5)
+    assert (got[1][1] == 0).all() and (got[0][1] == torch.finfo(torch.float32).min).all()
+    # Q = 1 and two query sets over a ragged corpus
+    c, fused, plain = corpus(1000)
+    for qn in (1, 3):
+        qi = _t(_unit(rng.standard_normal((qn, d))), dev, dt)
+        qt = _t(_unit(rng.standard_normal((qn, d))), dev, dt)
+        alpha = torch.tensor(rng.uniform(0.2, 0.8, qn), device=dev)
+        got = fused(qi, *c, 10, alpha=alpha, queries_txt=qt)
+        want = _topk_check(got, plain(qi, *c, alpha, queries_txt=qt), 10)
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+        one = fused(qi, *c, 10, alpha=alpha)
+        assert not torch.equal(one[0], got[0])  # the text tower really saw the other queries
+
+
+@pytest.mark.parametrize("d", [256, 384, 768, 1024, 100])
+def test_topk_kernel_widths(rng, dev, d):
+    """truncate_dim, the q4 byte width, ViT-L/14 and a wider arch; 100 takes
+    the plain-load staging (rows of 200 bytes are not 16-byte aligned)."""
+    n, q, k = 3000, 130, 20
+    img, txt, qs = _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((q, d)))
+    qd = _t(qs, dev, torch.bfloat16)
+    alpha = torch.tensor(rng.uniform(0.2, 0.8, q), device=dev)
+    c = (_t(img, dev, torch.bfloat16), _t(txt, dev, torch.bfloat16))
+    _topk_check(S.fused_similarity_topk(qd, *c, k, alpha=alpha), S.blended_scores(qd, *c, alpha), k)
+    (iq, is_), (tq, ts) = S.quantize_corpus_host(img), S.quantize_corpus_host(txt)
+    c8 = (_t(iq, dev, torch.int8), _t(is_, dev, torch.float32), _t(tq, dev, torch.int8), _t(ts, dev, torch.float32))
+    _topk_check(S.fused_similarity_topk_q8(qd, *c8, k, alpha=alpha), S.blended_scores_q8(qd, *c8, alpha), k)
+    (ip, is_), (tp, ts) = S.quantize_corpus_host_q4(img), S.quantize_corpus_host_q4(txt)
+    c4 = (_t(ip, dev, torch.int8), _t(is_, dev, torch.float32), _t(tp, dev, torch.int8), _t(ts, dev, torch.float32))
+    _topk_check(S.fused_similarity_topk_q4(qd, *c4, k, alpha=alpha), S.blended_scores_q4(qd, *c4, alpha), k)
+
+
 @pytest.mark.parametrize("qdtype", ["bf16", "f32"])
 @pytest.mark.parametrize("k", [1, 20, 128])
 def test_topk_q4_kernel(rng, dev, qdtype, k):
@@ -358,8 +442,33 @@ def test_flash_attention_kernel(rng, dev, dtype, sq, sk, d, causal):
     assert FA.flash_attention_kernel.launches == before + 1
     assert got.dtype == dt and got.shape == q.shape
     # f32: an online softmax against a one-pass one, other summation order
-    # (~1e-6); bf16: outputs |o| < 2 rounded once, so one or two bf16 steps
+    # (~1e-6); bf16: p rounded to bf16 against the running maximum in the
+    # kernel and the final one in the plain version, outputs |o| < 2 rounded
+    # once, so one or two bf16 steps
     _close(got, FA.flash_attention_plain(q, k, v, causal), 2e-5 if dtype == "f32" else 2 ** -6)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (257, 257, 64, False), (577, 577, 64, False), (130, 130, 64, False), (8, 8, 64, False),  # ragged last key tile
+    (64, 257, 64, False), (300, 8, 32, False), (1, 577, 128, False), (130, 70, 64, True),  # Sq != Sk
+    (96, 130, 40, False), (65, 65, 36, True),  # rows of 80 / 72 bytes: 16-byte copies, then plain loads
+])
+def test_flash_attention_kernel_ragged_tiles(rng, dev, sq, sk, d, causal):
+    """bf16 route: the last key tile stops at the 16-key group that holds the
+    last key, query rows past Sq are padding that is never stored, and the
+    masked columns weigh nothing (every key is real, so the sum of the weights
+    over the real keys must be the whole of it). Head dim 64 takes the TMA
+    staging, 32 and 40 the 16-byte copies, 36 plain loads, 128 the mma.sync
+    kernel."""
+    q = _t(rng.standard_normal((2, 2, sq, d)), dev, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((2, 2, sk, d)), dev, torch.bfloat16) for _ in range(2))
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, FA.flash_attention_plain(q, k, v, causal), 2 ** -6)
+    # constant values: every output is that constant whatever the weights, so
+    # a padded key that leaked into the sum or the product would show
+    ones = torch.ones_like(v)
+    _close(FA.flash_attention(q, k, ones, causal=causal), torch.ones_like(q), 2 ** -7)
 
 
 def test_mha_routes_long_sequences_to_the_kernel(rng, dev):

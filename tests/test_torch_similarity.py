@@ -119,3 +119,53 @@ def test_k_clamps_to_corpus(rng):
 def test_alpha_length_checked():
     with pytest.raises(ValueError):
         T.alpha_column([0.1, 0.2], 3, "cpu")
+
+
+@pytest.mark.parametrize(
+    "n_rows,query_blocks,blocks_wanted,want",
+    [
+        (43_000, 2, 132, 66),  # 256 queries in blocks of 128: one block an SM
+        (43_300, 1, 132, 132),  # 64 image queries
+        (100, 1, 132, 1),  # one tile: one strip
+        (1_000_000, 2, 132, 66),
+        (4_321, 3, 396, 34),  # never more strips than 128-row tiles
+        (43_000, 200, 132, 1),  # more query blocks than blocks wanted: one strip each
+    ],
+)
+def test_scan_strips_fill_the_card_without_empty_strips(n_rows, query_blocks, blocks_wanted, want):
+    """The kernel's grid is (strips, query blocks) of about the SM count; a
+    strip holds at least one 128-row tile."""
+    got = T.scan_strips(n_rows, query_blocks, blocks_wanted)
+    assert got == want
+    assert 1 <= got <= -(-n_rows // 128)
+
+
+@pytest.mark.parametrize("n_strips", [1, 3, 8])
+@pytest.mark.parametrize("k", [1, 5, 20])
+def test_strip_lists_then_merge_is_the_global_topk(rng, n_strips, k):
+    """What the kernel's two passes compute, in plain PyTorch: each strip of
+    tiles keeps its own k best (value descending, row ascending), and the
+    merge of the strips' lists is the top-k of the whole corpus, ties across
+    strips to the lowest row."""
+    q, img, txt = _data(rng)
+    img[900], txt[900] = img[17], txt[17]  # equal rows, far enough apart for different strips
+    img[450], txt[450] = img[17], txt[17]
+    q[0] = (img[17] + txt[17]) / 2
+    scores = T.blended_scores(torch.tensor(q), torch.tensor(img), torch.tensor(txt), 0.5)
+    n_tiles = -(-N // 128)
+    bounds = [s * n_tiles // n_strips * 128 for s in range(n_strips)] + [N]
+    vals, rows = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        v, i = T.topk_plain(scores[:, lo:hi], min(k, hi - lo))
+        vals.append(v)
+        rows.append(i.long() + lo)
+    cand_v, cand_i = torch.cat(vals, 1), torch.cat(rows, 1)
+    # the merge's order: value descending, then row ascending
+    order = np.lexsort((cand_i.numpy(), -cand_v.numpy()), axis=1)[:, :k]
+    got_v = np.take_along_axis(cand_v.numpy(), order, 1)
+    got_i = np.take_along_axis(cand_i.numpy(), order, 1)
+    want_v, want_i = T.topk_plain(scores, k)
+    np.testing.assert_array_equal(got_v, want_v.numpy())
+    np.testing.assert_array_equal(got_i, want_i.numpy())
+    if k >= 3:
+        assert got_i[0, :3].tolist() == [17, 450, 900]
