@@ -49,14 +49,25 @@
 Each kernel's line also carries its bound (the larger of bytes over
 3.35 TB/s and operations over the card's peak for their type: 989 TFLOP/s
 bf16, 1,979 TOP/s int8, 67 TFLOP/s f32 outside the tensor cores) and, where
-one PyTorch call (or, for B2, a short sequence of calls) computes the same
-function, that call's time. ``ms``, ``plain_ms`` and ``library_ms`` are
+one PyTorch call (or, for B2 and the layer kernels, a short sequence of
+calls: ``F.layer_norm``, ``F.linear`` or ``torch._int_mm``,
+``scaled_dot_product_attention``) computes the same function, that
+sequence's time; the port calls none of them. ``ms``, ``plain_ms`` and ``library_ms`` are
 medians of CUDA-event intervals around one call each, so they hold the
 wrapper's host time where the card waits for it; ``device_ms`` and
 ``library_device_ms`` are the same medians with the card kept busy while
 the host enqueues, which leaves the kernels' own time.
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel must have launched in the path it belongs to.
+10. The layer kernels' GEMM alone (correctness only): M, N and K that are no
+   multiples of its tile, K = 384 and 512, every epilogue, bf16 and int8,
+   against the plain version; the int8 results also bit for bit against the
+   WMMA route, as is B1 at the text, vision and 336 px shapes.
+11. One B1 and one B3b call split by kernel name (``torch.profiler``) at the
+   text and vision shapes, with the rate each GEMM reaches; the text batch
+   split into tokenize / encode / scan / uuid mapping; and the attention
+   kernel against ``mha_plain`` at the text tower's shapes (what
+   ``ops.attention.mha``'s routing rests on).
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -254,6 +265,10 @@ def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20 / {plain_iters}, CUDA events)")
     library_ms = median_ms(library_fn) if library_fn is not None else None
+    if library_fn is not None:
+        lib_out = library_fn()
+        if torch.is_tensor(lib_out) and lib_out.shape == got.shape:  # the same function, other roundings: reported
+            log(f"{name}: library sequence vs kernel max_abs_diff {float((lib_out.float() - got.float()).abs().max()):.6g}")
     dev_ms = device_ms(kernel_fn)
     library_dev_ms = device_ms(library_fn) if library_fn is not None else None
     bound_ms, bound_by = bound_of
@@ -282,38 +297,189 @@ def _layer_weights(torch, dev, rng, width, ff):
     return ln, w, wb
 
 
-def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, layers=("B3a", "B3b", "B1")):
+def layer_library(torch, ln, ln2, wb, q, *, seq_len, heads, mask_len, causal, n_chunks):
+    """The library yardsticks of the layer kernels: short sequences of
+    PyTorch calls that compute the same functions (``F.layer_norm``,
+    ``F.linear`` in bf16 or ``torch._int_mm`` with the row quantization in
+    plain PyTorch, ``scaled_dot_product_attention``, QuickGELU, the residual
+    add). Timed beside the kernels, not held to their rounding; the port
+    never calls them. ``q`` maps a weight's name to ``(int8 [in, out],
+    scales [1, out])`` or is None. Returns ``{name: fn(x)}``; ``"S2"`` is
+    ``fn(x, gelu, requant)``."""
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    width = wb["wo"].shape[0]
+    hd = width // heads
+    oi = {k: wb[k].t().contiguous() for k in ("wqkv", "wo", "w1", "w2")}  # [out, in], as F.linear reads it
+    bias = {k: wb[k].to(bf) for k in ("bqkv", "bo", "b1", "b2")}
+    g1, c1 = ln["ln_scale"], ln["ln_bias"]
+    g2, c2 = ln2["ln_scale"], ln2["ln_bias"]
+    key_mask = None
+    if mask_len < seq_len:
+        key_mask = (torch.arange(seq_len, device=g1.device) < mask_len).view(1, 1, 1, seq_len)
+
+    def sdpa(qkv):
+        rows = qkv.shape[0]
+        q_, k_, v_ = qkv.view(rows // seq_len, seq_len, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=key_mask, is_causal=causal and key_mask is None)
+        return o.permute(0, 2, 1, 3).reshape(rows, width)
+
+    def attn(x):
+        h = F.layer_norm(x, (width,), g1.to(bf), c1.to(bf), 1e-5)
+        return x + F.linear(sdpa(F.linear(h, oi["wqkv"], bias["bqkv"])), oi["wo"], bias["bo"])
+
+    def mlp(x):
+        h = F.layer_norm(x, (width,), g2.to(bf), c2.to(bf), 1e-5)
+        f = F.linear(h, oi["w1"], bias["b1"])
+        return x + F.linear(f * torch.sigmoid(1.702 * f), oi["w2"], bias["b2"])
+
+    fns = {"B3a": attn, "B3b": mlp}
+    if q is None:
+        return fns
+    qt = {k: q[k][0].t().contiguous() for k in q}  # [out, in]: _int_mm reads its transpose view
+    ck = qt["w1"].shape[0] // n_chunks
+    w1_chunks = [qt["w1"][i * ck:(i + 1) * ck] for i in range(n_chunks)]
+    w2_chunks = [qt["w2"][:, i * ck:(i + 1) * ck].contiguous() for i in range(n_chunks)]
+    w2_bf = [q["w2"][0][i * ck:(i + 1) * ck].to(bf).t().contiguous() for i in range(n_chunks)]
+
+    def quant(h):
+        r = (h.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+        return torch.round(h / r).to(torch.int8), r
+
+    def q8_linear(h, wt, ws):
+        hq, r = quant(h)
+        return torch._int_mm(hq, wt.t()).float() * r * ws
+
+    def attn_q8(x):
+        h = F.layer_norm(x.float(), (width,), g1, c1, 1e-5)
+        qkv = (q8_linear(h, qt["wqkv"], q["wqkv"][1]) + wb["bqkv"]).to(bf)
+        out = q8_linear(sdpa(qkv).float(), qt["wo"], q["wo"][1]) + wb["bo"]
+        return x + out.to(bf)
+
+    def mlp_q8(x, gelu=True, requant=True):
+        hq, r = quant(F.layer_norm(x.float(), (width,), g2, c2, 1e-5))
+        acc = None
+        for i in range(n_chunks):
+            sl = slice(i * ck, (i + 1) * ck)
+            f = torch._int_mm(hq, w1_chunks[i].t()).float() * r * q["w1"][1][:, sl] + wb["b1"][sl]
+            if gelu:
+                f = f * torch.sigmoid(1.702 * f)
+            if requant:
+                part = q8_linear(f, w2_chunks[i], q["w2"][1])
+            else:
+                part = F.linear(f.to(bf), w2_bf[i]).float() * q["w2"][1]
+            acc = part if acc is None else acc + part
+        return x + (acc + wb["b2"]).to(bf)
+
+    fns.update({"B4a": attn_q8, "B4b": mlp_q8, "S2": mlp_q8, "B1": lambda x: mlp_q8(attn_q8(x))})
+    return fns
+
+
+GEMM_EPILOGUES = {0: "bias", 1: "bias+residual", 2: "bias+gelu", 3: "bias+gelu f32", 4: "accumulate f32",
+                  5: "bias f32", 6: "scale+accumulate f32"}
+
+
+def kernel_split(torch, results, label, fn, gemm_ops, rounds=5):
+    """One call of ``fn`` split by kernel name: ``torch.profiler`` around one
+    call at a time, per name the median over ``rounds`` of the device time
+    summed over the call's launches (a round that lost events, seen by its
+    launch count, is left out). ``gemm_ops`` maps the GEMM's epilogue number
+    to (role, operations in one call): the rate each reaches is printed
+    beside its time."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    seen = {}  # name -> [(launches, ms)] per round
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+            if us <= 0 or getattr(e, "device_type", None) is not None and "CUDA" not in str(e.device_type):
+                continue
+            seen.setdefault(e.key, []).append((e.count, us / 1e3))
+    rows = []
+    for key, per_round in seen.items():
+        launches = max(n for n, _ in per_round)
+        ms = float(np.median([t for n, t in per_round if n == launches]))
+        name, note = key.split("(")[0].replace("void ", "").strip(), ""
+        m = re.search(r"gemm_wg_kernel<(.+?), *(\d), *(.+?)>", name)
+        if m:
+            epi = int(m.group(2))
+            unit = "TOP/s" if "char" in m.group(1) else "TFLOP/s"
+            chunked = ", all chunks" if ("true" in m.group(3) or "1" in m.group(3)) else ""
+            name = f"gemm_wg_kernel<{'int8' if 'char' in m.group(1) else 'bf16'}, {GEMM_EPILOGUES[epi]}{chunked}>"
+            if epi in gemm_ops:
+                role, ops = gemm_ops[epi]
+                note = f" ({role}: {ops / (ms * 1e-3) / 1e12:.0f} {unit})"
+        rows.append((ms, f"{name} x{launches:g} {ms:.4f} ms{note}", name, launches))
+    if not rows:
+        raise AssertionError(f"{label}: torch.profiler recorded no device time")
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    log(f"split {label}: {total:.4f} ms of kernels a call: " + "; ".join(r[1] for r in rows))
+    results.setdefault("splits", {})[label] = {r[2]: dict(ms=r[0], launches=r[3]) for r in rows}
+
+
+def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, layers=("B3a", "B3b", "B1"), split=False):
     """B3a, B3b and B1 at one shape against their plain versions."""
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
 
     x = _t(torch, dev, rng.standard_normal((rows, width)), torch.bfloat16)
     ln, w, wb = _layer_weights(torch, dev, rng, width, ff)
     bounds = layer_bounds(rows, width, ff, attn_kw["seq_len"], attn_kw["mask_len"], attn_kw["causal"])
+    n_chunks = FB.default_mlp_chunks(ff)
+    q = {k: FB.quantize_weight(_t(torch, dev, w[k], torch.float32)) for k in ("wqkv", "wo", "w1", "w2")}
+    lib = layer_library(torch, ln, ln, wb, q, **attn_kw, n_chunks=n_chunks)
     if "B3a" in layers:
         args = (x, ln["ln_scale"], ln["ln_bias"], wb["wqkv"], wb["bqkv"], wb["wo"], wb["bo"])
         record(torch, results, f"B3a fused_attention_block{tag}", SRC_FB, f"{REF_FB}:139",
                FB.fused_attention_block(*args, **attn_kw), FB.attention_block_plain(*args, **attn_kw, eps=1e-5),
                TOL_BF16_BLOCK, lambda: FB.fused_attention_block(*args, **attn_kw),
-               lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5), bound_of=bounds["B3a"])
+               lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5), bound_of=bounds["B3a"],
+               library_fn=lambda: lib["B3a"](x))
     if "B3b" in layers:
         margs = (x, ln["ln_scale"], ln["ln_bias"], wb["w1"], wb["b1"], wb["w2"], wb["b2"])
         record(torch, results, f"B3b fused_mlp_block{tag}", SRC_FB, f"{REF_FB}:226",
                FB.fused_mlp_block(*margs), FB.mlp_block_plain(*margs, eps=1e-5),
                TOL_BF16_BLOCK, lambda: FB.fused_mlp_block(*margs), lambda: FB.mlp_block_plain(*margs, eps=1e-5),
-               bound_of=bounds["B3b"])
+               bound_of=bounds["B3b"], library_fn=lambda: lib["B3b"](x))
+        if split:
+            kernel_split(torch, results, f"B3b{tag or ' text'}", lambda: FB.fused_mlp_block(*margs),
+                         {2: ("c_fc", 2 * rows * width * ff), 1: ("c_proj", 2 * rows * width * ff)})
     if "B1" in layers:
-        q = {k: FB.quantize_weight(_t(torch, dev, w[k], torch.float32)) for k in ("wqkv", "wo", "w1", "w2")}
         qargs = (x, ln["ln_scale"], ln["ln_bias"], *q["wqkv"], wb["bqkv"], *q["wo"], wb["bo"],
                  ln["ln_scale"], ln["ln_bias"], *q["w1"], wb["b1"], *q["w2"], wb["b2"])
-        got = FB.fused_layer_q8(*qargs, **attn_kw)
-        want = FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(ff), eps=1e-5)
+        # the K-major copies a packed plan carries (models.fast_encode)
+        kt = dict(wqkv_qt=FB.k_major(q["wqkv"][0]), wo_qt=FB.k_major(q["wo"][0]),
+                  w1_qt=FB.k_major(q["w1"][0]), w2_qt=FB.k_major(q["w2"][0]))
+        got = FB.fused_layer_q8(*qargs, **attn_kw, **kt)
+        # s32 sums are exact in any order and the epilogue is one arithmetic:
+        # the WMMA route (forced here) gives the same bits
+        FB.force_wmma_gemm(True)
+        try:
+            old_route = FB.fused_layer_q8(*qargs, **attn_kw)
+        finally:
+            FB.force_wmma_gemm(False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old_route), f"B1{tag}: the wgmma route and the WMMA route differ"
+        log(f"B1 fused_layer_q8{tag}: wgmma route == WMMA route bit for bit")
+        want = FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=n_chunks, eps=1e-5)
         cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1).min().item()
         log(f"B1 fused_layer_q8{tag}: min row cosine to plain {cos:.6f}")
         assert cos > 0.999, cos
         record(torch, results, f"B1 fused_layer_q8{tag}", SRC_FB, f"{REF_FB}:556", got, want, TOL_Q8_LAYER,
-               lambda: FB.fused_layer_q8(*qargs, **attn_kw),
-               lambda: FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=FB.default_mlp_chunks(ff), eps=1e-5),
-               bound_of=bounds["B1"])
+               lambda: FB.fused_layer_q8(*qargs, **attn_kw, **kt),
+               lambda: FB.layer_q8_plain(*qargs, **attn_kw, n_chunks=n_chunks, eps=1e-5),
+               bound_of=bounds["B1"], library_fn=lambda: lib["B1"](x))
+        if split:
+            kernel_split(torch, results, f"B1{tag or ' text'}", lambda: FB.fused_layer_q8(*qargs, **attn_kw, **kt),
+                         {0: ("qkv", 6 * rows * width * width), 1: ("out-proj", 2 * rows * width * width),
+                          3: ("c_fc", 2 * rows * width * ff), 4: ("c_proj", 2 * rows * width * ff)})
     torch.cuda.synchronize()
 
 
@@ -387,7 +553,7 @@ def kernel_phases(torch, dev, results):
 
     # B3a, B3b, B1 at ViT-L/14 text shapes
     layer_phases(torch, dev, results, rng, rows=ROWS, width=WIDTH, ff=FF,
-                 attn_kw=dict(seq_len=SEQ, heads=HEADS, mask_len=SEQ, causal=True), tag="")
+                 attn_kw=dict(seq_len=SEQ, heads=HEADS, mask_len=SEQ, causal=True), tag="", split=True)
 
     # B2: blended top-k, exact (bf16 corpus) and q8 (int8 corpus)
     norm = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)  # noqa: E731
@@ -425,7 +591,7 @@ def vision_kernel_phases(torch, dev, results):
     rng = np.random.default_rng(3)
     layer_phases(torch, dev, results, rng, rows=V_BATCH * V_SEQ, width=V_WIDTH, ff=V_FF,
                  attn_kw=dict(seq_len=V_SEQ, heads=V_HEADS, mask_len=V_MASK, causal=False),
-                 tag=f" vision [{V_BATCH}x{V_SEQ}]")
+                 tag=f" vision [{V_BATCH}x{V_SEQ}]", split=True)
     # ViT-L/14@336px: the interior keeps K/V of 592 rows in shared memory
     layer_phases(torch, dev, results, rng, rows=4 * V336_SEQ, width=V_WIDTH, ff=V_FF,
                  attn_kw=dict(seq_len=V336_SEQ, heads=V_HEADS, mask_len=V336_MASK, causal=False),
@@ -472,34 +638,41 @@ def block_q8_phases(torch, dev, results):
               **{k: wb[k] for k in ("bqkv", "bo", "b1", "b2")})
     for k in ("wqkv", "wo", "w1", "w2"):
         lp[k], lp[k + "_s"] = FB.quantize_weight(_t(torch, dev, w[k], torch.float32))
+        lp[k + "_t"] = FB.k_major(lp[k])  # as make_vision_plan packs a layer
     a, m = PV.attn_operands(lp), PV.mlp_operands(lp)
+    ak, mk = PV.attn_k_major(lp), PV.mlp_k_major(lp)
     n_chunks = FB.default_mlp_chunks(V_FF)
+    q = {k: (lp[k], lp[k + "_s"]) for k in ("wqkv", "wo", "w1", "w2")}
     for nseq, seq, mask, tag in ((V_BATCH, V_SEQ, V_MASK, f" vision [{V_BATCH}x{V_SEQ}]"),
                                  (4, V336_SEQ, V336_MASK, f" 336px [4x{V336_SEQ}]")):
         x = _t(torch, dev, rng.standard_normal((nseq * seq, V_WIDTH)), torch.bfloat16)
         kw = dict(seq_len=seq, heads=V_HEADS, mask_len=mask, causal=False)
         bounds = layer_bounds(nseq * seq, V_WIDTH, V_FF, seq, mask, False)
-        y = FB.fused_attention_block_q8(x, *a, **kw)
+        lib = layer_library(torch, ln, ln2, wb, q, **kw, n_chunks=n_chunks)
+        y = FB.fused_attention_block_q8(x, *a, **kw, **ak)
         record(torch, results, f"B4a fused_attention_block_q8{tag}", SRC_FB, f"{REF_FB}:403", y,
                FB.attention_block_q8_plain(x, *a, **kw, eps=1e-5), TOL_Q8_LAYER,
-               lambda: FB.fused_attention_block_q8(x, *a, **kw),
-               lambda: FB.attention_block_q8_plain(x, *a, **kw, eps=1e-5), bound_of=bounds["B4a"])
+               lambda: FB.fused_attention_block_q8(x, *a, **kw, **ak),
+               lambda: FB.attention_block_q8_plain(x, *a, **kw, eps=1e-5), bound_of=bounds["B4a"],
+               library_fn=lambda: lib["B4a"](x))
         for interior, label in ((PV.INTERIOR_PRODUCTION, "production"), (PV.INTERIOR_NOMAX, "no-max")):
             got = PV.attn_q8_variant(x, lp, interior=interior, **kw)
             record(torch, results, f"S1 attn_q8_variant {label}{tag}", SRC_PV, f"{REF_PV}:108", got,
                    PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), TOL_Q8_LAYER,
                    lambda: PV.attn_q8_variant(x, lp, interior=interior, **kw),
-                   lambda: PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), bound_of=bounds["B4a"])
+                   lambda: PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), bound_of=bounds["B4a"],
+                   library_fn=lambda: lib["B4a"](x))
             if interior == PV.INTERIOR_PRODUCTION:
                 assert torch.equal(got, y), f"S1 interior 0 differs from B4a{tag}"
         if seq != V_SEQ:
             continue
-        out = FB.fused_mlp_block_q8(y, *m)
+        out = FB.fused_mlp_block_q8(y, *m, **mk)
         record(torch, results, f"B4b fused_mlp_block_q8{tag}", SRC_FB, f"{REF_FB}:478", out,
                FB.mlp_block_q8_plain(y, *m, n_chunks=n_chunks, eps=1e-5), TOL_Q8_LAYER,
-               lambda: FB.fused_mlp_block_q8(y, *m),
-               lambda: FB.mlp_block_q8_plain(y, *m, n_chunks=n_chunks, eps=1e-5), bound_of=bounds["B4b"])
-        whole = FB.fused_layer_q8(x, *a, *m, **kw)
+               lambda: FB.fused_mlp_block_q8(y, *m, **mk),
+               lambda: FB.mlp_block_q8_plain(y, *m, n_chunks=n_chunks, eps=1e-5), bound_of=bounds["B4b"],
+               library_fn=lambda: lib["B4b"](y))
+        whole = FB.fused_layer_q8(x, *a, *m, **kw, **ak, **mk)
         torch.cuda.synchronize()
         assert torch.equal(out, whole), "B4b(B4a(x)) differs from B1(x)"
         for label, (gelu, requant) in S2_SETTINGS.items():
@@ -508,11 +681,99 @@ def block_q8_phases(torch, dev, results):
                    PV.mlp_q8_diag_plain(y, lp, gelu=gelu, requant=requant), TOL_Q8_LAYER,
                    lambda: PV.mlp_q8_diag(y, lp, gelu=gelu, requant=requant),
                    lambda: PV.mlp_q8_diag_plain(y, lp, gelu=gelu, requant=requant),
-                   bound_of=bounds["B4b" if requant else "S2-bf16"])
+                   bound_of=bounds["B4b" if requant else "S2-bf16"],
+                   library_fn=lambda: lib["S2"](y, gelu, requant))
             if gelu and requant:
                 assert torch.equal(got, out), "S2 with gelu and requant differs from B4b"
         log(f"bit equalities at{tag}: B4b(B4a(x)) == B1(x), S1 interior 0 == B4a, S2 gelu+requant == B4b")
     torch.cuda.synchronize()
+
+
+GEMM_EDGES = [(128, 128, 128), (1, 8, 16), (300, 200, 208), (130, 72, 48), (1000, 384, 384), (777, 512, 512),
+              (2368, 1024, 1024), (64, 1000, 96)]
+
+
+def gemm_edge_phase(torch, dev):
+    """The layer kernels' GEMM alone (correctness only): ragged M, N and K,
+    K = 384 and 512, every epilogue of both element types against the plain
+    version (the accumulating epilogues over two chunks); every int8 result
+    also bit for bit against the WMMA route."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(12)
+    f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
+    worst = {False: 0.0, True: 0.0}
+    before = FB.gemm_route_counts()
+    for m, n, k in GEMM_EDGES:
+        bias = _t(torch, dev, 0.1 * rng.standard_normal(n), f32)
+        res = _t(torch, dev, rng.standard_normal((m, n)), bf)
+        for int8 in (False, True):
+            if int8:
+                a, a2 = (torch.tensor(rng.integers(-127, 128, (m, k)), dtype=i8, device=dev) for _ in range(2))
+                b, b2 = (torch.tensor(rng.integers(-127, 128, (k, n)), dtype=i8, device=dev) for _ in range(2))
+                kw = dict(bias=bias, res=res, row_scale=_t(torch, dev, rng.uniform(1e-3, 2e-3, m), f32),
+                          col_scale=_t(torch, dev, rng.uniform(1e-3, 2e-3, n), f32))
+            else:
+                a, a2 = (_t(torch, dev, rng.standard_normal((m, k)), bf) for _ in range(2))
+                # products of O(1) whatever K is, so that results stay under 8 (bf16 step 2^-5)
+                b, b2 = (_t(torch, dev, rng.standard_normal((k, n)) / np.sqrt(k), bf) for _ in range(2))
+                kw = dict(bias=bias, res=res, col_scale=_t(torch, dev, rng.uniform(0.5, 1.5, n), f32))
+
+            def run(epi):
+                if epi in (FB.EPI_ACC_F32, FB.EPI_SCALE_ACC_F32):
+                    return FB.gemm_epilogue(a2, b2, epi, acc=FB.gemm_epilogue(a, b, epi, last=False, **kw), last=True, **kw)
+                return FB.gemm_epilogue(a, b, epi, **kw)
+
+            for epi in (FB._EPI_INT8 if int8 else FB._EPI_BF16):
+                got = run(epi)
+                if epi in (FB.EPI_ACC_F32, FB.EPI_SCALE_ACC_F32):
+                    want = FB.gemm_epilogue_plain(a2, b2, epi, acc=FB.gemm_epilogue_plain(a, b, epi, last=False, **kw),
+                                                  last=True, **kw)
+                else:
+                    want = FB.gemm_epilogue_plain(a, b, epi, **kw)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                worst[int8] = max(worst[int8], err)
+                if not np.isfinite(err) or err > TOL_BF16_BLOCK:
+                    raise AssertionError(f"GEMM [{m}, {k}] x [{k}, {n}] int8={int8} epilogue "
+                                         f"{GEMM_EPILOGUES[epi]!r} disagrees with its plain version: {err}")
+                if int8:
+                    FB.force_wmma_gemm(True)
+                    try:
+                        old = run(epi)
+                    finally:
+                        FB.force_wmma_gemm(False)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, old), f"GEMM [{m}, {k}] x [{k}, {n}] int8 {GEMM_EPILOGUES[epi]!r}: routes differ"
+    wg, wmma = (x - y for x, y in zip(FB.gemm_route_counts(), before))
+    assert wg > 0 and wmma > 0, (wg, wmma)
+    log(f"GEMM edges {GEMM_EDGES}: every epilogue, max_abs_err bf16 {worst[False]:.6g}, int8 {worst[True]:.6g} "
+        f"(tolerance {TOL_BF16_BLOCK:.6g}); int8 wgmma route == WMMA route bit for bit; launches wgmma {wg}, WMMA {wmma}")
+
+
+def attention_routing_phase(torch, dev, results):
+    """What ``ops.attention.mha``'s routing rests on: the attention kernel
+    against ``mha_plain`` at the text tower's shapes and at short sequences
+    (device-only medians), each held to the plain version; and that ``mha``
+    launches the kernel at every one of them."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import flash_attention as FA
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha, mha_plain
+
+    rng = np.random.default_rng(13)
+    lines = []
+    for shape, causal in (((256, 12, 77, 64), True), ((256, 12, 16, 64), True), ((256, 12, 32, 64), True),
+                          ((256, 12, 64, 64), True), ((256, 12, 128, 64), True), ((1, 12, 77, 64), True)):
+        q, k, v = (_t(torch, dev, rng.standard_normal(shape), torch.bfloat16) for _ in range(3))
+        before = FA.flash_attention_kernel.launches
+        got = mha(q, k, v, causal=causal)
+        assert FA.flash_attention_kernel.launches == before + 1, f"mha ran no kernel at {shape}"
+        err = float((got.float() - mha_plain(q, k, v, causal=causal).float()).abs().max())
+        if not np.isfinite(err) or err > 2 * TOL_ATTN:  # mha_plain rounds the normalized p: one more step
+            raise AssertionError(f"mha {shape} disagrees with mha_plain: {err}")
+        kern, plain = device_ms(lambda: mha(q, k, v, causal=causal)), device_ms(lambda: mha_plain(q, k, v, causal=causal))
+        lines.append(f"{list(shape)} kernel {kern:.4f} ms, mha_plain {plain:.4f} ms")
+        results.setdefault("mha_routing", {})[str(shape)] = dict(kernel_ms=kern, plain_ms=plain)
+    log("attention kernel vs mha_plain, bf16 causal, device only: " + "; ".join(lines))
 
 
 def profiler_phase(torch):
@@ -649,6 +910,30 @@ def serve_phase(torch, dev, model, store_path, mode, results):
     log(f"serve {mode}: 256-query batch latency median {np.median(lat) * 1e3:.2f} ms "
         f"({QUERIES / np.median(lat):.1f} queries/s; host clock around synchronize, 3 batches)")
     results[f"serve_{mode}_batch_ms"] = float(np.median(lat) * 1e3)
+
+    # the same batches split: host tokenize, encode (ids to unit embeddings),
+    # scan (B2), and what is left of retrieval_batch (rows to uuids, dicts)
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    split = {"tokenize": [], "encode": [], "scan": [], "whole": []}
+    for b in batches:
+        t_tok, _ = clock(lambda: retriever._tokenize(b))
+        t_enc, q_emb = clock(lambda: retriever.encode_queries(b))
+        t_scan, _ = clock(lambda: retriever._score(retriever._corpus, q_emb, 0.5, K))
+        t_all, _ = clock(lambda: retriever.retrieval_batch(b, alpha=0.5))
+        for name, t in (("tokenize", t_tok), ("encode", t_enc - t_tok), ("scan", t_scan), ("whole", t_all)):
+            split[name].append(t)
+    med = {name: float(np.median(v)) for name, v in split.items()}
+    med["uuid"] = med["whole"] - med["tokenize"] - med["encode"] - med["scan"]
+    log(f"serve {mode}: batch split (medians of 3, host clock around synchronize): tokenize {med['tokenize']:.2f} ms, "
+        f"encode {med['encode']:.2f} ms, scan {med['scan']:.2f} ms, uuid mapping and the rest {med['uuid']:.2f} ms "
+        f"of a {med['whole']:.2f} ms retrieval_batch")
+    results[f"serve_{mode}_split_ms"] = med
 
     # the search stage against its plain path on the same query embeddings
     # (rows must agree up to near ties), and the encoder against its plain
@@ -1075,6 +1360,8 @@ def main() -> int:
     vision_kernel_phases(torch, dev, results)
     capacity_kernel_phases(torch, dev, results)
     block_q8_phases(torch, dev, results)
+    gemm_edge_phase(torch, dev)
+    attention_routing_phase(torch, dev, results)
     prof_ms, prof = profiler_phase(torch)
     route = routing_phase(torch, dev, results)
 

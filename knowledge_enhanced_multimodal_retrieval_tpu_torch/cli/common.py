@@ -79,7 +79,7 @@ def _load_state_dict(path: str):
 def build_model(cfg: Config, device) -> clip_mod.CLIP:
     """CLIP from ``model.checkpoint`` or, without one, seeded weights."""
     if cfg.model.adapters:
-        raise NotImplementedError("--model.adapters (LoRA merge) is not ported yet: ROADMAP A7 (training)")
+        raise NotImplementedError("--model.adapters (LoRA merge) is not ported yet: ROADMAP A4 (training)")
     dtype = _DTYPES[cfg.model.dtype]
     if cfg.model.checkpoint:
         return load_openai_state_dict(_load_state_dict(cfg.model.checkpoint), device=device, dtype=dtype)

@@ -47,7 +47,7 @@ def main(argv=None) -> str:
         raise ValueError("--store and --out are required")
     cfg = config_from_argv(args)
     if cfg.eval.mmap_store:
-        raise NotImplementedError("--eval.mmap_store is not ported yet: ROADMAP A5 (serving shell)")
+        raise NotImplementedError("--eval.mmap_store is not ported yet: ROADMAP A2 (serving shell)")
     logging.basicConfig(level=logging.INFO)
 
     store = EmbeddingStore.load(store_path)

@@ -42,24 +42,24 @@ from .common import build_model, pop_flag, resolve_device
 
 # entry-point flags of the JAX CLI that this port does not serve yet
 _NOT_PORTED_FLAGS = {
-    "--http": "A5 (serving shell: HTTP daemon)",
-    "--http-host": "A5 (serving shell: HTTP daemon)",
-    "--max-pending": "A5 (serving shell: HTTP daemon)",
-    "--cache-results": "A5 (serving shell: HTTP daemon)",
-    "--warmup": "A5 (serving shell: warmup)",
-    "--bucket-queries": "A5 (serving shell: MicroBatcher)",
-    "--multihost": "A8 (parallel modes)",
-    "--multihost-batch": "A8 (parallel modes)",
+    "--http": "A2 (serving shell: HTTP daemon)",
+    "--http-host": "A2 (serving shell: HTTP daemon)",
+    "--max-pending": "A2 (serving shell: HTTP daemon)",
+    "--cache-results": "A2 (serving shell: HTTP daemon)",
+    "--warmup": "A2 (serving shell: warmup)",
+    "--bucket-queries": "A2 (serving shell: MicroBatcher)",
+    "--multihost": "A5 (parallel modes)",
+    "--multihost-batch": "A5 (parallel modes)",
 }
 
 
 def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEngine:
     if cfg.eval.mmap_store:
-        raise NotImplementedError("--eval.mmap_store is not ported yet: ROADMAP A5 (serving shell)")
+        raise NotImplementedError("--eval.mmap_store is not ported yet: ROADMAP A2 (serving shell)")
     if cfg.eval.compile_cache:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
     if cfg.fusion.head_params:
-        raise NotImplementedError("--fusion.head_params is not ported yet: ROADMAP A6 (eval and fusion)")
+        raise NotImplementedError("--fusion.head_params is not ported yet: ROADMAP A3 (eval and fusion)")
     model = build_model(cfg, device)
     tokenizer = CLIPTokenizer.find_default()
     store = EmbeddingStore.load(store_path)

@@ -1,10 +1,11 @@
 // Tensor-core and asynchronous-copy primitives for sm_90a, as inline PTX:
 // cp.async (16-byte global -> shared copies with zero fill), TMA (tensor-map
 // box copies completed on an mbarrier), ldmatrix,
-// mma.sync m16n8k16 (bf16 in, f32 accumulators) and wgmma m64nNk16 with the
+// mma.sync m16n8k16 (bf16 in, f32 accumulators) and wgmma: m64nNk16 with the
 // A operand in registers and B read from shared memory through a
-// 128-byte-swizzle descriptor. Used by attention.cu (B6/B7) and
-// similarity.cu (B2).
+// 128-byte-swizzle descriptor (attention.cu, B6/B7; similarity.cu, B2), and
+// m64n128k16 (bf16) / m64n128k32 (int8) with both operands from shared memory
+// (fused_block.cu, the layer GEMMs).
 #pragma once
 
 #include "common.cuh"
@@ -68,6 +69,27 @@ inline int tma_map_rows64(CUtensorMap* tm, int elem_bytes, const void* base, uin
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of a [rows, cols] matrix (cols innermost, row_stride_bytes between rows:
+// a view into a wider matrix is fine) of bf16 (elem_bytes 2) or bytes (1) for
+// boxes of [box_rows, box_cols] with box_cols * elem_bytes == 128: a box lands
+// as box_rows rows of 128 bytes in the 128-byte swizzle, the layout
+// wgmma_desc_sw128 describes. Elements outside the matrix arrive as zeros.
+// base and row_stride_bytes must be multiples of 16. Returns 0 or a cudaError
+// code.
+inline int tma_map_2d(CUtensorMap* tm, int elem_bytes, const void* base, uint64_t cols, uint64_t rows,
+                      uint64_t row_stride_bytes, uint32_t box_cols, uint32_t box_rows) {
+  kemr_encode_tiled_fn enc = tma_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_stride_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows}, estr[2] = {1, 1};
+  const CUresult r = enc(tm, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                         const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
@@ -79,6 +101,10 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+// One plain arrival (a consumer hands a ring slot back).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 // Spin until the barrier's phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -96,6 +122,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* tm, in
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
           "r"(smem_u32(dst)),
       "l"(tm), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a 2-d tensor map (c0 the column, c1 the row of its first element).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(tm), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -221,4 +256,73 @@ __device__ __forceinline__ void wgmma_ra(float (&d)[NQ / 2], const uint32_t (&a)
   static_assert(NQ == 64 || NQ == 128, "query blocks are 64 or 128 wide");
   if constexpr (NQ == 64) wgmma_m64n64k16(d, a, desc_b, scale_d);
   else wgmma_m64n128k16(d, a, desc_b, scale_d);
+}
+
+// ---- wgmma with both operands in shared memory (the layer GEMMs) -------------
+
+// The same descriptor with the leading byte offset given: for an MN-major
+// operand (TRANS = 1) wider than 64 elements, the distance between its
+// 64-element column groups (each 128-byte rows, eight-row groups 1024 bytes
+// apart). K-major operands ignore it.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_lbo(uint32_t smem_addr, uint32_t lbo_bytes) {
+  uint64_t d = (uint64_t)((smem_addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)(lbo_bytes >> 4) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 128] += a[64 x 16] * b[16 x 128], bf16 in, f32 accumulate; a K-major
+// from shared memory (64 rows of the 128-byte swizzle), b K-major ([128 x 16],
+// TRANS_B = 0) or MN-major ([16 x 128] with the 128 columns contiguous in two
+// 64-column groups, TRANS_B = 1). d[4 j + e] as in wgmma_m64n128k16.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1, 0, %66;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "n"(TRANS_B), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 32] * b[128 x 32]^T, int8 in, int32 accumulate (exact
+// in any order); both operands K-major from shared memory: 8-bit operands
+// have no transpose bit.
+__device__ __forceinline__ void wgmma_ss_m64n128k32(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }

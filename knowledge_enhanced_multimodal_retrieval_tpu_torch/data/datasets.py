@@ -129,7 +129,7 @@ class DataPipeline:
     ) -> Iterator[Batch]:
         """Batches of one epoch, in a permutation fixed by (seed, epoch)."""
         if num_shards != 1 or shard_index != 0:
-            raise NotImplementedError("sharded epoch_batches is not ported yet: ROADMAP A8 (parallel modes)")
+            raise NotImplementedError("sharded epoch_batches is not ported yet: ROADMAP A5 (parallel modes)")
         n = len(self.source)
         order = list(range(n))
         if shuffle:

@@ -150,7 +150,7 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor, keep_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         if keep_idx is not None:
-            raise NotImplementedError("keep_idx (FLIP patch masking) is training: ROADMAP A7")
+            raise NotImplementedError("keep_idx (FLIP patch masking) is training: ROADMAP A4")
         dt = self.dtype
         x = nn.functional.conv2d(images.to(dt).permute(0, 3, 1, 2), self.conv1.weight.to(dt),
                                  stride=self.arch.vision_patch_size)

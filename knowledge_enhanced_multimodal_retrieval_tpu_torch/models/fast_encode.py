@@ -5,7 +5,11 @@ Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/models/fast_encode.
 - :func:`make_text_plan` / :func:`make_vision_plan` pack a tower's weights
   once into the serving dtype (bf16), in the ``[in, out]`` layout the
   kernels read; with ``quantize="int8"`` the four projections of every
-  layer become per-output-channel int8 + f32 scales (W8A8 dynamic).
+  layer become per-output-channel int8 + f32 scales (W8A8 dynamic), each
+  kept twice: ``[in, out]`` (the contract of the kernels' wrappers and of
+  their plain versions) and its K-major ``[out, in]`` copy under ``*_t``,
+  which the int8 kernels' GEMM reads (one more byte per weight; the
+  tensor cores' 8-bit operands cannot be read transposed).
   :func:`make_encode_plans` packs both, keyed ``visual`` / ``text``.
 - :func:`encode_text_fast` / :func:`encode_image_fast` run the embeddings,
   the layers (B3a + B3b per layer for a bf16 plan; for an int8 plan B1 per
@@ -32,6 +36,7 @@ from ..ops.fused_block import (
     fused_layer_q8,
     fused_mlp_block,
     fused_mlp_block_q8,
+    k_major,
     quantize_weight,
 )
 from .clip import CLIP, Transformer
@@ -113,6 +118,7 @@ def _pack_layers(transformer: Transformer, dtype, quantize: Optional[str]) -> Li
             if quantize == "int8":
                 wq, ws = quantize_weight(w)
                 lp[name], lp[name + "_s"] = wq.contiguous(), ws.contiguous()
+                lp[name + "_t"] = k_major(lp[name])
             else:
                 lp[name] = w.to(dtype).contiguous()
         layers.append(lp)
@@ -144,9 +150,11 @@ def _apply_layers(x: torch.Tensor, layers, *, s_pad: int, heads: int, mask_len: 
             x = fused_attention_block_q8(
                 x, lp["ln1_scale"], lp["ln1_bias"], lp["wqkv"], lp["wqkv_s"], lp["bqkv"],
                 lp["wo"], lp["wo_s"], lp["bo"], seq_len=s_pad, heads=heads, mask_len=mask_len, causal=causal,
+                wqkv_qt=lp.get("wqkv_t"), wo_qt=lp.get("wo_t"),
             )
             x = fused_mlp_block_q8(
                 x, lp["ln2_scale"], lp["ln2_bias"], lp["w1"], lp["w1_s"], lp["b1"], lp["w2"], lp["w2_s"], lp["b2"],
+                w1_qt=lp.get("w1_t"), w2_qt=lp.get("w2_t"),
             )
         elif lp["wqkv"].dtype == torch.int8:
             x = fused_layer_q8(
@@ -154,6 +162,7 @@ def _apply_layers(x: torch.Tensor, layers, *, s_pad: int, heads: int, mask_len: 
                 lp["wo"], lp["wo_s"], lp["bo"], lp["ln2_scale"], lp["ln2_bias"],
                 lp["w1"], lp["w1_s"], lp["b1"], lp["w2"], lp["w2_s"], lp["b2"],
                 seq_len=s_pad, heads=heads, mask_len=mask_len, causal=causal,
+                wqkv_qt=lp.get("wqkv_t"), wo_qt=lp.get("wo_t"), w1_qt=lp.get("w1_t"), w2_qt=lp.get("w2_t"),
             )
         else:
             x = fused_attention_block(

@@ -5,11 +5,17 @@ Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/ops/attention.py``:
 - :func:`mha_plain` follows ``mha_xla`` (the dot in the input dtype, f32
   logits scaled after it, f32-min causal mask, f32 softmax, p cast to the
   input dtype before p@v);
-- :func:`mha` follows the JAX routing rule, with "on a TPU" read as "a CUDA
-  tensor": ``head_dim <= 256`` and ``s > 128`` launch the hand-written
-  kernel (:func:`..ops.flash_attention.flash_attention`, the port of B6 and
-  B7); anything else runs :func:`mha_plain`, as the JAX package runs XLA
-  there (the CPU, the text tower's 77 tokens).
+- :func:`mha` launches the hand-written kernel
+  (:func:`..ops.flash_attention.flash_attention`, the port of B6 and B7) for
+  a CUDA tensor of any sequence length whose ``head_dim`` the kernel has
+  (``<= 256``); a CPU tensor, and a wider head, run :func:`mha_plain`. The
+  reference routes sequences of 128 and fewer tokens to its plain version;
+  the port does not, by this measurement on an NVIDIA H100 80GB HBM3 at a
+  700.00 W limit (``chip_smoke.py`` ``attention_routing_phase``, bf16, causal,
+  device-only medians, kernel / ``mha_plain``): ``[256, 12, 77, 64]`` (the
+  ``flax`` text tower) 0.051 / 0.681 ms, s = 16 0.019 / 0.090, s = 32
+  0.025 / 0.121, s = 64 0.039 / 0.296, s = 128 0.073 / 0.990, one sequence
+  of 77 tokens 0.007 / 0.037.
 """
 
 from __future__ import annotations
@@ -17,8 +23,6 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import MAX_HEAD_DIM, flash_attention
-
-_MIN_KERNEL_SEQ = 128  # below this the JAX package measured XLA as faster
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
@@ -35,6 +39,6 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
     """Dispatching multi-head attention on ``[B, H, S, D]``."""
-    if q.is_cuda and q.shape[-1] <= MAX_HEAD_DIM and q.shape[-2] > _MIN_KERNEL_SEQ:
+    if q.is_cuda and q.shape[-1] <= MAX_HEAD_DIM:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     return mha_plain(q, k, v, causal=causal)

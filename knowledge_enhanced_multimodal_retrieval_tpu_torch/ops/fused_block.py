@@ -16,6 +16,13 @@ Layout contract as in the JAX package: ``x`` is ``[rows, width]`` with whole
 sequences of ``seq_len`` rows stored contiguously, weights are ``[in, out]``.
 ``mask_len`` hides trailing key positions of each sequence.
 
+The int8 kernels' GEMM reads each int8 weight K-major, as an ``[out, in]``
+copy (:func:`k_major`): the tensor cores' 8-bit operands cannot be read
+transposed. A packed plan keeps the copies (``models.fast_encode``) and hands
+them in as ``*_qt``; a caller with only the ``[in, out]`` weights leaves them
+out and the wrapper makes them for the call. The plain versions read only
+``[in, out]``.
+
 A CUDA tensor launches the kernel in ``csrc/fused_block.cu`` (bf16
 activations); a CPU tensor runs the plain version below, whose arithmetic
 (f32 accumulators, bias added in f32 before the bf16 cast, p cast before
@@ -24,6 +31,7 @@ p@v, residual added in the activation dtype) follows the Pallas kernels.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -49,6 +57,25 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     w = w.float()
     s = (w.abs().amax(dim=0, keepdim=True) / 127.0).clamp_min(1e-12)
     return torch.round(w / s).to(torch.int8), s
+
+
+def k_major(w_q: torch.Tensor) -> torch.Tensor:
+    """The ``[out, in]`` copy of an ``[in, out]`` int8 weight that the int8
+    kernels' GEMM reads (its exact transpose, contiguous)."""
+    return w_q.t().contiguous()
+
+
+def _k_major_operands(weights, copies, names):
+    """The kernels' ``[out, in]`` operands: each given copy checked against
+    its ``[in, out]`` weight's shape, each missing one made here."""
+    out = []
+    for w, wt, name in zip(weights, copies, names):
+        if wt is None:
+            wt = k_major(w)
+        else:
+            dispatch.require(wt, name, torch.int8, w.device, (w.shape[1], w.shape[0]))
+        out.append(wt)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +245,9 @@ def _check_ff(ff: int, n_chunks: int) -> None:
 
 _ATTN_ARGS = [P] * 11 + [I] * 6 + [F, P]
 _MLP_ARGS = [P] * 10 + [I] * 3 + [F, P]
-_LAYER_Q8_ARGS = [P] * 27 + [I] * 8 + [F, P]
-_ATTN_Q8_ARGS = [P] * 14 + [I] * 6 + [F, P]
-_MLP_Q8_ARGS = [P] * 16 + [I] * 4 + [F, P]
+_LAYER_Q8_ARGS = [P] * 31 + [I] * 8 + [F, P]
+_ATTN_Q8_ARGS = [P] * 16 + [I] * 6 + [F, P]
+_MLP_Q8_ARGS = [P] * 18 + [I] * 4 + [F, P]
 
 
 def _attn_q8_specs(width: int, n: str = ""):
@@ -270,14 +297,15 @@ def _attn_q8_scratch(x: torch.Tensor):
     )
 
 
-def _mlp_q8_scratch(x: torch.Tensor, ck: int):
-    """fbuf, fq, fr, acc of the q8 MLP half (``ck`` = ff / n_chunks)."""
+def _mlp_q8_scratch(x: torch.Tensor, ff: int, n_chunks: int):
+    """fbuf (one FF chunk of f in f32), fq and fr (every chunk's int8 rows
+    and row scales: the chunked c_proj reads them in one launch), acc."""
     n, width = x.shape
     f32, dev = torch.float32, x.device
     return (
-        torch.empty((n, ck), dtype=f32, device=dev),
-        torch.empty((n, ck), dtype=torch.int8, device=dev),
-        torch.empty((n,), dtype=f32, device=dev),
+        torch.empty((n, ff // n_chunks), dtype=f32, device=dev),
+        torch.empty((n, ff), dtype=torch.int8, device=dev),
+        torch.empty((n_chunks, n), dtype=f32, device=dev),
         torch.empty((n, width), dtype=f32, device=dev),
     )
 
@@ -397,12 +425,17 @@ def fused_layer_q8(
     n_chunks: Optional[int] = None,
     eps: float = 1e-5,
     causal: bool = True,
+    wqkv_qt: Optional[torch.Tensor] = None,
+    wo_qt: Optional[torch.Tensor] = None,
+    w1_qt: Optional[torch.Tensor] = None,
+    w2_qt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B1: a whole W8A8 residual layer (attention half, then MLP half).
 
     Weights are per-output-channel int8 with f32 scales ``[1, C]``
     (:func:`quantize_weight`); activations are quantized per row after each
-    LayerNorm, before the out-projection, and per FF chunk after QuickGELU."""
+    LayerNorm, before the out-projection, and per FF chunk after QuickGELU.
+    ``*_qt`` are the weights' :func:`k_major` copies (made here when absent)."""
     width = wqkv_q.shape[0]
     ff = w1_q.shape[1]
     _check_layout(x, width, seq_len, heads)
@@ -417,13 +450,16 @@ def fused_layer_q8(
             eps=eps, causal=causal,
         )
     _require_all(args, _attn_q8_specs(width, "1") + _mlp_q8_specs(width, ff, "2"))
+    kt = _k_major_operands(
+        (wqkv_q, wo_q, w1_q, w2_q), (wqkv_qt, wo_qt, w1_qt, w2_qt), ("wqkv_qt", "wo_qt", "w1_qt", "w2_qt")
+    )
     n = x.shape[0]
     out = torch.empty_like(x)
     y = torch.empty_like(x)  # after the attention half
-    scratch = (*_row_quant_scratch(x), *_attn_q8_scratch(x), y, *_mlp_q8_scratch(x, ff // n_chunks))
+    scratch = (*_row_quant_scratch(x), *_attn_q8_scratch(x), y, *_mlp_q8_scratch(x, ff, n_chunks))
     fn = dispatch.kernel("kemr_layer_q8", _LAYER_Q8_ARGS)
     status = fn(
-        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        *[t.data_ptr() for t in (*args, *kt)], out.data_ptr(), *[t.data_ptr() for t in scratch],
         n, width, ff, heads, seq_len, mask_len, n_chunks, int(causal), eps,
         dispatch.stream_of(x),
     )
@@ -449,6 +485,8 @@ def fused_attention_block_q8(
     mask_len: Optional[int] = None,
     eps: float = 1e-5,
     causal: bool = True,
+    wqkv_qt: Optional[torch.Tensor] = None,
+    wo_qt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B4a: B1's attention half as one launch,
     ``x + out_proj_q8(attention(qkv_q8(LN(x))))``."""
@@ -461,11 +499,12 @@ def fused_attention_block_q8(
             *args, seq_len=seq_len, heads=heads, mask_len=mask_len, eps=eps, causal=causal
         )
     _require_all(args, _attn_q8_specs(width))
+    kt = _k_major_operands((wqkv_q, wo_q), (wqkv_qt, wo_qt), ("wqkv_qt", "wo_qt"))
     out = torch.empty_like(x)
     scratch = (*_row_quant_scratch(x), *_attn_q8_scratch(x))
     fn = dispatch.kernel("kemr_attention_block_q8", _ATTN_Q8_ARGS)
     status = fn(
-        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        *[t.data_ptr() for t in (*args, *kt)], out.data_ptr(), *[t.data_ptr() for t in scratch],
         x.shape[0], width, heads, seq_len, mask_len, int(causal), eps, dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_attention_block_q8")
@@ -487,6 +526,8 @@ def fused_mlp_block_q8(
     *,
     n_chunks: Optional[int] = None,
     eps: float = 1e-5,
+    w1_qt: Optional[torch.Tensor] = None,
+    w2_qt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B4b: B1's MLP half as one launch,
     ``x + c_proj_q8(quick_gelu(c_fc_q8(LN(x))))`` with the activations
@@ -500,13 +541,112 @@ def fused_mlp_block_q8(
     if not dispatch.use_kernel(x):
         return mlp_block_q8_plain(*args, n_chunks=n_chunks, eps=eps)
     _require_all(args, _mlp_q8_specs(width, ff))
+    kt = _k_major_operands((w1_q, w2_q), (w1_qt, w2_qt), ("w1_qt", "w2_qt"))
     out = torch.empty_like(x)
-    scratch = (*_row_quant_scratch(x), *_mlp_q8_scratch(x, ff // n_chunks))
+    scratch = (*_row_quant_scratch(x), *_mlp_q8_scratch(x, ff, n_chunks))
     fn = dispatch.kernel("kemr_mlp_block_q8", _MLP_Q8_ARGS)
     status = fn(
-        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        *[t.data_ptr() for t in (*args, *kt)], out.data_ptr(), *[t.data_ptr() for t in scratch],
         x.shape[0], width, ff, n_chunks, eps, dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_mlp_block_q8")
     fused_mlp_block_q8.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The layer kernels' GEMM on its own (tests at shapes no layer has)
+# ---------------------------------------------------------------------------
+
+# The epilogues of ``csrc/fused_block.cu`` by their values there.
+EPI_BIAS_BF16, EPI_BIAS_RES_BF16, EPI_BIAS_GELU_BF16, EPI_BIAS_GELU_F32 = 0, 1, 2, 3
+EPI_ACC_F32, EPI_BIAS_F32, EPI_SCALE_ACC_F32 = 4, 5, 6
+_EPI_INT8 = (EPI_BIAS_BF16, EPI_BIAS_RES_BF16, EPI_BIAS_GELU_BF16, EPI_BIAS_GELU_F32, EPI_ACC_F32, EPI_BIAS_F32)
+_EPI_BF16 = (EPI_BIAS_BF16, EPI_BIAS_RES_BF16, EPI_BIAS_GELU_BF16, EPI_SCALE_ACC_F32)
+_GEMM_ARGS = [P] * 9 + [I] * 7 + [P]
+
+
+def force_wmma_gemm(on: bool) -> None:
+    """Send every GEMM of the layer kernels to the WMMA route (``True``) or
+    let shape and alignment choose (``False``, the rule). For comparing the
+    two routes on the card; the library is built if it was not."""
+    fn = dispatch.library().kemr_gemm_force_wmma
+    fn.argtypes, fn.restype = [I], None
+    fn(int(bool(on)))
+
+
+def gemm_route_counts() -> Tuple[int, int]:
+    """GEMMs the layer kernels have launched so far on the wgmma + TMA route
+    and on the WMMA route (which a shape takes when TMA cannot describe it)."""
+    fn = dispatch.library().kemr_gemm_route_count
+    fn.argtypes, fn.restype = [I], ctypes.c_longlong
+    return int(fn(0)), int(fn(1))
+
+
+def _quick_gelu(f: torch.Tensor) -> torch.Tensor:
+    return f * torch.sigmoid(1.702 * f)
+
+
+def gemm_epilogue_plain(a, b, epi, *, bias, row_scale=None, col_scale=None, res=None, acc=None, last=True):
+    """Plain version of one GEMM of the layer kernels with one epilogue:
+    ``a [M, K] @ b [K, N]`` in bf16 (f32 sums) or int8 (exact sums, times
+    ``row_scale [M]`` and ``col_scale [N]``). Returns bf16 ``[M, N]``, or f32
+    for ``EPI_*_F32`` and for an accumulating epilogue that is not ``last``
+    (``acc`` is the f32 sum of the chunks before, ``None`` on the first)."""
+    if a.dtype == torch.int8:
+        v = _int_matmul(a, b) * row_scale.reshape(-1, 1) * col_scale.reshape(1, -1)
+    else:
+        v = a.float() @ b.float()
+        if epi == EPI_SCALE_ACC_F32:
+            v = v * col_scale.reshape(1, -1)
+    if epi in (EPI_ACC_F32, EPI_SCALE_ACC_F32):
+        v = v if acc is None else acc + v
+        return res + (v + bias).to(torch.bfloat16) if last else v
+    v = v + bias
+    if epi in (EPI_BIAS_GELU_BF16, EPI_BIAS_GELU_F32):
+        v = _quick_gelu(v)
+    if epi in (EPI_BIAS_GELU_F32, EPI_BIAS_F32):
+        return v
+    v = v.to(torch.bfloat16)
+    return res + v if epi == EPI_BIAS_RES_BF16 else v
+
+
+def gemm_epilogue(a, b, epi, *, bias, row_scale=None, col_scale=None, res=None, acc=None, last=True):
+    """One GEMM of the layer kernels with one epilogue, as the kernels run
+    it (see :func:`gemm_epilogue_plain` for what it computes). ``b`` is the
+    ``[K, N]`` weight; an int8 ``b`` is also handed over K-major. An f32
+    ``acc`` is updated in place and returned when the epilogue is not
+    ``last``."""
+    if not dispatch.use_kernel(a):
+        return gemm_epilogue_plain(a, b, epi, bias=bias, row_scale=row_scale, col_scale=col_scale, res=res,
+                                   acc=acc, last=last)
+    is_int8 = a.dtype == torch.int8
+    if epi not in (_EPI_INT8 if is_int8 else _EPI_BF16):
+        raise ValueError(f"epilogue {epi} does not go with {a.dtype} operands")
+    (m, k), n, dev, f32, bf = a.shape, b.shape[1], a.device, torch.float32, torch.bfloat16
+    dispatch.require(a, "a", torch.int8 if is_int8 else bf, dev)
+    dispatch.require(b, "b", a.dtype, dev, (k, n))
+    dispatch.require(bias, "bias", f32, dev, (n,))
+    if is_int8:
+        dispatch.require(row_scale, "row_scale", f32, dev, (m,))
+    if is_int8 or epi == EPI_SCALE_ACC_F32:
+        dispatch.require(col_scale, "col_scale", f32, dev, (n,))
+    accumulates = epi in (EPI_ACC_F32, EPI_SCALE_ACC_F32)
+    if epi == EPI_BIAS_RES_BF16 or (accumulates and last):
+        dispatch.require(res, "res", bf, dev, (m, n))
+    f32_out = epi in (EPI_BIAS_GELU_F32, EPI_BIAS_F32) or (accumulates and not last)
+    if accumulates and acc is not None:
+        dispatch.require(acc, "acc", f32, dev, (m, n))
+        out_f32 = acc
+    else:
+        out_f32 = torch.empty((m, n), dtype=f32, device=dev) if (f32_out or accumulates) else None
+    out = None if f32_out else torch.empty((m, n), dtype=bf, device=dev)
+    bt = k_major(b) if is_int8 else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = dispatch.kernel("kemr_gemm_epilogue", _GEMM_ARGS)
+    status = fn(
+        a.data_ptr(), b.data_ptr(), ptr(bt), bias.data_ptr(), ptr(row_scale), ptr(col_scale), ptr(res), ptr(out),
+        ptr(out_f32), m, n, k, int(is_int8), epi, int(acc is None), int(bool(last)), dispatch.stream_of(a),
+    )
+    dispatch.check(status, "gemm_epilogue")
+    return out_f32 if f32_out else out

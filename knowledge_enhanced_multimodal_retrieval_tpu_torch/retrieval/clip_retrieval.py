@@ -62,11 +62,13 @@ from .embedding_store import EmbeddingStore
 
 # options of the JAX retriever outside this port's slice -> ROADMAP item
 _NOT_PORTED = {
-    "rt": "A8 (parallel modes)",
-    "shard_corpus": "A8 (parallel modes)",
-    "shard_queries": "A8 (parallel modes)",
+    "rt": "A5 (parallel modes)",
+    "shard_corpus": "A5 (parallel modes)",
+    "shard_queries": "A5 (parallel modes)",
 }
-_FILTERED = "filtered search is not ported yet: ROADMAP A5 (serving shell: filtered and candidate search)"
+_FILTERED = "filtered search is not ported yet: ROADMAP A2 (serving shell: filtered and candidate search)"
+_SERVING_SHELL = "is not ported yet: ROADMAP A2 (serving shell: filtered and candidate search)"
+_FUSION = "is not ported yet: ROADMAP A3 (eval and fusion)"
 
 
 @dataclass(frozen=True)
@@ -561,7 +563,7 @@ class CLIPRetrieval:
             vals, idx = vals.float().cpu().numpy(), idx.cpu().numpy()
         return self.results_from_topk(vals, idx, _state=c, top_k=k)
 
-    # -- filtered search (ROADMAP A5) ---------------------------------------------
+    # -- filtered search (ROADMAP A2) ---------------------------------------------
 
     def search_filtered_batch(self, *args, **kwargs):
         raise NotImplementedError(_FILTERED)
@@ -574,6 +576,23 @@ class CLIPRetrieval:
 
     def retrieval_filtered_embeddings_batch(self, *args, **kwargs):
         raise NotImplementedError(_FILTERED)
+
+    # -- candidate, pipelined and fused search (ROADMAP A2, A3) --------------------
+
+    def retrieval_candidates_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"CLIPRetrieval.retrieval_candidates_batch {_SERVING_SHELL}")
+
+    def retrieval_batches(self, *args, **kwargs):
+        raise NotImplementedError(f"CLIPRetrieval.retrieval_batches {_SERVING_SHELL}")
+
+    def search_batches_pipelined(self, *args, **kwargs):
+        raise NotImplementedError(f"CLIPRetrieval.search_batches_pipelined {_SERVING_SHELL}")
+
+    def retrieval_fused(self, *args, **kwargs):
+        raise NotImplementedError(f"CLIPRetrieval.retrieval_fused {_FUSION}")
+
+    def retrieval_fused_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"CLIPRetrieval.retrieval_fused_batch {_FUSION}")
 
     # -- reference-parity API --------------------------------------------------
 

@@ -14,7 +14,10 @@ The port's copy of the text- and image-query API of
   (Text2SPARQL has no image modality).
 
 The Text2SPARQL side and ``FusionConfig`` are the port's own copies of the
-reference package's ``knowledge.*`` and ``utils.config`` modules.
+reference package's ``knowledge.*`` and ``utils.config`` modules. The
+reference engine's other entry points (filtered, constrained and fused
+retrieval, the pipelined batches, ``set_fusion_head``) are not ported yet:
+each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ from typing import Dict, List, Optional, Sequence
 from ..utils.config import FusionConfig
 
 from .clip_retrieval import CLIPRetrieval
+
+# entry points of the reference engine that the port does not carry yet -> ROADMAP item
+_SERVING_SHELL = "is not ported yet: ROADMAP A2 (serving shell: filtered and candidate search)"
+_FUSION = "is not ported yet: ROADMAP A3 (eval and fusion)"
 
 
 class RetrievalEngine:
@@ -154,3 +161,30 @@ class RetrievalEngine:
             for item in results
             if item.get("score", 0) >= threshold
         ]
+
+
+    # -- not ported yet (ROADMAP A2, A3) ----------------------------------------
+
+    def retrieve_text_filtered(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_filtered {_SERVING_SHELL}")
+
+    def retrieve_text_filtered_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_filtered_batch {_SERVING_SHELL}")
+
+    def retrieve_text_constrained(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_constrained {_SERVING_SHELL}")
+
+    def retrieve_text_constrained_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_constrained_batch {_SERVING_SHELL}")
+
+    def retrieve_text_noknowledge_batches(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_noknowledge_batches {_SERVING_SHELL}")
+
+    def set_fusion_head(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.set_fusion_head {_FUSION}")
+
+    def retrieve_text_fused(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_fused {_FUSION}")
+
+    def retrieve_text_fused_batch(self, *args, **kwargs):
+        raise NotImplementedError(f"RetrievalEngine.retrieve_text_fused_batch {_FUSION}")

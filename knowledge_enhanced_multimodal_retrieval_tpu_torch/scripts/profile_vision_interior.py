@@ -51,8 +51,8 @@ from ..ops.dispatch import F, I, P
 
 INTERIOR_PRODUCTION, INTERIOR_NOMAX = 0, 1
 
-_ATTN_VARIANT_ARGS = [P] * 14 + [I] * 7 + [F, P]
-_MLP_DIAG_ARGS = [P] * 18 + [I] * 6 + [F, P]
+_ATTN_VARIANT_ARGS = [P] * 16 + [I] * 7 + [F, P]
+_MLP_DIAG_ARGS = [P] * 20 + [I] * 6 + [F, P]
 
 
 def attn_operands(lp):
@@ -63,6 +63,17 @@ def attn_operands(lp):
 def mlp_operands(lp):
     """The MLP half's operands of an int8 layer plan, in B4b's order."""
     return (lp["ln2_scale"], lp["ln2_bias"], lp["w1"], lp["w1_s"], lp["b1"], lp["w2"], lp["w2_s"], lp["b2"])
+
+
+def attn_k_major(lp):
+    """``wqkv_qt`` / ``wo_qt`` keywords from a plan's K-major copies (absent
+    ones are left for the wrapper to make)."""
+    return dict(wqkv_qt=lp.get("wqkv_t"), wo_qt=lp.get("wo_t"))
+
+
+def mlp_k_major(lp):
+    """``w1_qt`` / ``w2_qt`` keywords from a plan's K-major copies."""
+    return dict(w1_qt=lp.get("w1_t"), w2_qt=lp.get("w2_t"))
 
 
 def _check_interior(interior: int) -> None:
@@ -104,11 +115,12 @@ def attn_q8_variant(
         )
     args = (x, *attn_operands(lp))
     FB._require_all(args, FB._attn_q8_specs(width, "1"))
+    kt = FB._k_major_operands((lp["wqkv"], lp["wo"]), (lp.get("wqkv_t"), lp.get("wo_t")), ("wqkv_t", "wo_t"))
     out = torch.empty_like(x)
     scratch = (*FB._row_quant_scratch(x), *FB._attn_q8_scratch(x))
     fn = dispatch.kernel("kemr_attention_block_q8_variant", _ATTN_VARIANT_ARGS)
     status = fn(
-        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        *[t.data_ptr() for t in (*args, *kt)], out.data_ptr(), *[t.data_ptr() for t in scratch],
         x.shape[0], width, heads, seq_len, mask_len, int(causal), int(interior), 1e-5, dispatch.stream_of(x),
     )
     dispatch.check(status, "attn_q8_variant")
@@ -131,15 +143,16 @@ def mlp_q8_diag(
         return mlp_q8_diag_plain(x, lp, gelu=gelu, requant=requant, n_chunks=n_chunks)
     args = (x, *mlp_operands(lp))
     FB._require_all(args, FB._mlp_q8_specs(width, ff, "2"))
+    kt = FB._k_major_operands((lp["w1"], lp["w2"]), (lp.get("w1_t"), lp.get("w2_t")), ("w1_t", "w2_t"))
     ck = ff // n_chunks
     out = torch.empty_like(x)
-    scratch = (*FB._row_quant_scratch(x), *FB._mlp_q8_scratch(x, ck))
+    scratch = (*FB._row_quant_scratch(x), *FB._mlp_q8_scratch(x, ff, n_chunks))
     # bf16 copies of one chunk of f and of c_proj: read only without requant
     fbf = torch.empty((x.shape[0], ck), dtype=torch.bfloat16, device=x.device)
     w2bf = torch.empty((ck, width), dtype=torch.bfloat16, device=x.device)
     fn = dispatch.kernel("kemr_mlp_block_q8_diag", _MLP_DIAG_ARGS)
     status = fn(
-        *[t.data_ptr() for t in args], out.data_ptr(), *[t.data_ptr() for t in scratch],
+        *[t.data_ptr() for t in (*args, *kt)], out.data_ptr(), *[t.data_ptr() for t in scratch],
         fbf.data_ptr(), w2bf.data_ptr(), x.shape[0], width, ff, n_chunks, int(bool(gelu)), int(bool(requant)),
         1e-5, dispatch.stream_of(x),
     )
@@ -211,11 +224,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     run("mlp_q8 no gelu no requant", lambda: mlp_q8_diag(x, lp, gelu=False, requant=False))
 
     def per_block() -> torch.Tensor:
-        y = FB.fused_attention_block_q8(x, *attn_operands(lp), **attn_kw)
-        return FB.fused_mlp_block_q8(y, *mlp_operands(lp))
+        y = FB.fused_attention_block_q8(x, *attn_operands(lp), **attn_kw, **attn_k_major(lp))
+        return FB.fused_mlp_block_q8(y, *mlp_operands(lp), **mlp_k_major(lp))
 
     run("layer per-block pair (B4a + B4b)", per_block)
-    run("layer whole-kernel (B1)", lambda: FB.fused_layer_q8(x, *attn_operands(lp), *mlp_operands(lp), **attn_kw))
+    run("layer whole-kernel (B1)", lambda: FB.fused_layer_q8(
+        x, *attn_operands(lp), *mlp_operands(lp), **attn_kw, **attn_k_major(lp), **mlp_k_major(lp)))
     return medians
 
 

@@ -20,7 +20,7 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import
 )
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import flash_attention as FA
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha, mha_plain
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as T
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as S
@@ -51,26 +51,26 @@ def _t(a, dev, dtype):
     return torch.tensor(np.asarray(a, np.float32)).to(dev, dtype).contiguous()
 
 
-def _attn(rng, dev, width=W):
+def _attn(rng, dev, width=W, std=0.05):
     f32, bf = torch.float32, torch.bfloat16
     return dict(
         ln_scale=_t(1 + 0.1 * rng.standard_normal(width), dev, f32),
         ln_bias=_t(0.1 * rng.standard_normal(width), dev, f32),
-        wqkv=_t(rng.standard_normal((width, 3 * width)) * 0.05, dev, bf),
+        wqkv=_t(rng.standard_normal((width, 3 * width)) * std, dev, bf),
         bqkv=_t(0.02 * rng.standard_normal(3 * width), dev, f32),
-        wo=_t(rng.standard_normal((width, width)) * 0.05, dev, bf),
+        wo=_t(rng.standard_normal((width, width)) * std, dev, bf),
         bo=_t(0.02 * rng.standard_normal(width), dev, f32),
     )
 
 
-def _mlp(rng, dev, width=W, ff=FF):
+def _mlp(rng, dev, width=W, ff=FF, std=0.05):
     f32, bf = torch.float32, torch.bfloat16
     return dict(
         ln_scale=_t(1 + 0.1 * rng.standard_normal(width), dev, f32),
         ln_bias=_t(0.1 * rng.standard_normal(width), dev, f32),
-        w1=_t(rng.standard_normal((width, ff)) * 0.05, dev, bf),
+        w1=_t(rng.standard_normal((width, ff)) * std, dev, bf),
         b1=_t(0.02 * rng.standard_normal(ff), dev, f32),
-        w2=_t(rng.standard_normal((ff, width)) * 0.05, dev, bf),
+        w2=_t(rng.standard_normal((ff, width)) * std, dev, bf),
         b2=_t(0.02 * rng.standard_normal(width), dev, f32),
     )
 
@@ -203,6 +203,160 @@ def test_kernels_refuse_wrong_operands(rng, dev):
     w = {k: v.cpu() for k, v in _mlp(rng, dev).items()}
     with pytest.raises(ValueError, match="expected cuda"):
         T.fused_mlp_block(x.bfloat16(), **w)
+
+
+# -- the layer kernels' GEMM (wgmma + TMA route, and the WMMA route) -------------
+
+
+def _q8_layer_at(rng, dev, width, ff):
+    """``_q8_layer`` at another width, with the K-major copies a packed plan
+    carries. The weights shrink with the width so that the outputs stay
+    O(1-4), where ``_BF16_ATOL`` is one bf16 step."""
+    std = 0.05 * (W / width) ** 0.5
+    a, m = _attn(rng, dev, width, std), _mlp(rng, dev, width, ff, std)
+    lp = dict(ln1_scale=a["ln_scale"], ln1_bias=a["ln_bias"], bqkv=a["bqkv"], bo=a["bo"],
+              ln2_scale=m["ln_scale"], ln2_bias=m["ln_bias"], b1=m["b1"], b2=m["b2"])
+    for name, w in (("wqkv", a["wqkv"]), ("wo", a["wo"]), ("w1", m["w1"]), ("w2", m["w2"])):
+        lp[name], lp[name + "_s"] = T.quantize_weight(w.float())
+        lp[name + "_t"] = T.k_major(lp[name])
+    return a, m, lp
+
+
+# rows = nseq * s leave a last row tile of 1 ... 127 rows; widths 256-1536;
+# n_chunks 1-8; width 100 has rows of 200 / 100 bytes, which TMA cannot
+# take: the WMMA route
+_GEMM_SHAPES = [
+    # width, heads, ff, n_chunks, s, nseq
+    (256, 4, 1024, 8, 43, 3),    # 129 rows
+    (384, 6, 1536, 4, 51, 5),    # 255 rows
+    (768, 12, 3072, 8, 16, 12),  # 192 rows, ViT-L/14 text width
+    (1024, 16, 1024, 1, 272, 1),  # one FF chunk, ViT-L/14 vision width
+    (1536, 24, 1536, 3, 17, 8),  # 136 rows, the over-the-cap width
+    (100, 2, 256, 2, 16, 9),     # 144 rows; no TMA
+]
+
+
+@pytest.mark.parametrize("width,heads,ff,n_chunks,s,nseq", _GEMM_SHAPES)
+def test_layer_kernels_at_ragged_rows_and_widths(rng, dev, width, heads, ff, n_chunks, s, nseq):
+    """B3a, B3b, B1, B4a, B4b, S1 and S2 against their plain versions, and
+    which GEMM route the shape took."""
+    a, m, lp = _q8_layer_at(rng, dev, width, ff)
+    x = _t(rng.standard_normal((nseq * s, width)) * 0.5, dev, torch.bfloat16)
+    kw = dict(seq_len=s, heads=heads, mask_len=s - 1, causal=False)
+    before = T.gemm_route_counts()
+    _close(T.fused_attention_block(x, **a, **kw), T.attention_block_plain(x, **a, **kw, eps=1e-5), _BF16_ATOL)
+    _close(T.fused_mlp_block(x, **m), T.mlp_block_plain(x, **m, eps=1e-5), _BF16_ATOL)
+    ao, mo = PV.attn_operands(lp), PV.mlp_operands(lp)
+    ak, mk = PV.attn_k_major(lp), PV.mlp_k_major(lp)
+    whole = T.fused_layer_q8(x, *ao, *mo, **kw, n_chunks=n_chunks, **ak, **mk)
+    _close(whole, T.layer_q8_plain(x, *ao, *mo, **kw, n_chunks=n_chunks, eps=1e-5), 2 * _BF16_ATOL)
+    y = T.fused_attention_block_q8(x, *ao, **kw, **ak)
+    _close(y, T.attention_block_q8_plain(x, *ao, **kw, eps=1e-5), 2 * _BF16_ATOL)
+    out = T.fused_mlp_block_q8(y, *mo, n_chunks=n_chunks, **mk)
+    _close(out, T.mlp_block_q8_plain(y, *mo, n_chunks=n_chunks, eps=1e-5), 2 * _BF16_ATOL)
+    assert torch.equal(out, whole)  # B4b(B4a(x)) == B1(x)
+    for interior in (0, 1):
+        got = PV.attn_q8_variant(x, lp, interior=interior, **kw)
+        _close(got, PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), 2 * _BF16_ATOL)
+        if interior == 0:
+            assert torch.equal(got, y)  # S1 interior 0 == B4a
+    for gelu, requant in ((True, True), (True, False), (False, False)):
+        got = PV.mlp_q8_diag(y, lp, gelu=gelu, requant=requant, n_chunks=n_chunks)
+        _close(got, PV.mlp_q8_diag_plain(y, lp, gelu=gelu, requant=requant, n_chunks=n_chunks), 2 * _BF16_ATOL)
+        if gelu and requant:
+            assert torch.equal(got, out)  # S2 gelu + requant == B4b
+    wg, wmma = (after - b for after, b in zip(T.gemm_route_counts(), before))
+    assert (wg, wmma) == ((0, wmma) if width % 16 else (wg, 0)) and wg + wmma > 0, (wg, wmma)
+
+
+@pytest.mark.parametrize("width,heads,ff,n_chunks,s,nseq", _GEMM_SHAPES[:5])
+def test_int8_layer_is_bit_equal_on_both_gemm_routes(rng, dev, width, heads, ff, n_chunks, s, nseq):
+    """s32 sums are exact in any order and both routes keep one epilogue
+    arithmetic, so B1 gives the same bits on the wgmma route and on the WMMA
+    route (forced here; the rule is shape and alignment)."""
+    _, _, lp = _q8_layer_at(rng, dev, width, ff)
+    x = _t(rng.standard_normal((nseq * s, width)) * 0.5, dev, torch.bfloat16)
+    args = (x, *PV.attn_operands(lp), *PV.mlp_operands(lp))
+    kw = dict(seq_len=s, heads=heads, mask_len=s - 1, causal=False, n_chunks=n_chunks)
+    new = T.fused_layer_q8(*args, **kw)  # the copies made by the wrapper
+    packed = T.fused_layer_q8(*args, **kw, **PV.attn_k_major(lp), **PV.mlp_k_major(lp))
+    T.force_wmma_gemm(True)
+    try:
+        before = T.gemm_route_counts()
+        old = T.fused_layer_q8(*args, **kw)
+        assert T.gemm_route_counts()[0] == before[0]
+    finally:
+        T.force_wmma_gemm(False)
+    torch.cuda.synchronize()
+    assert torch.equal(new, old) and torch.equal(packed, old)
+
+
+_GEMM_EDGES = [(128, 128, 128), (1, 8, 16), (300, 200, 208), (130, 72, 48), (257, 384, 384), (777, 512, 512),
+               (64, 1000, 96), (500, 136, 1040)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("m,n,k", _GEMM_EDGES)
+def test_gemm_every_epilogue_at_ragged_edges(rng, dev, int8, m, n, k):
+    """The GEMM alone: M, N and K that are no multiples of its tile, every
+    epilogue of both element types, the accumulating ones over two chunks."""
+    bias = _t(0.1 * rng.standard_normal(n), dev, torch.float32)
+    res = _t(rng.standard_normal((m, n)), dev, torch.bfloat16)
+    if int8:
+        a, a2 = (torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8, device=dev) for _ in range(2))
+        b, b2 = (torch.tensor(rng.integers(-127, 128, (k, n)), dtype=torch.int8, device=dev) for _ in range(2))
+        kw = dict(bias=bias, res=res, row_scale=_t(rng.uniform(1e-3, 2e-3, m), dev, torch.float32),
+                  col_scale=_t(rng.uniform(1e-3, 2e-3, n), dev, torch.float32))
+    else:
+        a, a2 = (_t(rng.standard_normal((m, k)), dev, torch.bfloat16) for _ in range(2))
+        # products of O(1) whatever K is: results stay under 8, where a bf16 step is 2^-5
+        b, b2 = (_t(rng.standard_normal((k, n)) / np.sqrt(k), dev, torch.bfloat16) for _ in range(2))
+        kw = dict(bias=bias, res=res, col_scale=_t(rng.uniform(0.5, 1.5, n), dev, torch.float32))
+    before = T.gemm_route_counts()
+    for epi in (T._EPI_INT8 if int8 else T._EPI_BF16):
+        if epi in (T.EPI_ACC_F32, T.EPI_SCALE_ACC_F32):
+            acc = T.gemm_epilogue(a, b, epi, last=False, **kw)
+            want_acc = T.gemm_epilogue_plain(a, b, epi, last=False, **kw)
+            _close(acc, want_acc, 1e-3)
+            got = T.gemm_epilogue(a2, b2, epi, acc=acc, last=True, **kw)
+            want = T.gemm_epilogue_plain(a2, b2, epi, acc=want_acc, last=True, **kw)
+        else:
+            got, want = T.gemm_epilogue(a, b, epi, **kw), T.gemm_epilogue_plain(a, b, epi, **kw)
+        assert got.dtype == want.dtype and got.shape == (m, n)
+        _close(got, want, 2 ** -5)  # |x| < 8 (residual + product + bias): one bf16 step
+        if int8:  # the other route: the same bits
+            T.force_wmma_gemm(True)
+            try:
+                if epi == T.EPI_ACC_F32:
+                    old = T.gemm_epilogue(a2, b2, epi, acc=T.gemm_epilogue(a, b, epi, last=False, **kw), last=True, **kw)
+                else:
+                    old = T.gemm_epilogue(a, b, epi, **kw)
+            finally:
+                T.force_wmma_gemm(False)
+            torch.cuda.synchronize()
+            assert torch.equal(got, old), epi
+    wg, wmma = (after - b0 for after, b0 in zip(T.gemm_route_counts(), before))
+    assert wg > 0 and (wmma > 0) == int8, (wg, wmma)  # every shape here is one TMA can describe
+
+
+def test_layer_kernels_refuse_wrong_k_major_copies(rng, dev):
+    _, _, lp = _q8_layer_at(rng, dev, W, FF)
+    x = _t(rng.standard_normal((32, W)), dev, torch.bfloat16)
+    ao, mo = PV.attn_operands(lp), PV.mlp_operands(lp)
+    kw = dict(seq_len=16, heads=H)
+    with pytest.raises(ValueError, match="shape"):  # the [in, out] weight where its copy belongs
+        T.fused_attention_block_q8(x, *ao, **kw, wqkv_qt=lp["wqkv"])
+    with pytest.raises(ValueError, match="expected cuda"):
+        T.fused_mlp_block_q8(x, *mo, w1_qt=lp["w1_t"].cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        T.fused_layer_q8(x, *ao, *mo, **kw, w2_qt=lp["w2"].t())
+    with pytest.raises(ValueError, match="dtype"):
+        T.fused_layer_q8(x, *ao, *mo, **kw, wo_qt=lp["wo_t"].to(torch.int16))
+    with pytest.raises(ValueError, match="contiguous"):
+        m = _mlp(rng, dev)
+        T.fused_mlp_block(x, **{**m, "w1": m["w1"].t().contiguous().t()})  # the right shape, column-major
+    with pytest.raises(ValueError, match="does not go with"):
+        T.gemm_epilogue(x, x.t().contiguous(), T.EPI_ACC_F32, bias=lp["b1"][:32])
 
 
 def _topk_check(got, scores, k):
@@ -472,12 +626,21 @@ def test_flash_attention_kernel_ragged_tiles(rng, dev, sq, sk, d, causal):
 
 
 def test_mha_routes_long_sequences_to_the_kernel(rng, dev):
+    """On the card every length launches the kernel (it beat ``mha_plain``
+    from s = 16 up when measured there); only a head dim past the kernel's
+    256 takes the plain version."""
     q = _t(rng.standard_normal((2, 4, 129, 64)), dev, torch.bfloat16).requires_grad_()
     before = FA.flash_attention_kernel.launches
     out = mha(q, q, q)
     assert FA.flash_attention_kernel.launches == before + 1
-    mha(q[:, :, :128], q[:, :, :128], q[:, :, :128])  # s <= 128: the plain version
-    assert FA.flash_attention_kernel.launches == before + 1
+    for s in (128, 77, 16):  # the text tower's 77 tokens and shorter
+        short = q[:, :, :s].detach()
+        got = mha(short, short, short, causal=True)
+        _close(got, mha_plain(short, short, short, causal=True), 2 ** -5)
+    assert FA.flash_attention_kernel.launches == before + 4
+    wide = _t(rng.standard_normal((1, 2, 40, 320)), dev, torch.bfloat16)
+    _close(mha(wide, wide, wide), mha_plain(wide, wide, wide), 2 ** -5)
+    assert FA.flash_attention_kernel.launches == before + 4  # head dim 320: no kernel has it
     out.float().square().sum().backward()  # backward: recompute through mha_plain
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
 

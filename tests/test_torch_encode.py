@@ -128,6 +128,45 @@ def test_encode_fast_int8_plan_matches_pallas(flax_params, rng, s):
     assert _cos(got, fp).min() > 0.999
 
 
+def _moved(plan, fn):
+    """A plan with ``fn`` applied to every tensor (a device or dtype move)."""
+    if isinstance(plan, dict):
+        return {k: _moved(v, fn) for k, v in plan.items()}
+    if isinstance(plan, list):
+        return [_moved(v, fn) for v in plan]
+    return fn(plan)
+
+
+def _without_k_major(plan):
+    return {**plan, "layers": [{k: v for k, v in lp.items() if not k.endswith("_t")} for lp in plan["layers"]]}
+
+
+@pytest.mark.parametrize("s", [12, 32])
+def test_int8_text_plan_keeps_k_major_copies(flax_params, rng, s):
+    """An int8 plan holds every int8 weight twice: ``[in, out]`` and its
+    exact transpose under ``*_t`` (what the int8 kernels' GEMM reads). A move
+    of the whole plan keeps both, the copies change no result (the plain
+    versions read ``[in, out]``), and the encoder still matches the JAX
+    package's (Pallas in interpret mode)."""
+    model, params = flax_params
+    plan = TF.make_text_plan(from_flax_params(params, dtype=torch.float32, arch=ARCH), dtype=torch.float32,
+                             quantize="int8")
+    for lp in plan["layers"]:
+        for name in ("wqkv", "wo", "w1", "w2"):
+            wt = lp[name + "_t"]
+            assert wt.dtype == torch.int8 and wt.is_contiguous() and torch.equal(wt, lp[name].t())
+    fp_plan = TF.make_text_plan(from_flax_params(params, dtype=torch.float32, arch=ARCH), dtype=torch.float32)
+    assert not any(k.endswith("_t") for k in fp_plan["layers"][0])
+    moved = _moved(plan, lambda t: t.clone().cpu())
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(plan["layers"], moved["layers"]) for k in a)
+    ids = _ids(rng, 6, s)
+    got = TF.encode_text_fast(ARCH, moved, torch.tensor(ids))
+    assert torch.equal(got, TF.encode_text_fast(ARCH, _without_k_major(plan), torch.tensor(ids)))
+    jplan = JF.make_text_plan(params, dtype=jnp.float32, quantize="int8")
+    want = np.asarray(JF.encode_text_fast(ARCH, jplan, jnp.asarray(ids), use_fused=True, interpret=True))
+    assert _cos(got.numpy(), want).min() > 0.999  # as test_encode_fast_int8_plan_matches_pallas
+
+
 def test_make_text_plan_rejects_unknown_mode(flax_params):
     tower = from_flax_params(flax_params[1], dtype=torch.float32, arch=ARCH)
     with pytest.raises(ValueError):

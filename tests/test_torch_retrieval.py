@@ -185,7 +185,7 @@ def test_flax_encoder_mode_matches_fused(world):
 
 @pytest.mark.parametrize(
     "kwargs",
-    # the parallel modes (A8) stay out on every corpus tier
+    # the parallel modes (A5) stay out on every corpus tier
     [{"shard_corpus": True}, {"shard_queries": True}, {"rt": object()},
      {"shard_corpus": True, "quantize_corpus": "int4"}, {"shard_queries": True, "ann": "ivf"},
      {"rt": object(), "quantize_corpus": "pq"}],
@@ -235,5 +235,5 @@ def test_serve_cli_refuses_silent_fallbacks(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device=cpu"):
             serve.main([f"--store={path}", "--query=x"])  # default --device=cuda
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         serve.main([f"--store={path}", "--http=8080", "--device=cpu"])
