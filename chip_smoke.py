@@ -63,11 +63,22 @@ just after; every kernel must have launched in the path it belongs to.
    multiples of its tile, K = 384 and 512, every epilogue, bf16 and int8,
    against the plain version; the int8 results also bit for bit against the
    WMMA route, as is B1 at the text, vision and 336 px shapes.
-11. One B1 and one B3b call split by kernel name (``torch.profiler``) at the
-   text and vision shapes, with the rate each GEMM reaches; the text batch
+11. One B3a, one B1 and one B3b call split by kernel name
+   (``torch.profiler``) at the text and vision shapes (B3a and B1 also at
+   336 px), with the rate each GEMM reaches; the text batch
    split into tokenize / encode / scan / uuid mapping; and the attention
    kernel against ``mha_plain`` at the text tower's shapes (what
    ``ops.attention.mha``'s routing rests on).
+12. The layer kernels' attention interior alone (``ops.fused_block.attention_interior``)
+   on a fixed ``qkv`` at the text, vision and 336 px shapes, both interiors:
+   against its plain version, ``scaled_dot_product_attention`` on the same
+   rows, the bound, and the one-warp-per-row route (forced) it replaced at
+   these shapes; which route each shape took (the full-width shapes the
+   wgmma route, a width-100 layer the other); and S1 interior 0 == B4a,
+   B4b(B4a(x)) == B1(x) bit for bit at the text, vision and 336 px shapes.
+13. B2 asked for k = 160 on the card, exact and q8 corpus: above the
+   kernel's k = 128 the wrapper selects from the materialized score matrix;
+   held to the plain top-k computed on the CPU.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -124,6 +135,12 @@ TOL_TOPK = 1e-5
 # and the sums run in another order. Outputs |o| < 4 (step <= 2^-6 there):
 # one step apart.
 TOL_ATTN = 2.0 ** -6
+# attention interior of the layer kernels, bf16: kernel and plain version both
+# round the normalized p to bf16; the kernel's row sum runs in another order
+# and its exponent is one fused multiply-add, so a p on a bf16 boundary can
+# round the other way. Outputs |o| < 4 (a causal row's first keys: o is
+# nearly one v row), step <= 2^-6 there: one step apart.
+TOL_INTERIOR = 2.0 ** -6
 # IVF probes, card against the CPU in f32: other summation orders (~1e-6);
 # IVF-PQ also casts its LUTs to bf16, where an entry can round one step the
 # other way (a few 1e-4 per entry, M entries per score).
@@ -416,6 +433,10 @@ def kernel_split(torch, results, label, fn, gemm_ops, rounds=5):
             if epi in gemm_ops:
                 role, ops = gemm_ops[epi]
                 note = f" ({role}: {ops / (ms * 1e-3) / 1e12:.0f} {unit})"
+        m = re.search(r"attention_(wg_)?kernel<(.+?)>", key)
+        if m and "flash" not in key:
+            nomax = ", no-max" if ("true" in m.group(2) or "1" in m.group(2)) else ""
+            name = f"attention interior ({'wgmma' if m.group(1) else 'one warp per row'}{nomax})"
         rows.append((ms, f"{name} x{launches:g} {ms:.4f} ms{note}", name, launches))
     if not rows:
         raise AssertionError(f"{label}: torch.profiler recorded no device time")
@@ -435,6 +456,7 @@ def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, lay
     n_chunks = FB.default_mlp_chunks(ff)
     q = {k: FB.quantize_weight(_t(torch, dev, w[k], torch.float32)) for k in ("wqkv", "wo", "w1", "w2")}
     lib = layer_library(torch, ln, ln, wb, q, **attn_kw, n_chunks=n_chunks)
+    routes_before = FB.attention_route_counts()
     if "B3a" in layers:
         args = (x, ln["ln_scale"], ln["ln_bias"], wb["wqkv"], wb["bqkv"], wb["wo"], wb["bo"])
         record(torch, results, f"B3a fused_attention_block{tag}", SRC_FB, f"{REF_FB}:139",
@@ -442,6 +464,9 @@ def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, lay
                TOL_BF16_BLOCK, lambda: FB.fused_attention_block(*args, **attn_kw),
                lambda: FB.attention_block_plain(*args, **attn_kw, eps=1e-5), bound_of=bounds["B3a"],
                library_fn=lambda: lib["B3a"](x))
+        if split:
+            kernel_split(torch, results, f"B3a{tag or ' text'}", lambda: FB.fused_attention_block(*args, **attn_kw),
+                         {0: ("qkv", 6 * rows * width * width), 1: ("out-proj", 2 * rows * width * width)})
     if "B3b" in layers:
         margs = (x, ln["ln_scale"], ln["ln_bias"], wb["w1"], wb["b1"], wb["w2"], wb["b2"])
         record(torch, results, f"B3b fused_mlp_block{tag}", SRC_FB, f"{REF_FB}:226",
@@ -481,6 +506,9 @@ def layer_phases(torch, dev, results, rng, *, rows, width, ff, attn_kw, tag, lay
                          {0: ("qkv", 6 * rows * width * width), 1: ("out-proj", 2 * rows * width * width),
                           3: ("c_fc", 2 * rows * width * ff), 4: ("c_proj", 2 * rows * width * ff)})
     torch.cuda.synchronize()
+    wg, per_row = (after - before for after, before in zip(FB.attention_route_counts(), routes_before))
+    assert wg > 0 and per_row == 0, f"attention interior routes at{tag or ' text'}: wgmma {wg}, one warp per row {per_row}"
+    log(f"attention interior routes at{tag or ' text'}: wgmma {wg}, one warp per row {per_row}")
 
 
 def _matmul_topk(torch, q, ci, ct, alpha, k):
@@ -592,10 +620,10 @@ def vision_kernel_phases(torch, dev, results):
     layer_phases(torch, dev, results, rng, rows=V_BATCH * V_SEQ, width=V_WIDTH, ff=V_FF,
                  attn_kw=dict(seq_len=V_SEQ, heads=V_HEADS, mask_len=V_MASK, causal=False),
                  tag=f" vision [{V_BATCH}x{V_SEQ}]", split=True)
-    # ViT-L/14@336px: the interior keeps K/V of 592 rows in shared memory
+    # ViT-L/14@336px: ten query tiles a (sequence, head), ten key tiles a pass
     layer_phases(torch, dev, results, rng, rows=4 * V336_SEQ, width=V_WIDTH, ff=V_FF,
                  attn_kw=dict(seq_len=V336_SEQ, heads=V_HEADS, mask_len=V336_MASK, causal=False),
-                 tag=f" 336px [4x{V336_SEQ}]", layers=("B3a", "B1"))
+                 tag=f" 336px [4x{V336_SEQ}]", layers=("B3a", "B1"), split=True)
     src = f"{PKG}/csrc/attention.cu"
     for name, shape, ref in (
         ("B6 flash_attention s=257", (64, 16, 257, 64), "knowledge_enhanced_multimodal_retrieval_tpu/ops/short_attention.py:85"),
@@ -624,6 +652,21 @@ REF_PV = "scripts/profile_vision_interior.py"
 S2_SETTINGS = {"gelu+requant": (True, True), "no requant": (True, False), "no gelu no requant": (False, False)}
 
 
+def _q8_layer_plan(torch, dev, rng, width, ff):
+    """One int8 layer as ``make_vision_plan`` packs it, from seeded weights:
+    (LayerNorm 1, LayerNorm 2, the bf16 weights and f32 biases, the plan)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
+
+    ln, w, wb = _layer_weights(torch, dev, rng, width, ff)
+    ln2 = _layer_weights(torch, dev, rng, width, ff)[0]
+    lp = dict(ln1_scale=ln["ln_scale"], ln1_bias=ln["ln_bias"], ln2_scale=ln2["ln_scale"], ln2_bias=ln2["ln_bias"],
+              **{k: wb[k] for k in ("bqkv", "bo", "b1", "b2")})
+    for k in ("wqkv", "wo", "w1", "w2"):
+        lp[k], lp[k + "_s"] = FB.quantize_weight(_t(torch, dev, w[k], torch.float32))
+        lp[k + "_t"] = FB.k_major(lp[k])  # the K-major copy the int8 GEMM reads
+    return ln, ln2, wb, lp
+
+
 def block_q8_phases(torch, dev, results):
     """B4a, B4b, S1 and S2 against their plain versions at the profiler's
     shape, B4a and S1 also at ViT-L/14@336px's sequence; and the three bit
@@ -632,13 +675,7 @@ def block_q8_phases(torch, dev, results):
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import profile_vision_interior as PV
 
     rng = np.random.default_rng(9)
-    ln, w, wb = _layer_weights(torch, dev, rng, V_WIDTH, V_FF)
-    ln2 = _layer_weights(torch, dev, rng, V_WIDTH, V_FF)[0]
-    lp = dict(ln1_scale=ln["ln_scale"], ln1_bias=ln["ln_bias"], ln2_scale=ln2["ln_scale"], ln2_bias=ln2["ln_bias"],
-              **{k: wb[k] for k in ("bqkv", "bo", "b1", "b2")})
-    for k in ("wqkv", "wo", "w1", "w2"):
-        lp[k], lp[k + "_s"] = FB.quantize_weight(_t(torch, dev, w[k], torch.float32))
-        lp[k + "_t"] = FB.k_major(lp[k])  # as make_vision_plan packs a layer
+    ln, ln2, wb, lp = _q8_layer_plan(torch, dev, rng, V_WIDTH, V_FF)
     a, m = PV.attn_operands(lp), PV.mlp_operands(lp)
     ak, mk = PV.attn_k_major(lp), PV.mlp_k_major(lp)
     n_chunks = FB.default_mlp_chunks(V_FF)
@@ -665,6 +702,9 @@ def block_q8_phases(torch, dev, results):
             if interior == PV.INTERIOR_PRODUCTION:
                 assert torch.equal(got, y), f"S1 interior 0 differs from B4a{tag}"
         if seq != V_SEQ:
+            whole = FB.fused_layer_q8(x, *a, *m, **kw, **ak, **mk)
+            assert torch.equal(FB.fused_mlp_block_q8(y, *m, **mk), whole), f"B4b(B4a(x)) differs from B1(x) at{tag}"
+            log(f"bit equalities at{tag}: B4b(B4a(x)) == B1(x), S1 interior 0 == B4a")
             continue
         out = FB.fused_mlp_block_q8(y, *m, **mk)
         record(torch, results, f"B4b fused_mlp_block_q8{tag}", SRC_FB, f"{REF_FB}:478", out,
@@ -687,6 +727,133 @@ def block_q8_phases(torch, dev, results):
                 assert torch.equal(got, out), "S2 with gelu and requant differs from B4b"
         log(f"bit equalities at{tag}: B4b(B4a(x)) == B1(x), S1 interior 0 == B4a, S2 gelu+requant == B4b")
     torch.cuda.synchronize()
+
+
+INTERIOR_SHAPES = (  # tag, sequences, seq_len, mask_len, heads, causal
+    ("text", ROWS // SEQ, SEQ, SEQ, HEADS, True),
+    (f"vision [{V_BATCH}x{V_SEQ}]", V_BATCH, V_SEQ, V_MASK, V_HEADS, False),
+    (f"336px [4x{V336_SEQ}]", 4, V336_SEQ, V336_MASK, V_HEADS, False),
+)
+
+
+def interior_phase(torch, dev, results):
+    """The layer kernels' attention interior alone on a fixed ``qkv``, both
+    interiors, at the three full-width shapes: held to its plain version;
+    device-only medians beside ``scaled_dot_product_attention`` on the same
+    rows (a yardstick: other roundings, never called by the port), the bound
+    and the one-warp-per-row route (forced), which these shapes took until
+    the interior moved to the tensor cores. Then the routes by shape, and
+    the bit equalities of the int8 halves at the text shape."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import profile_vision_interior as PV
+
+    rng = np.random.default_rng(14)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, nseq, seq, mask, heads, causal in INTERIOR_SHAPES:
+        width = heads * 64
+        qkv = _t(torch, dev, rng.standard_normal((nseq * seq, 3 * width)), torch.bfloat16)
+        q_, k_, v_ = qkv.view(nseq, seq, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        key_mask = (torch.arange(seq, device=dev) < mask).view(1, 1, 1, seq) if mask < seq else None
+        kw = dict(seq_len=seq, heads=heads, mask_len=mask, causal=causal)
+        bound_ms, bound_by = attention_bound(nseq, heads, seq, 64)
+        lib_ms = device_ms(lambda: sdpa(q_, k_, v_, attn_mask=key_mask, is_causal=causal and key_mask is None))
+        for sub_max, label in ((True, "production"), (False, "no-max")):
+            before = FB.attention_route_counts()
+            got = FB.attention_interior(qkv, subtract_max=sub_max, **kw)
+            assert tuple(x - y for x, y in zip(FB.attention_route_counts(), before)) == (1, 0), f"interior {tag}: route"
+            plain = lambda: FB._attention_interior(qkv, seq_len=seq, mask_len=mask, heads=heads, causal=causal,  # noqa: E731
+                                                   out_dtype=torch.bfloat16, subtract_max=sub_max)
+            torch.cuda.synchronize()
+            err = float((got.float() - plain().float()).abs().max())
+            if not np.isfinite(err) or err > TOL_INTERIOR:
+                raise AssertionError(f"attention interior {label} {tag} disagrees with its plain version: {err}")
+            ms = device_ms(lambda: FB.attention_interior(qkv, subtract_max=sub_max, **kw))
+            plain_ms = device_ms(plain)
+            FB.force_row_attention(True)
+            try:
+                before = FB.attention_route_counts()
+                per_row = FB.attention_interior(qkv, subtract_max=sub_max, **kw)
+                assert tuple(x - y for x, y in zip(FB.attention_route_counts(), before)) == (0, 1)
+                per_row_ms = device_ms(lambda: FB.attention_interior(qkv, subtract_max=sub_max, **kw))
+            finally:
+                FB.force_row_attention(False)
+            torch.cuda.synchronize()
+            routes_err = float((got.float() - per_row.float()).abs().max())
+            assert routes_err <= TOL_INTERIOR, f"interior {label} {tag}: the two routes differ by {routes_err}"
+            log(f"attention interior {label} {tag}: max_abs_err {err:.6g} (tolerance {TOL_INTERIOR:.6g}; routes differ by "
+                f"{routes_err:.6g}); device only: kernel {ms:.4f} ms, one warp per row {per_row_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ms / bound_ms:.1f}x over it)")
+            results.setdefault("interior", {})[f"{label} {tag}"] = dict(
+                ms=ms, per_row_ms=per_row_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err)
+
+    # a head dim that is not 64 (width 100, two heads): the one-warp-per-row route, by shape alone
+    width, heads, seq = 100, 2, 16
+    x = _t(torch, dev, rng.standard_normal((9 * seq, width)), torch.bfloat16)
+    ln, _, wb = _layer_weights(torch, dev, rng, width, 256)
+    args = (x, ln["ln_scale"], ln["ln_bias"], wb["wqkv"], wb["bqkv"], wb["wo"], wb["bo"])
+    kw = dict(seq_len=seq, heads=heads, mask_len=seq - 1, causal=False)
+    before = FB.attention_route_counts()
+    got = FB.fused_attention_block(*args, **kw)
+    torch.cuda.synchronize()
+    routes = tuple(a - b for a, b in zip(FB.attention_route_counts(), before))
+    assert routes == (0, 1), f"width-100 B3a took routes {routes}"
+    err = float((got.float() - FB.attention_block_plain(*args, **kw, eps=1e-5).float()).abs().max())
+    assert err <= TOL_BF16_BLOCK, err
+    log(f"attention interior routes at width 100 (head dim 50): wgmma 0, one warp per row 1; B3a max_abs_err {err:.6g}")
+
+    # the int8 halves at the text shape: one interior behind B1, B4a and S1
+    lp = _q8_layer_plan(torch, dev, rng, WIDTH, FF)[3]
+    a, m = PV.attn_operands(lp), PV.mlp_operands(lp)
+    ak, mk = PV.attn_k_major(lp), PV.mlp_k_major(lp)
+    x = _t(torch, dev, rng.standard_normal((ROWS, WIDTH)), torch.bfloat16)
+    kw = dict(seq_len=SEQ, heads=HEADS, mask_len=SEQ, causal=True)
+    before = FB.attention_route_counts()
+    y = FB.fused_attention_block_q8(x, *a, **kw, **ak)
+    assert torch.equal(PV.attn_q8_variant(x, lp, interior=PV.INTERIOR_PRODUCTION, **kw), y), "S1 interior 0 differs from B4a at text"
+    whole = FB.fused_layer_q8(x, *a, *m, **kw, **ak, **mk)
+    assert torch.equal(FB.fused_mlp_block_q8(y, *m, **mk), whole), "B4b(B4a(x)) differs from B1(x) at text"
+    err = float((y.float() - FB.attention_block_q8_plain(x, *a, **kw, eps=1e-5).float()).abs().max())
+    assert err <= TOL_Q8_LAYER, err
+    assert tuple(p - q for p, q in zip(FB.attention_route_counts(), before)) == (3, 0)
+    torch.cuda.synchronize()
+    log(f"bit equalities at text [{ROWS // SEQ}x{SEQ}]: B4b(B4a(x)) == B1(x), S1 interior 0 == B4a "
+        f"(B4a max_abs_err {err:.6g}); all three on the wgmma route")
+
+
+def topk_over_kernel_k_phase(torch, dev):
+    """B2 asked for more rows than the kernel's running lists hold (k = 160
+    against 128): the wrappers materialize the blended scores and select
+    from them with plain PyTorch, on the card, as the reference leaves its
+    kernel there too. Exact and q8 corpus, held to the plain top-k of the
+    scores computed on the CPU."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+
+    rng = np.random.default_rng(15)
+    k, qn = 160, 32
+    assert k > SIM._MAX_KERNEL_K
+    norm = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)  # noqa: E731
+    img, txt = norm(rng.standard_normal((CORPUS, WIDTH))), norm(rng.standard_normal((CORPUS, WIDTH)))
+    qs = _t(torch, dev, norm(rng.standard_normal((qn, WIDTH))), torch.bfloat16)
+    alpha = _t(torch, dev, rng.uniform(0.2, 0.8, qn), torch.float32)
+    ci, ct = _t(torch, dev, img, torch.bfloat16), _t(torch, dev, txt, torch.bfloat16)
+    before = dispatch.launch_counts()["similarity_topk_kernel"]
+    got = SIM.fused_similarity_topk(qs, ci, ct, k, alpha=alpha)
+    assert tuple(got[0].shape) == (qn, k) and got[0].is_cuda
+    topk_agree(got, SIM.blended_scores(qs.cpu(), ci.cpu(), ct.cpu(), alpha.cpu()), k, TOL_TOPK)
+    iq, is_ = SIM.quantize_corpus_host(img)
+    tq, ts = SIM.quantize_corpus_host(txt)
+    c8 = (_t(torch, dev, iq, torch.int8), _t(torch, dev, is_, torch.float32),
+          _t(torch, dev, tq, torch.int8), _t(torch, dev, ts, torch.float32))
+    got = SIM.fused_similarity_topk_q8(qs, *c8, k, alpha=alpha)
+    assert tuple(got[0].shape) == (qn, k) and got[0].is_cuda
+    topk_agree(got, SIM.blended_scores_q8(qs.cpu(), *(t.cpu() for t in c8), alpha.cpu()), k, TOL_TOPK)
+    assert dispatch.launch_counts()["similarity_topk_kernel"] == before, "k = 160 launched the k <= 128 kernel"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"B2 at k = {k} (> {SIM._MAX_KERNEL_K}: scores materialized and selected on the card, no kernel launch), "
+        f"Q = {qn}, exact and q8: == plain top-k on the CPU")
 
 
 GEMM_EDGES = [(128, 128, 128), (1, 8, 16), (300, 200, 208), (130, 72, 48), (1000, 384, 384), (777, 512, 512),
@@ -1360,6 +1527,8 @@ def main() -> int:
     vision_kernel_phases(torch, dev, results)
     capacity_kernel_phases(torch, dev, results)
     block_q8_phases(torch, dev, results)
+    interior_phase(torch, dev, results)
+    topk_over_kernel_k_phase(torch, dev)
     gemm_edge_phase(torch, dev)
     attention_routing_phase(torch, dev, results)
     prof_ms, prof = profiler_phase(torch)

@@ -27,8 +27,14 @@
 //                      bf16 x bf16 -> f32 or s8 x s8 -> s32, with bias /
 //                      QuickGELU / dequant / residual / f32-accumulate
 //                      epilogues on the accumulator fragments;
-//   attention_kernel   one (sequence, head) per block, K and V of the whole
-//                      sequence in shared memory, one warp per query row;
+//   attention_wg_kernel  the attention interior (attention_interior.cuh):
+//                      wgmma for q . k^T and p . v on K/V tiles that TMA
+//                      brings into a ring, one block per (64 query rows,
+//                      head, sequence); head dim 64. Other head dims and
+//                      operands TMA cannot describe take attention_kernel
+//                      (one (sequence, head) per block, K and V of the whole
+//                      sequence in shared memory, one warp per query row),
+//                      by shape and alignment alone;
 //   quant_rows_kernel  per-row dynamic int8 (max|h| / 127, round half-even).
 // Intermediates ([N, 3W] qkv, [N, ff] activations) round-trip device memory.
 //
@@ -95,7 +101,7 @@
 // casts f and the int8 c_proj chunk to bf16 (exact), multiplies them on the
 // tensor cores in f32 and scales by the weight scales after the product.
 
-#include "mma.cuh"
+#include "attention_interior.cuh"
 
 #include <mma.h>
 #include <map>
@@ -572,22 +578,40 @@ gemm_wg_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__
 // repeat from GEMM to GEMM and from call to call, and an encode costs
 // microseconds of host time. A map holds addresses and extents only, so an
 // entry never goes stale.
-static int tma_map_cached(CUtensorMap* tm, int elem_bytes, const void* base, uint64_t cols, uint64_t rows,
-                          uint64_t row_stride_bytes, uint32_t box_cols, uint32_t box_rows) {
-  using Key = std::tuple<const void*, uint64_t, uint64_t, uint64_t, uint32_t, uint32_t, int>;
+using MapKey = std::tuple<const void*, uint64_t, uint64_t, uint64_t, uint32_t, uint32_t, int>;
+
+template <typename Encode>
+static int tma_map_lookup(CUtensorMap* tm, const MapKey& key, Encode encode) {
   static std::mutex mu;
-  static std::map<Key, CUtensorMap> table;
-  const Key key(base, cols, rows, row_stride_bytes, box_cols, box_rows, elem_bytes);
+  static std::map<MapKey, CUtensorMap> table;
   std::lock_guard<std::mutex> lock(mu);
   auto it = table.find(key);
   if (it == table.end()) {
     CUtensorMap fresh;
-    KEMR_TRY(tma_map_2d(&fresh, elem_bytes, base, cols, rows, row_stride_bytes, box_cols, box_rows));
+    KEMR_TRY(encode(&fresh));
     if (table.size() >= 8192) table.clear();
     it = table.emplace(key, fresh).first;
   }
   *tm = it->second;
   return 0;
+}
+
+static int tma_map_cached(CUtensorMap* tm, int elem_bytes, const void* base, uint64_t cols, uint64_t rows,
+                          uint64_t row_stride_bytes, uint32_t box_cols, uint32_t box_rows) {
+  return tma_map_lookup(tm, MapKey(base, cols, rows, row_stride_bytes, box_cols, box_rows, elem_bytes),
+                        [&](CUtensorMap* fresh) {
+                          return tma_map_2d(fresh, elem_bytes, base, cols, rows, row_stride_bytes, box_cols, box_rows);
+                        });
+}
+
+// The attention interior's map of qkv [nseq * S, cols] bf16 as [nseq, S, cols]
+// for boxes of 64 columns x box_rows rows x box_seqs sequences (a table of
+// its own: the lambda's type keys the template).
+static int tma_map_qkv_cached(CUtensorMap* tm, const void* qkv, uint64_t cols, uint64_t S, uint64_t nseq,
+                              uint32_t box_rows, uint32_t box_seqs) {
+  return tma_map_lookup(tm, MapKey(qkv, cols, S, nseq, box_rows, box_seqs, 2), [&](CUtensorMap* fresh) {
+    return tma_map_rows64(fresh, 2, qkv, cols, S, nseq, box_rows, box_seqs);
+  });
 }
 
 // A [M, K] row-major (lda); B the [K, N] weight (bf16, ldb) or its [N, K]
@@ -758,12 +782,52 @@ static int attention_launch(const bf16* qkv, bf16* out, int N, int W, int heads,
   return (int)cudaGetLastError();
 }
 
+// The interior on the tensor cores (attention_interior.cuh). Where S divides
+// 64, a tile holds 64 / S sequences; otherwise one. 1 <= mask_len.
+template <bool NOMAX>
+static int attention_wg_launch(const bf16* qkv, bf16* out, int N, int W, int heads, int S, int mask_len,
+                               int causal, cudaStream_t st) {
+  const int nseq = N / S;
+  int seq_shift = 6;
+  if (S <= 64 && 64 % S == 0)
+    for (seq_shift = 0; (1 << seq_shift) < S; ++seq_shift) {}
+  const int per_tile = 64 >> seq_shift;
+  const int n_qtiles = per_tile > 1 ? 1 : (S + 63) / 64;
+  const long long blocks = (long long)n_qtiles * heads * ((nseq + per_tile - 1) / per_tile);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap tm;
+  KEMR_TRY(tma_map_qkv_cached(&tm, qkv, 3 * (uint64_t)W, S, nseq, per_tile > 1 ? S : 64, per_tile));
+  if (AI_SMEM > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(attention_wg_kernel<NOMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)AI_SMEM);
+    if (e != cudaSuccess) return (int)e;
+  }
+  attention_wg_kernel<NOMAX><<<(unsigned)blocks, AI_THREADS, AI_SMEM, st>>>(
+      tm, out, N, W, heads, S, n_qtiles, seq_shift, mask_len < S ? mask_len : S, causal, 0.125f);  // 1 / sqrt(64)
+  return (int)cudaGetLastError();
+}
+
+// Tests compare the two interiors' routes: 1 sends every call to attention_kernel.
+static int g_force_attention_rows = 0;
+// Interiors launched on the wgmma route [0] and on attention_kernel [1]
+// (host counters, not synchronized).
+static long long g_attn_route_count[2] = {0, 0};
+
 // interior: 0 = the production softmax, 1 = S1's no-max-subtract diagnostic.
+// The wgmma route is taken by shape and alignment alone: head dim 64 (row
+// strides are then multiples of 16 bytes) and 16-byte-aligned buffers, which
+// TMA and the 16-byte stores need; a mask_len < 1 (every key hidden: uniform
+// weights over all S keys) stays with attention_kernel as well.
 static int attention(const bf16* qkv, bf16* out, int N, int W, int heads, int S, int mask_len,
                      int causal, int interior, cudaStream_t st) {
-  if (interior == 0) return attention_launch<false>(qkv, out, N, W, heads, S, mask_len, causal, st);
-  if (interior == 1) return attention_launch<true>(qkv, out, N, W, heads, S, mask_len, causal, st);
-  return (int)cudaErrorInvalidValue;
+  if (interior != 0 && interior != 1) return (int)cudaErrorInvalidValue;
+  const bool wg = !g_force_attention_rows && W == 64 * heads && mask_len >= 1 && aligned16(qkv) && aligned16(out);
+  ++g_attn_route_count[wg ? 0 : 1];
+  if (wg)
+    return interior ? attention_wg_launch<true>(qkv, out, N, W, heads, S, mask_len, causal, st)
+                    : attention_wg_launch<false>(qkv, out, N, W, heads, S, mask_len, causal, st);
+  return interior ? attention_launch<true>(qkv, out, N, W, heads, S, mask_len, causal, st)
+                  : attention_launch<false>(qkv, out, N, W, heads, S, mask_len, causal, st);
 }
 
 static int ln_rows(const bf16* x, const float* g, const float* b, int N, int W, float eps,
@@ -1031,6 +1095,22 @@ void kemr_gemm_force_wmma(int on) { g_force_wmma = on; }
 
 // GEMMs launched so far on route 0 (wgmma + TMA) or 1 (WMMA).
 long long kemr_gemm_route_count(int route) { return g_route_count[route ? 1 : 0]; }
+
+// 1: every attention interior of this file takes attention_kernel whatever
+// its shape; 0: the route follows shape and alignment. For comparing the routes.
+void kemr_attention_force_rows(int on) { g_force_attention_rows = on; }
+
+// Interiors launched so far on route 0 (wgmma + TMA) or 1 (attention_kernel).
+long long kemr_attention_route_count(int route) { return g_attn_route_count[route ? 1 : 0]; }
+
+// The attention interior alone, for testing it at shapes no layer has: qkv
+// [N, 3W] bf16 -> out [N, W] bf16, whole sequences of S rows. interior as in
+// kemr_attention_block_q8_variant.
+int kemr_attention_interior(const void* qkv, void* out, int N, int W, int heads, int S, int mask_len,
+                            int causal, int interior, void* stream) {
+  return attention((const bf16*)qkv, (bf16*)out, N, W, heads, S, mask_len, causal, interior,
+                   (cudaStream_t)stream);
+}
 
 // One GEMM with one epilogue, for testing the GEMM at shapes no layer has.
 // a [M, K]; b the [K, N] weight; bt its [N, K] copy (int8) or null (bf16).

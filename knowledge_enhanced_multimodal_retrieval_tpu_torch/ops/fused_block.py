@@ -23,6 +23,12 @@ them in as ``*_qt``; a caller with only the ``[in, out]`` weights leaves them
 out and the wrapper makes them for the call. The plain versions read only
 ``[in, out]``.
 
+The attention interior between the projections (``_attention_interior``)
+is one device function behind B3a, B1, B4a and S1: ``wgmma`` on K/V tiles that
+TMA brings in where the head dim is 64 (``csrc/attention_interior.cuh``), one
+warp per query row otherwise; :func:`attention_interior` runs it alone and
+:func:`attention_route_counts` says which route the calls took.
+
 A CUDA tensor launches the kernel in ``csrc/fused_block.cu`` (bf16
 activations); a CPU tensor runs the plain version below, whose arithmetic
 (f32 accumulators, bias added in f32 before the bf16 cast, p cast before
@@ -552,6 +558,68 @@ def fused_mlp_block_q8(
     dispatch.check(status, "fused_mlp_block_q8")
     fused_mlp_block_q8.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The attention interior on its own (tests and yardsticks at shapes no layer has)
+# ---------------------------------------------------------------------------
+
+_INTERIOR_ARGS = [P] * 2 + [I] * 7 + [P]
+
+
+def attention_interior(
+    qkv: torch.Tensor,
+    *,
+    seq_len: int,
+    heads: int,
+    mask_len: Optional[int] = None,
+    causal: bool = True,
+    subtract_max: bool = True,
+) -> torch.Tensor:
+    """The attention interior of B3a, B1, B4a and S1 alone: ``qkv [N, 3W]``
+    (whole sequences of ``seq_len`` rows) to ``[N, W]``, as the layer kernels
+    run it (see :func:`_attention_interior` for what it computes).
+    ``subtract_max=False`` is S1's no-max interior. A CUDA tensor (bf16)
+    launches the kernel, on the wgmma route when the head dim is 64 and the
+    buffers are 16-byte aligned, else on the one-warp-per-row route."""
+    if qkv.ndim != 2 or qkv.shape[1] % 3:
+        raise ValueError(f"qkv must be [rows, 3 * width], got {tuple(qkv.shape)}")
+    width = qkv.shape[1] // 3
+    _check_layout(qkv[:, :width], width, seq_len, heads)
+    mask_len = seq_len if mask_len is None else mask_len
+    if not dispatch.use_kernel(qkv):
+        return _attention_interior(
+            qkv, seq_len=seq_len, mask_len=mask_len, heads=heads, causal=causal, out_dtype=qkv.dtype,
+            subtract_max=subtract_max,
+        )
+    dispatch.require(qkv, "qkv", torch.bfloat16, qkv.device)
+    out = torch.empty((qkv.shape[0], width), dtype=torch.bfloat16, device=qkv.device)
+    fn = dispatch.kernel("kemr_attention_interior", _INTERIOR_ARGS)
+    status = fn(
+        qkv.data_ptr(), out.data_ptr(), qkv.shape[0], width, heads, seq_len, mask_len, int(causal),
+        int(not subtract_max), dispatch.stream_of(qkv),
+    )
+    dispatch.check(status, "attention_interior")
+    return out
+
+
+def force_row_attention(on: bool) -> None:
+    """Send every attention interior of the layer kernels to the
+    one-warp-per-row route (``True``) or let shape and alignment choose
+    (``False``, the rule). For comparing the two routes on the card; the
+    library is built if it was not."""
+    fn = dispatch.library().kemr_attention_force_rows
+    fn.argtypes, fn.restype = [I], None
+    fn(int(bool(on)))
+
+
+def attention_route_counts() -> Tuple[int, int]:
+    """Attention interiors the layer kernels have launched so far on the
+    wgmma + TMA route and on the one-warp-per-row route (which a shape takes
+    when its head dim is not 64 or its buffers are not 16-byte aligned)."""
+    fn = dispatch.library().kemr_attention_route_count
+    fn.argtypes, fn.restype = [I], ctypes.c_longlong
+    return int(fn(0)), int(fn(1))
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,83 @@ def test_layer_q8_kernel(rng, dev, s, mask_len, nseq):
     _close(got, want, 2 * _BF16_ATOL)
 
 
+# -- the attention interior alone (wgmma + TMA route, and one warp per row) ------
+
+# |o| < 4 (a row that sees one or two keys is nearly a v row): p rounds to
+# bf16 at the same point in kernel and plain version, from f32 values that
+# differ in their last bits, so at most one bf16 step (2^-6 there)
+_INTERIOR_ATOL = 2.0 ** -6
+
+
+def _interior_route(fn):
+    """``fn()``'s result and the (wgmma, one-warp-per-row) launches it made."""
+    before = T.attention_route_counts()
+    out = fn()
+    return out, tuple(a - b for a, b in zip(T.attention_route_counts(), before))
+
+
+@pytest.mark.parametrize("subtract_max", [True, False], ids=["production", "no-max"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [1, 16, 17, 32, 43, 64, 65, 80, 272, 592])
+def test_attention_interior_wgmma_route(rng, dev, s, causal, subtract_max):
+    """Head dim 64: the interior on the tensor cores against the plain
+    version, several sequences a launch (a foreign sequence's rows as keys,
+    or a padding row stored, would show), every mask length class."""
+    for mask_len in sorted({1, max(1, s - 15), s}):
+        for nseq in (1, 5):
+            qkv = _t(rng.standard_normal((nseq * s, 3 * W)), dev, torch.bfloat16)
+            kw = dict(seq_len=s, heads=H, mask_len=mask_len, causal=causal, subtract_max=subtract_max)
+            got, route = _interior_route(lambda: T.attention_interior(qkv, **kw))
+            assert route == (1, 0), (route, s, mask_len, nseq)
+            want = T._attention_interior(qkv, seq_len=s, mask_len=mask_len, heads=H, causal=causal,
+                                         out_dtype=torch.bfloat16, subtract_max=subtract_max)
+            _close(got, want, _INTERIOR_ATOL)
+
+
+@pytest.mark.parametrize("subtract_max", [True, False], ids=["production", "no-max"])
+@pytest.mark.parametrize("hd", [50, 32])
+@pytest.mark.parametrize("s,mask_len,causal", [(16, 16, True), (43, 28, False), (80, 77, True), (272, 257, False)])
+def test_attention_interior_per_row_route(rng, dev, s, mask_len, causal, hd, subtract_max):
+    """Head dims other than 64 keep the one-warp-per-row kernel, by shape alone."""
+    qkv = _t(rng.standard_normal((3 * s, 3 * 2 * hd)), dev, torch.bfloat16)
+    kw = dict(seq_len=s, heads=2, mask_len=mask_len, causal=causal, subtract_max=subtract_max)
+    got, route = _interior_route(lambda: T.attention_interior(qkv, **kw))
+    assert route == (0, 1)
+    want = T._attention_interior(qkv, seq_len=s, mask_len=mask_len, heads=2, causal=causal,
+                                 out_dtype=torch.bfloat16, subtract_max=subtract_max)
+    _close(got, want, _INTERIOR_ATOL)
+
+
+@pytest.mark.parametrize("s,mask_len,causal", [(32, 27, True), (272, 257, False)])
+def test_attention_interior_routes_agree_and_repeat(rng, dev, s, mask_len, causal):
+    """The two routes compute one function (forced here; the rule is shape
+    and alignment), an unaligned ``qkv`` takes the per-row route by itself,
+    and a launch repeated gives the same bits (no atomics)."""
+    qkv = _t(rng.standard_normal((4 * s, 3 * W)), dev, torch.bfloat16)
+    kw = dict(seq_len=s, heads=H, mask_len=mask_len, causal=causal)
+    new = T.attention_interior(qkv, **kw)
+    assert torch.equal(new, T.attention_interior(qkv, **kw))
+    T.force_row_attention(True)
+    try:
+        old, route = _interior_route(lambda: T.attention_interior(qkv, **kw))
+    finally:
+        T.force_row_attention(False)
+    assert route == (0, 1)
+    _close(new, old, _INTERIOR_ATOL)
+    # the same rows at a base that is 2 bytes off a 16-byte boundary: TMA cannot take it
+    shifted = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device=dev)[1:].view_as(qkv).copy_(qkv)
+    got, route = _interior_route(lambda: T.attention_interior(shifted, **kw))
+    assert route == (0, 1)
+    assert torch.equal(got, old)
+
+
+def test_attention_interior_refuses_wrong_operands(rng, dev):
+    with pytest.raises(ValueError, match="dtype"):
+        T.attention_interior(torch.zeros(32, 3 * W, device=dev), seq_len=16, heads=H)
+    with pytest.raises(ValueError, match="whole sequences"):
+        T.attention_interior(torch.zeros(33, 3 * W, device=dev, dtype=torch.bfloat16), seq_len=16, heads=H)
+
+
 def _q8_layer(rng, dev):
     """The int8 layer plan of ``_attn`` + ``_mlp`` weights, keyed as
     ``make_vision_plan`` packs a layer."""
@@ -137,12 +214,14 @@ def test_block_q8_kernels_and_their_pair(rng, dev, s, mask_len, causal, nseq):
     x = _t(rng.standard_normal((nseq * s, W)), dev, torch.bfloat16)
     kw = dict(seq_len=s, heads=H, mask_len=mask_len, causal=causal)
     before = (T.fused_attention_block_q8.launches, T.fused_mlp_block_q8.launches)
-    y = T.fused_attention_block_q8(x, *a, **kw)
+    y, route = _interior_route(lambda: T.fused_attention_block_q8(x, *a, **kw))
+    assert route == (1, 0)  # head dim 64: the pair and the whole layer share the wgmma interior
     out = T.fused_mlp_block_q8(y, *m)
     assert (T.fused_attention_block_q8.launches, T.fused_mlp_block_q8.launches) == (before[0] + 1, before[1] + 1)
     _close(y, T.attention_block_q8_plain(x, *a, **kw, eps=1e-5), 2 * _BF16_ATOL)
     _close(out, T.mlp_block_q8_plain(y, *m, n_chunks=4, eps=1e-5), 2 * _BF16_ATOL)
-    whole = T.fused_layer_q8(x, *a, *m, **kw)
+    whole, route = _interior_route(lambda: T.fused_layer_q8(x, *a, *m, **kw))
+    assert route == (1, 0)
     torch.cuda.synchronize()
     assert torch.equal(out, whole)
 
@@ -155,11 +234,12 @@ def test_attn_q8_variant_kernel(rng, dev, interior, s, mask_len, nseq):
     x = _t(rng.standard_normal((nseq * s, W)) * 0.5, dev, torch.bfloat16)
     kw = dict(seq_len=s, heads=H, mask_len=mask_len, causal=False)
     before = PV.attn_q8_variant.launches
-    got = PV.attn_q8_variant(x, lp, interior=interior, **kw)
-    assert PV.attn_q8_variant.launches == before + 1
+    got, route = _interior_route(lambda: PV.attn_q8_variant(x, lp, interior=interior, **kw))
+    assert PV.attn_q8_variant.launches == before + 1 and route == (1, 0)
     _close(got, PV.attn_q8_variant_plain(x, lp, interior=interior, **kw), 2 * _BF16_ATOL)
     if interior == 0:
-        assert torch.equal(got, T.fused_attention_block_q8(x, *PV.attn_operands(lp), **kw))
+        b4a, route = _interior_route(lambda: T.fused_attention_block_q8(x, *PV.attn_operands(lp), **kw))
+        assert route == (1, 0) and torch.equal(got, b4a)
 
 
 @pytest.mark.parametrize("gelu,requant", [(True, True), (True, False), (False, False), (False, True)])
@@ -243,7 +323,7 @@ def test_layer_kernels_at_ragged_rows_and_widths(rng, dev, width, heads, ff, n_c
     a, m, lp = _q8_layer_at(rng, dev, width, ff)
     x = _t(rng.standard_normal((nseq * s, width)) * 0.5, dev, torch.bfloat16)
     kw = dict(seq_len=s, heads=heads, mask_len=s - 1, causal=False)
-    before = T.gemm_route_counts()
+    before, interiors_before = T.gemm_route_counts(), T.attention_route_counts()
     _close(T.fused_attention_block(x, **a, **kw), T.attention_block_plain(x, **a, **kw, eps=1e-5), _BF16_ATOL)
     _close(T.fused_mlp_block(x, **m), T.mlp_block_plain(x, **m, eps=1e-5), _BF16_ATOL)
     ao, mo = PV.attn_operands(lp), PV.mlp_operands(lp)
@@ -267,6 +347,9 @@ def test_layer_kernels_at_ragged_rows_and_widths(rng, dev, width, heads, ff, n_c
             assert torch.equal(got, out)  # S2 gelu + requant == B4b
     wg, wmma = (after - b for after, b in zip(T.gemm_route_counts(), before))
     assert (wg, wmma) == ((0, wmma) if width % 16 else (wg, 0)) and wg + wmma > 0, (wg, wmma)
+    # B3a, B1, B4a and S1 twice: five interiors, on the wgmma route at head dim 64
+    interiors = tuple(after - b for after, b in zip(T.attention_route_counts(), interiors_before))
+    assert interiors == ((5, 0) if width == 64 * heads else (0, 5)), interiors
 
 
 @pytest.mark.parametrize("width,heads,ff,n_chunks,s,nseq", _GEMM_SHAPES[:5])
