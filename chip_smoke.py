@@ -27,7 +27,12 @@
    precomputed rows appended.
 7. The compressed-corpus kernels against their plain versions: B2's int4
    mode and the PQ ADC scan B5 (M = 96, K = 256) at 43,000 and 1,000,000
-   rows (random packed bytes and codes at 1M), Q = 256, k = 20.
+   rows (random packed bytes and codes at 1M), Q = 256, k = 20; B5 also at
+   k = 128 and 400 at 43,000 rows. B5's library yardstick is the JAX
+   package's ADC formulation: per tower one bf16 product of the LUT
+   [Q, M * K] with the one-hot codes (built outside the timed call at
+   43,000 rows, in row chunks inside it at 1M), the scales, the blend and
+   ``topk``.
 8. Serves the compressed-corpus tiers over a clustered 43,000-row store
    (int4; pq; pq + OPQ; binary + rotation + rerank; int8 + truncate_dim 256
    + rerank; IVF over int8, int4 and pq lists from ``cli.index`` caches,
@@ -76,9 +81,13 @@ just after; every kernel must have launched in the path it belongs to.
    these shapes; which route each shape took (the full-width shapes the
    wgmma route, a width-100 layer the other); and S1 interior 0 == B4a,
    B4b(B4a(x)) == B1(x) bit for bit at the text, vision and 336 px shapes.
-13. B2 asked for k = 160 on the card, exact and q8 corpus: above the
-   kernel's k = 128 the wrapper selects from the materialized score matrix;
-   held to the plain top-k computed on the CPU.
+13. B2 (exact, q8, q4) and B5 asked for k = 160 and 400 on the card: the
+   kernels launch (running lists of up to 512 rows a pass), held to the
+   plain top-k computed on the CPU (B5 bit for bit); and k = 600 on a
+   smaller corpus, which runs as two passes: two launches. B2 q8 at k = 400
+   over 43,000 rows is timed beside the plain version and the library
+   sequence; the int8 + truncate_dim 256 + rerank tier serves once at the
+   retriever's default top_k = 100 (a fetch of 400 rows), through B2.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -608,6 +617,15 @@ def kernel_phases(torch, dev, results):
            lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), K),
            bound_of=topk_bound(QUERIES, CORPUS, WIDTH, K, WIDTH + 4),
            library_fn=_matmul_topk_q8(torch, qs, c8, alpha, K))
+    # the rerank tiers' default fetch (top_k 100 x rerank_factor 4), and a k that takes two passes
+    for k in (400, 600):
+        got = SIM.fused_similarity_topk_q8(qs, *c8, k, alpha=alpha)
+        want = topk_agree(got, SIM.blended_scores_q8(qs, *c8, alpha), k, TOL_TOPK)
+        record(torch, results, f"B2 similarity_topk q8 k={k}", src_sim, ref_sim, got[0], want[0], TOL_TOPK,
+               lambda: SIM.fused_similarity_topk_q8(qs, *c8, k, alpha=alpha),
+               lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), k),
+               bound_of=topk_bound(QUERIES, CORPUS, WIDTH, k, WIDTH + 4),
+               library_fn=_matmul_topk_q8(torch, qs, c8, alpha, k))
     topk_edge_cases(torch, dev, rng, ci, ct, c8)
     torch.cuda.synchronize()
 
@@ -822,38 +840,51 @@ def interior_phase(torch, dev, results):
 
 
 def topk_over_kernel_k_phase(torch, dev):
-    """B2 asked for more rows than the kernel's running lists hold (k = 160
-    against 128): the wrappers materialize the blended scores and select
-    from them with plain PyTorch, on the card, as the reference leaves its
-    kernel there too. Exact and q8 corpus, held to the plain top-k of the
-    scores computed on the CPU."""
+    """B2 (exact, q8, q4) and B5 asked for more rows than 128 (k = 160 and
+    400): the kernels launch, once a pass, and agree with the plain top-k of
+    the scores computed on the CPU (B5 bit for bit). k = 600 runs as two
+    passes of 300 on a 5,000-row corpus: two launches each."""
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
 
     rng = np.random.default_rng(15)
-    k, qn = 160, 32
-    assert k > SIM._MAX_KERNEL_K
+    qn = 32
     norm = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)  # noqa: E731
-    img, txt = norm(rng.standard_normal((CORPUS, WIDTH))), norm(rng.standard_normal((CORPUS, WIDTH)))
     qs = _t(torch, dev, norm(rng.standard_normal((qn, WIDTH))), torch.bfloat16)
     alpha = _t(torch, dev, rng.uniform(0.2, 0.8, qn), torch.float32)
-    ci, ct = _t(torch, dev, img, torch.bfloat16), _t(torch, dev, txt, torch.bfloat16)
-    before = dispatch.launch_counts()["similarity_topk_kernel"]
-    got = SIM.fused_similarity_topk(qs, ci, ct, k, alpha=alpha)
-    assert tuple(got[0].shape) == (qn, k) and got[0].is_cuda
-    topk_agree(got, SIM.blended_scores(qs.cpu(), ci.cpu(), ct.cpu(), alpha.cpu()), k, TOL_TOPK)
-    iq, is_ = SIM.quantize_corpus_host(img)
-    tq, ts = SIM.quantize_corpus_host(txt)
-    c8 = (_t(torch, dev, iq, torch.int8), _t(torch, dev, is_, torch.float32),
-          _t(torch, dev, tq, torch.int8), _t(torch, dev, ts, torch.float32))
-    got = SIM.fused_similarity_topk_q8(qs, *c8, k, alpha=alpha)
-    assert tuple(got[0].shape) == (qn, k) and got[0].is_cuda
-    topk_agree(got, SIM.blended_scores_q8(qs.cpu(), *(t.cpu() for t in c8), alpha.cpu()), k, TOL_TOPK)
-    assert dispatch.launch_counts()["similarity_topk_kernel"] == before, "k = 160 launched the k <= 128 kernel"
+    for n, ks in ((CORPUS, (160, 400)), (5000, (600,))):
+        img, txt = norm(rng.standard_normal((n, WIDTH))), norm(rng.standard_normal((n, WIDTH)))
+        ci, ct = _t(torch, dev, img, torch.bfloat16), _t(torch, dev, txt, torch.bfloat16)
+        corpora = {"exact": ((ci, ct), SIM.fused_similarity_topk, SIM.blended_scores)}
+        for mode, quant, fused, plain in (("q8", SIM.quantize_corpus_host, SIM.fused_similarity_topk_q8, SIM.blended_scores_q8),
+                                          ("q4", SIM.quantize_corpus_host_q4, SIM.fused_similarity_topk_q4, SIM.blended_scores_q4)):
+            (iq, is_), (tq, ts) = quant(img), quant(txt)
+            c = (_t(torch, dev, iq, torch.int8), _t(torch, dev, is_, torch.float32),
+                 _t(torch, dev, tq, torch.int8), _t(torch, dev, ts, torch.float32))
+            corpora[mode] = (c, fused, plain)
+        luts = [_t(torch, dev, 0.05 * rng.standard_normal((PQ_M, qn, PQ_K)), torch.bfloat16) for _ in range(2)]
+        codes = [torch.tensor(rng.integers(0, PQ_K, (n, PQ_M)), dtype=torch.uint8, device=dev) for _ in range(2)]
+        scales = [_t(torch, dev, rng.uniform(0.5, 1.5, (n, 1)), torch.float32) for _ in range(2)]
+        pq_args = (alpha.reshape(-1, 1), luts[0], luts[1], codes[0], scales[0], codes[1], scales[1])
+        for k in ks:
+            passes = SIM.pass_sizes(k)[0]
+            for mode, (c, fused, plain) in corpora.items():
+                before = dispatch.launch_counts()["similarity_topk_kernel"]
+                got = fused(qs, *c, k, alpha=alpha)
+                assert dispatch.launch_counts()["similarity_topk_kernel"] == before + passes, f"B2 {mode} at k = {k}"
+                assert tuple(got[0].shape) == (qn, k) and got[0].device == qs.device
+                topk_agree(got, plain(qs.cpu(), *(t.cpu() for t in c), alpha.cpu()), k, TOL_TOPK)
+            before = dispatch.launch_counts()["pq_adc_topk_kernel"]
+            got = PQ.pq_adc_topk(*pq_args, k)
+            assert dispatch.launch_counts()["pq_adc_topk_kernel"] == before + passes, f"B5 at k = {k}"
+            want = SIM.topk_plain(PQ.blended_adc_from_luts(*(t.cpu() for t in pq_args)), k)
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), f"B5 at k = {k}"
+            log(f"k = {k} over {n} rows, Q = {qn}: B2 exact / q8 / q4 and B5 launched {passes} time(s) each "
+                f"(passes of {SIM.pass_sizes(k)[1]}); == plain top-k on the CPU (B5 bit for bit)")
+        del corpora, luts, codes, scales, pq_args
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"B2 at k = {k} (> {SIM._MAX_KERNEL_K}: scores materialized and selected on the card, no kernel launch), "
-        f"Q = {qn}, exact and q8: == plain top-k on the CPU")
 
 
 GEMM_EDGES = [(128, 128, 128), (1, 8, 16), (300, 200, 208), (130, 72, 48), (1000, 384, 384), (777, 512, 512),
@@ -1289,6 +1320,38 @@ def image_query_phase(torch, dev, model, store_path, docs, results):
     return counts
 
 
+def _onehot_adc_topk(torch, args, k, chunk=None):
+    """The library yardstick for B5: the JAX package's ADC formulation
+    (``blended_scores_pq_adc``), per tower one bf16 product of the LUT
+    ``[Q, M * K]`` with the one-hot codes ``[M * K, N]``, then the per-row
+    scales, the blend and ``topk``. With ``chunk`` None the one-hots are
+    built here, outside the timed call; otherwise the call builds them
+    ``chunk`` rows at a time. The port never calls it."""
+    alpha, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t = args
+    m, qn, n_k = lut_i.shape
+    luts = [lut.permute(1, 0, 2).reshape(qn, m * n_k) for lut in (lut_i, lut_t)]
+    offs = (torch.arange(m, device=lut_i.device) * n_k)[None, :]
+
+    def onehot(codes):
+        oh = torch.zeros((codes.shape[0], m * n_k), dtype=torch.bfloat16, device=codes.device)
+        return oh.scatter_(1, codes.long() + offs, 1.0)
+
+    def tower(lut, codes, scale, oh=None):
+        if oh is not None:
+            return (lut @ oh.T).float() * scale.reshape(1, -1)
+        return torch.cat([(lut @ onehot(codes[lo:lo + chunk]).T).float() for lo in range(0, codes.shape[0], chunk)],
+                         dim=1) * scale.reshape(1, -1)
+
+    ohs = [onehot(codes_i), onehot(codes_t)] if chunk is None else [None, None]
+
+    def run():
+        t2i = tower(luts[0], codes_i, scale_i, ohs[0])
+        t2t = tower(luts[1], codes_t, scale_t, ohs[1])
+        return torch.topk(alpha * t2i + (1.0 - alpha) * t2t, k, dim=1)
+
+    return run
+
+
 def capacity_kernel_phases(torch, dev, results):
     """B2-q4 and B5 against their plain versions at the served corpus size
     and at the scale ladder's 1M rows (random packed bytes and codes)."""
@@ -1330,12 +1393,17 @@ def capacity_kernel_phases(torch, dev, results):
         for sc in scales:
             sc[-100:] = 0.0  # capacity-pad rows score exactly 0
         args = (alpha, luts[0], luts[1], codes[0], scales[0], codes[1], scales[1])
-        got = PQ.pq_adc_topk(*args, K)
-        want = topk_agree(got, PQ.blended_adc_from_luts(*args), K, TOL_TOPK)
-        record(torch, results, f"B5 pq_adc_topk [{n}]", src_pq, ref_pq, got[0], want[0], TOL_TOPK,
-               lambda: PQ.pq_adc_topk(*args, K),
-               lambda: SIM.topk_plain(PQ.blended_adc_from_luts(*args), K), plain_iters,
-               bound_of=pq_bound(QUERIES, n, PQ_M, PQ_K, K))
+        for k in (K, 128, 400) if n == CORPUS else (K,):
+            got = PQ.pq_adc_topk(*args, k)
+            want = topk_agree(got, PQ.blended_adc_from_luts(*args), k, TOL_TOPK)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"B5 at {n} rows, k = {k}: not bit-equal"
+            library = _onehot_adc_topk(torch, args, k, chunk=None if n == CORPUS else 65536)
+            record(torch, results, f"B5 pq_adc_topk [{n}]" + ("" if k == K else f" k={k}"), src_pq, ref_pq, got[0],
+                   want[0], 0.0, lambda: PQ.pq_adc_topk(*args, k),
+                   lambda: SIM.topk_plain(PQ.blended_adc_from_luts(*args), k), plain_iters,
+                   bound_of=pq_bound(QUERIES, n, PQ_M, PQ_K, k), library_fn=library)
+            del library
+            torch.cuda.empty_cache()
         del args, luts, codes, scales
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1459,6 +1527,53 @@ def capacity_serve_phase(torch, dev, model, store_path, tier, kw, results):
     return counts
 
 
+def rerank_default_topk_phase(torch, dev, model, store_path):
+    """The int8 + truncate_dim 256 + rerank tier at the retriever's default
+    top_k = 100: the rerank over-fetches 4x, so B2 selects 400 rows (and the
+    capacity pad) a query. One 256-query batch after a warm-up; the fetch
+    against the plain top-k on the same query embeddings. Returns the
+    batch's launches."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine
+
+    retriever = CLIPRetrieval(model, CLIPTokenizer(MERGES), EmbeddingStore.load(store_path), device=dev,
+                              use_fused_encoder=True, quantize_corpus="int8", truncate_dim=256, rerank=True)
+    engine = RetrievalEngine(retriever)
+    rng = np.random.default_rng(9)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    batches = [[" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)] for _ in range(2)]
+    engine.retrieve_text_noknowledge_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.retrieve_text_noknowledge_batch(batches[1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dispatch.launch_counts()
+    top_k = retriever.top_k
+    for r in out:
+        scores = [x["score"] for x in r]
+        assert len(r) == top_k and all(np.isfinite(scores)) and scores == sorted(scores, reverse=True)
+    assert counts["similarity_topk_kernel"] > 0, "the rerank tier at top_k = 100 never launched B2"
+    c = retriever._corpus
+    q = retriever.encode_queries(batches[1]).float()
+    fetch = retriever._k_fetch(c, top_k)
+    assert fetch > 128, fetch
+    got = retriever._score(c, q, 0.5, fetch)
+    qm = SIM.prefix_normalize(q, retriever.truncate_dim).to(model.dtype)
+    topk_agree(got, SIM.blended_scores_q8(qm, c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, 0.5),
+               fetch, TOL_TOPK)
+    log(f"serve int8+truncate256+rerank at the default top_k = {top_k} (fetch {fetch}): 256-query batch {ms:.2f} ms; "
+        f"launches {counts}; fetched top-k == plain top-k")
+    del engine, retriever
+    torch.cuda.empty_cache()
+    return counts
+
+
 def capacity_phases(torch, dev, model, tmp, results):
     """The compressed-corpus tiers over a clustered 43,000-row store; the
     IVF tiers serve caches written by ``cli.index``."""
@@ -1491,6 +1606,7 @@ def capacity_phases(torch, dev, model, tmp, results):
         counts[tier] = capacity_serve_phase(torch, dev, model, path, tier, kw, results)
         if kw.get("ann"):
             assert os.stat(out).st_mtime_ns == stamp, f"{tier} rebuilt its index instead of loading cli.index's"
+    counts["rerank top_k=100"] = rerank_default_topk_phase(torch, dev, model, path)
     assert counts["int4"]["similarity_topk_kernel"] > 0, "B2-q4 never launched while serving int4"
     for tier in ("pq", "pq+opq"):
         assert counts[tier]["pq_adc_topk_kernel"] > 0, f"B5 never launched while serving {tier}"
@@ -1588,6 +1704,9 @@ def main() -> int:
         f"B2-q4 similarity_topk q4 [{SCALE_ROWS}]": cap["int4"]["similarity_topk_kernel"],
         f"B5 pq_adc_topk [{CORPUS}]": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
         f"B5 pq_adc_topk [{SCALE_ROWS}]": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
+        f"B5 pq_adc_topk [{CORPUS}] k=128": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
+        f"B5 pq_adc_topk [{CORPUS}] k=400": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
+        "B2 similarity_topk q8 k=400": cap["rerank top_k=100"]["similarity_topk_kernel"],
         # the profiler's run (its shape is the vision one) plus the over-the-cap route
         f"B4a fused_attention_block_q8{vis}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],
         f"B4a fused_attention_block_q8{v336}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],

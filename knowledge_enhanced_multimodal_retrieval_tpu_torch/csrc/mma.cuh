@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy primitives for sm_90a, as inline PTX:
 // cp.async (16-byte global -> shared copies with zero fill), TMA (tensor-map
-// box copies completed on an mbarrier), ldmatrix,
+// box copies and 1-d bulk copies completed on an mbarrier), ldmatrix,
 // mma.sync m16n8k16 (bf16 in, f32 accumulators) and wgmma: m64nNk16 with the
 // A operand in registers and B read from shared memory through a
 // 128-byte-swizzle descriptor (attention.cu, B6/B7; similarity.cu, B2), and
@@ -131,6 +131,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm, in
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
           "r"(smem_u32(dst)),
       "l"(tm), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One contiguous run of `bytes` (a multiple of 16; dst and src 16-byte
+// aligned), global -> shared, its bytes counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -60,9 +60,11 @@
 //   goes to shared memory, and each warp folds the scores of its queries,
 //   two queries at a time, into their sorted running lists (fold_tile,
 //   topk.cuh). The [Q, N] score matrix never reaches device memory.
-// - At the end of the strip the block writes its lists to [Q, strips, k];
-//   topk_merge_kernel picks the final k of strips * k candidates per query
-//   (a few hundred to a few thousand instead of ceil(N / 128) * k).
+// - At the end of the strip the block writes its lists to [Q, strips, k]
+//   (above k = 128 they live there from the start); kemr_topk_merge picks
+//   the final k of strips * k candidates per query (a few hundred to a few
+//   thousand instead of ceil(N / 128) * k). k up to 512 runs in one pass,
+//   a larger k in passes under a ceiling (topk.cuh).
 //
 // f32 queries (topk_scan_f32_kernel) keep f32 scoring on the CUDA cores
 // (TF32 would lose the 1e-5 agreement; f32 queries against int8 / int4 rows
@@ -76,26 +78,6 @@
 
 constexpr int TK_T = 128;  // corpus rows per tile (both routes)
 constexpr int TK_THREADS = 256;
-
-// Running lists start as fillers; a strip's lists go out as [k] per query.
-__device__ __forceinline__ void lists_init(float* lv, int* lr, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    lv[e] = -FLT_MAX;
-    lr[e] = TOPK_NO_ROW;
-  }
-}
-
-__device__ __forceinline__ void lists_store(const float* lv, const int* lr, int n_queries, int q0, int Q,
-                                            int k, int strip, int n_strips, float* __restrict__ cand_v,
-                                            int* __restrict__ cand_i) {
-  for (int e = threadIdx.x; e < n_queries * k; e += blockDim.x) {
-    const int q = q0 + e / k;
-    if (q >= Q) continue;
-    const size_t o = ((size_t)q * n_strips + strip) * k + e % k;
-    cand_v[o] = lv[e];
-    cand_i[o] = lr[e];
-  }
-}
 
 // ---- bf16 queries: tensor cores ------------------------------------------------
 
@@ -117,9 +99,12 @@ struct ScanCfg {
   static constexpr int STAGE = KSUB * SUB;
 };
 
+// Bytes of running lists a block keeps in shared memory (none above TOPK_SMEM_K).
+static size_t smem_list_bytes(int nq, int k) { return k <= TOPK_SMEM_K ? (size_t)nq * k * 8 : 0; }
+
 static size_t scan_fixed_bytes(int nq, int k) {
   // alpha, score tile, lists; the kernel's static arrays (survivors' rows, barriers)
-  return (size_t)nq * 4 + (size_t)nq * SC_LD * 4 + (size_t)nq * k * 8 + TK_THREADS / 16 * TK_T + 64;
+  return (size_t)nq * 4 + (size_t)nq * SC_LD * 4 + smem_list_bytes(nq, k) + TK_THREADS / 16 * TK_T + 64;
 }
 
 // Two int8 values (the low two bytes of `two`) or two 4-bit values (nibbles
@@ -197,14 +182,16 @@ __device__ __forceinline__ void scan_mma_half(float (&acc)[NQ / 2], const uint32
   wgmma_commit();
 }
 
-template <int CM, int NQ>
+// WIDE: k > TOPK_SMEM_K (lists in device memory, the wide fold, a ceiling).
+template <int CM, int NQ, bool WIDE>
 __global__ void __launch_bounds__(TK_THREADS, 1)
 topk_scan_tc_kernel(const bf16* __restrict__ q_img, const bf16* __restrict__ q_txt,
                     const unsigned char* __restrict__ img, const unsigned char* __restrict__ txt,
                     const __grid_constant__ CUtensorMap tm_qi, const __grid_constant__ CUtensorMap tm_qt,
                     const __grid_constant__ CUtensorMap tm_ci, const __grid_constant__ CUtensorMap tm_ct,
                     const float* __restrict__ img_s, const float* __restrict__ txt_s,
-                    const float* __restrict__ alpha, int Q, int N, int D, int k, int n_tiles, int stages,
+                    const float* __restrict__ alpha, const float* __restrict__ ceil_v,
+                    const int* __restrict__ ceil_r, int Q, int N, int D, int k, int n_tiles, int stages,
                     int aligned, float* __restrict__ cand_v, int* __restrict__ cand_i) {
   using Cfg = ScanCfg<CM, NQ>;
   extern __shared__ unsigned char sc_raw[];
@@ -213,14 +200,13 @@ topk_scan_tc_kernel(const bf16* __restrict__ q_img, const bf16* __restrict__ q_t
   unsigned char* sm = sc_raw + ((1024 - (smem_u32(sc_raw) & 1023)) & 1023);  // swizzled tiles: 1024-byte aligned
   float* alpha_s = reinterpret_cast<float*>(sm + (size_t)stages * Cfg::STAGE);
   float* sc = alpha_s + NQ;                              // [NQ][SC_LD] the tile's blended scores
-  float* lv = sc + NQ * SC_LD;                           // [NQ][k] the running lists
-  int* lr = reinterpret_cast<int*>(lv + NQ * k);
 
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int strip = blockIdx.x, n_strips = gridDim.x, q0 = blockIdx.y * NQ;
   const int t_begin = (int)((long long)strip * n_tiles / n_strips);
   const int t_end = (int)((long long)(strip + 1) * n_tiles / n_strips);
+  const Lists L = block_lists<!WIDE>(sc + NQ * SC_LD, NQ, k, q0, strip, n_strips, cand_v, cand_i);
   const int row_bytes = CM == 1 ? D * 2 : (CM == 2 ? D : D / 2);
   const int kdim = CM == 3 ? D / 2 : D;  // contraction length of one product
   constexpr int STAGE_K = SC_KC * Cfg::KSUB;  // contraction elements per stage and plane
@@ -228,7 +214,7 @@ topk_scan_tc_kernel(const bf16* __restrict__ q_img, const bf16* __restrict__ q_t
   const int total = (t_end - t_begin) * 2 * n_k;
 
   for (int e = tid; e < NQ; e += TK_THREADS) alpha_s[e] = q0 + e < Q ? alpha[q0 + e] : 0.f;
-  lists_init(lv, lr, NQ * k);
+  lists_init(L.v, L.r, NQ, L.lds, k);
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&full_bar[s], 1);
     mbar_fence_init();
@@ -338,14 +324,14 @@ topk_scan_tc_kernel(const bf16* __restrict__ q_img, const bf16* __restrict__ q_t
           const float al = alpha_s[qi];
           if (CM != 1) s = al * (acc_img[4 * j + e] * si[e >> 1]) + (1.0f - al) * (acc[4 * j + e] * sx[e >> 1]);
           else s = al * acc_img[4 * j + e] + (1.0f - al) * acc[4 * j + e];
-          if (isnan(s)) s = -FLT_MAX;
+          if (isnan(s) || (WIDE && excluded(s, n0 + r, ceil_v, ceil_r, q0 + qi))) s = -FLT_MAX;
         }
         sc[qi * SC_LD + r] = s;
       }
     }
     __syncthreads();
     // the next epilogue's stores come after the barriers of the chunks in between
-    fold_block<TK_T>(sc, SC_LD, NQ, &fold_rows[0][0], n0, lv, lr, k);
+    fold_block<TK_T, WIDE>(sc, SC_LD, NQ, &fold_rows[0][0], n0, L.v, L.r, L.lds, k);
   };
 
   for (int it = 0; it < total; ++it) {
@@ -381,7 +367,7 @@ topk_scan_tc_kernel(const bf16* __restrict__ q_img, const bf16* __restrict__ q_t
   }
   finish();
   __syncthreads();
-  lists_store(lv, lr, NQ, q0, Q, k, strip, n_strips, cand_v, cand_i);
+  if (L.smem) lists_store(L.v, L.r, NQ, q0, Q, k, strip, n_strips, cand_v, cand_i);
 }
 
 // ---- f32 queries: CUDA cores ---------------------------------------------------
@@ -389,26 +375,25 @@ topk_scan_tc_kernel(const bf16* __restrict__ q_img, const bf16* __restrict__ q_t
 constexpr int TK_QG = 16;  // queries per block
 
 // Q4 = true: TC is int8_t and each corpus row holds D / 2 packed bytes.
-template <typename TC, bool Q4>
+template <typename TC, bool Q4, bool WIDE>
 __global__ void __launch_bounds__(TK_THREADS)
 topk_scan_f32_kernel(const float* __restrict__ q_img, const float* __restrict__ q_txt,
                      const TC* __restrict__ img, const TC* __restrict__ txt,
                      const float* __restrict__ img_s, const float* __restrict__ txt_s,
-                     const float* __restrict__ alpha, int Q, int N, int D, int k, int n_tiles,
+                     const float* __restrict__ alpha, const float* __restrict__ ceil_v,
+                     const int* __restrict__ ceil_r, int Q, int N, int D, int k, int n_tiles,
                      float* __restrict__ cand_v, int* __restrict__ cand_i) {
-  extern __shared__ __align__(16) float qs[];  // [TK_QG][D], then the lists [TK_QG][k] x 2
+  extern __shared__ __align__(16) float qs[];  // [TK_QG][D], then the lists [TK_QG][k] x 2 (k <= TOPK_SMEM_K)
   __shared__ float t2i[TK_QG][TK_T];
   __shared__ float sc[TK_QG][TK_T];
   __shared__ unsigned char fold_rows[TK_THREADS / 16][TK_T];  // a warp's packed survivors' row offsets
-  float* lv = qs + TK_QG * D;
-  int* lr = reinterpret_cast<int*>(lv + TK_QG * k);
-
   const int strip = blockIdx.x, n_strips = gridDim.x, q0 = blockIdx.y * TK_QG;
+  const Lists L = block_lists<!WIDE>(qs + TK_QG * D, TK_QG, k, q0, strip, n_strips, cand_v, cand_i);
   const int t_begin = (int)((long long)strip * n_tiles / n_strips);
   const int t_end = (int)((long long)(strip + 1) * n_tiles / n_strips);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int dc = Q4 ? D / 2 : D;  // stored elements per corpus row
-  lists_init(lv, lr, TK_QG * k);
+  lists_init(L.v, L.r, TK_QG, L.lds, k);
 
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int n0 = tile * TK_T;
@@ -466,21 +451,22 @@ topk_scan_f32_kernel(const float* __restrict__ q_img, const float* __restrict__ 
         const float a = alpha[q];
         if (img_s != nullptr) s = a * (t2i[g][r] * img_s[n]) + (1.0f - a) * (sc[g][r] * txt_s[n]);
         else s = a * t2i[g][r] + (1.0f - a) * sc[g][r];
-        if (isnan(s)) s = -FLT_MAX;
+        if (isnan(s) || (WIDE && excluded(s, n, ceil_v, ceil_r, q))) s = -FLT_MAX;
       }
       sc[g][r] = s;
     }
     __syncthreads();
-    fold_block<TK_T>(&sc[0][0], TK_T, TK_QG, &fold_rows[0][0], n0, lv, lr, k);
+    fold_block<TK_T, WIDE>(&sc[0][0], TK_T, TK_QG, &fold_rows[0][0], n0, L.v, L.r, L.lds, k);
   }
   __syncthreads();
-  lists_store(lv, lr, TK_QG, q0, Q, k, strip, n_strips, cand_v, cand_i);
+  if (L.smem) lists_store(L.v, L.r, TK_QG, q0, Q, k, strip, n_strips, cand_v, cand_i);
 }
 
 // ---- merge ---------------------------------------------------------------------
 
-// One block per query: the final k of M candidates, k rounds of a block
-// arg-max. Taken candidates are overwritten with -inf in the scratch buffer.
+// k <= TOPK_SMEM_K, one block per query: the final k of M = n_lists * k
+// candidates, k rounds of a block arg-max. Taken candidates are overwritten
+// with -inf in the scratch buffer.
 __global__ void __launch_bounds__(TK_THREADS)
 topk_merge_kernel(float* __restrict__ cand_v, const int* __restrict__ cand_i, int M, int k,
                   float* __restrict__ out_v, int* __restrict__ out_i) {
@@ -534,26 +520,102 @@ topk_merge_kernel(float* __restrict__ cand_v, const int* __restrict__ cand_i, in
   }
 }
 
-int kemr_topk_merge(float* cand_v, const int* cand_i, int Q, int M, int k, float* out_v,
-                    int* out_i, cudaStream_t st) {
-  topk_merge_kernel<<<Q, TK_THREADS, 0, st>>>(cand_v, cand_i, M, k, out_v, out_i);
-  KEMR_CHECK_LAUNCH();
+// k > TOPK_SMEM_K: one merge of two sorted lists of k into the k best of
+// both, one block per (pair, query). Lists 2p and 2p + 1 of query q's n_lists
+// (the last one alone when n_lists is odd) are staged in shared memory; an
+// entry's place is its index plus the entries of the other list that rank
+// above it (a binary search), ties broken the same way from both sides (list
+// A's entry first), so fillers (float32 min, TOPK_NO_ROW) that repeat get
+// distinct places too. The last merge (one list left) writes out_v / out_i
+// with fillers as row 0.
+__global__ void __launch_bounds__(TK_THREADS)
+topk_merge_pairs_kernel(const float* __restrict__ in_v, const int* __restrict__ in_i, int n_lists, int k,
+                        float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char mp_raw[];
+  float* av = reinterpret_cast<float*>(mp_raw);
+  int* ai = reinterpret_cast<int*>(av + k);
+  float* bv = reinterpret_cast<float*>(ai + k);
+  int* bi = reinterpret_cast<int*>(bv + k);
+  const int p = blockIdx.x, q = blockIdx.y, n_out = (n_lists + 1) / 2;
+  const bool has_b = 2 * p + 1 < n_lists, last = n_out == 1;
+  const size_t base = ((size_t)q * n_lists + 2 * p) * k;
+  for (int e = threadIdx.x; e < k; e += blockDim.x) {
+    av[e] = in_v[base + e];
+    ai[e] = in_i[base + e];
+    if (has_b) {
+      bv[e] = in_v[base + k + e];
+      bi[e] = in_i[base + k + e];
+    }
+  }
+  __syncthreads();
+  const size_t o = ((size_t)q * n_out + p) * k;
+  for (int e = threadIdx.x; e < (has_b ? 2 * k : k); e += blockDim.x) {
+    const bool in_a = e < k;
+    const int i = in_a ? e : e - k;
+    const float v = in_a ? av[i] : bv[i];
+    const int r = in_a ? ai[i] : bi[i];
+    int pos = i;
+    if (has_b) {
+      // entries of the other list placed before this one: for A's, those of B that rank
+      // strictly above it; for B's, those of A that rank at or above it
+      const float* ov = in_a ? bv : av;
+      const int* oi = in_a ? bi : ai;
+      int lo = 0, hi = k;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const bool before = in_a ? better(ov[mid], oi[mid], v, r) : !better(v, r, ov[mid], oi[mid]);
+        if (before) lo = mid + 1;
+        else hi = mid;
+      }
+      pos += lo;
+    }
+    if (pos >= k) continue;
+    out_v[o + pos] = v;
+    out_i[o + pos] = last ? (v > -FLT_MAX ? r : 0) : r;
+  }
+}
+
+int kemr_topk_merge(float* cand_v, int* cand_i, int Q, int n_lists, int k, float* scratch_v, int* scratch_i,
+                    float* out_v, int* out_i, cudaStream_t st) {
+  if (k <= TOPK_SMEM_K) {
+    topk_merge_kernel<<<Q, TK_THREADS, 0, st>>>(cand_v, cand_i, n_lists * k, k, out_v, out_i);
+    KEMR_CHECK_LAUNCH();
+    return 0;
+  }
+  float* src_v = cand_v;
+  int* src_i = cand_i;
+  float* dst_v = scratch_v;
+  int* dst_i = scratch_i;
+  do {
+    const int n_out = (n_lists + 1) / 2;
+    topk_merge_pairs_kernel<<<dim3(n_out, Q), TK_THREADS, (size_t)k * 16, st>>>(
+        src_v, src_i, n_lists, k, n_out == 1 ? out_v : dst_v, n_out == 1 ? out_i : dst_i);
+    KEMR_CHECK_LAUNCH();
+    n_lists = n_out;
+    float* tv = src_v;
+    int* ti = src_i;
+    src_v = dst_v;
+    src_i = dst_i;
+    dst_v = tv;
+    dst_i = ti;
+  } while (n_lists > 1);
   return 0;
 }
 
 extern "C" int kemr_topk_query_block(int q_dtype, int Q, int k);
 
-template <int CM, int NQ>
+template <int CM, int NQ, bool WIDE>
 static int scan_tc_launch(const void* q_img, const void* q_txt, const void* img, const void* txt,
-                          const float* img_s, const float* txt_s, const float* alpha, int Q, int N, int D,
-                          int k, int n_strips, float* cand_v, int* cand_i, cudaStream_t st) {
+                          const float* img_s, const float* txt_s, const float* alpha, const float* ceil_v,
+                          const int* ceil_r, int Q, int N, int D, int k, int n_strips, float* cand_v, int* cand_i,
+                          cudaStream_t st) {
   using Cfg = ScanCfg<CM, NQ>;
   const size_t fixed = scan_fixed_bytes(NQ, k) + 1024;  // + the alignment slack
   const size_t fit = (227 * 1024 - fixed) / Cfg::STAGE;
   const int stages = fit < 4 ? (int)fit : 4;
   if (stages < 2) return (int)cudaErrorInvalidValue;
   const size_t smem = fixed + (size_t)stages * Cfg::STAGE - (TK_THREADS / 16 * TK_T + 64);  // less the static arrays
-  cudaError_t e = cudaFuncSetAttribute(topk_scan_tc_kernel<CM, NQ>,
+  cudaError_t e = cudaFuncSetAttribute(topk_scan_tc_kernel<CM, NQ, WIDE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int row_elems = CM == 3 ? D / 2 : D, row_bytes = CM == 1 ? D * 2 : row_elems;
@@ -577,34 +639,53 @@ static int scan_tc_launch(const void* q_img, const void* q_txt, const void* img,
   }
   const int n_tiles = (N + TK_T - 1) / TK_T;
   dim3 grid(n_strips, (Q + NQ - 1) / NQ);
-  topk_scan_tc_kernel<CM, NQ><<<grid, TK_THREADS, smem, st>>>(
+  topk_scan_tc_kernel<CM, NQ, WIDE><<<grid, TK_THREADS, smem, st>>>(
       (const bf16*)q_img, (const bf16*)q_txt, (const unsigned char*)img, (const unsigned char*)txt, tqi, tqt, tci,
-      tct, img_s, txt_s, alpha, Q, N, D, k, n_tiles, stages, aligned, cand_v, cand_i);
+      tct, img_s, txt_s, alpha, ceil_v, ceil_r, Q, N, D, k, n_tiles, stages, aligned, cand_v, cand_i);
   return (int)cudaGetLastError();
 }
 
 template <int CM>
 static int scan_tc(const void* q_img, const void* q_txt, const void* img, const void* txt,
-                   const float* img_s, const float* txt_s, const float* alpha, int Q, int N, int D, int k,
-                   int n_strips, float* cand_v, int* cand_i, cudaStream_t st) {
+                   const float* img_s, const float* txt_s, const float* alpha, const float* ceil_v, const int* ceil_r,
+                   int Q, int N, int D, int k, int n_strips, float* cand_v, int* cand_i, cudaStream_t st) {
+  // k > 24 takes 64 queries a block (kemr_topk_query_block), so the wide kernels are all NQ = 64
+  if (k > TOPK_SMEM_K)
+    return scan_tc_launch<CM, 64, true>(q_img, q_txt, img, txt, img_s, txt_s, alpha, ceil_v, ceil_r, Q, N, D, k,
+                                        n_strips, cand_v, cand_i, st);
   if (kemr_topk_query_block(1, Q, k) == 128)
-    return scan_tc_launch<CM, 128>(q_img, q_txt, img, txt, img_s, txt_s, alpha, Q, N, D, k, n_strips, cand_v, cand_i, st);
-  return scan_tc_launch<CM, 64>(q_img, q_txt, img, txt, img_s, txt_s, alpha, Q, N, D, k, n_strips, cand_v, cand_i, st);
+    return scan_tc_launch<CM, 128, false>(q_img, q_txt, img, txt, img_s, txt_s, alpha, ceil_v, ceil_r, Q, N, D, k,
+                                          n_strips, cand_v, cand_i, st);
+  return scan_tc_launch<CM, 64, false>(q_img, q_txt, img, txt, img_s, txt_s, alpha, ceil_v, ceil_r, Q, N, D, k,
+                                       n_strips, cand_v, cand_i, st);
+}
+
+template <typename TC, bool Q4, bool WIDE>
+static int scan_f32_launch(const void* q_img, const void* q_txt, const void* img, const void* txt,
+                    const float* img_s, const float* txt_s, const float* alpha, const float* ceil_v,
+                    const int* ceil_r, int Q, int N, int D, int k, int n_strips, float* cand_v, int* cand_i,
+                    cudaStream_t st) {
+  const size_t smem = (size_t)TK_QG * D * sizeof(float) + smem_list_bytes(TK_QG, k);
+  cudaError_t e = cudaFuncSetAttribute(topk_scan_f32_kernel<TC, Q4, WIDE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(n_strips, (Q + TK_QG - 1) / TK_QG);
+  topk_scan_f32_kernel<TC, Q4, WIDE><<<grid, TK_THREADS, smem, st>>>(
+      (const float*)q_img, (const float*)q_txt, (const TC*)img, (const TC*)txt, img_s, txt_s, alpha, ceil_v, ceil_r,
+      Q, N, D, k, (N + TK_T - 1) / TK_T, cand_v, cand_i);
+  return (int)cudaGetLastError();
 }
 
 template <typename TC, bool Q4>
 static int scan_f32(const void* q_img, const void* q_txt, const void* img, const void* txt,
-                    const float* img_s, const float* txt_s, const float* alpha, int Q, int N, int D, int k,
-                    int n_strips, float* cand_v, int* cand_i, cudaStream_t st) {
-  const size_t smem = ((size_t)TK_QG * D + 2 * (size_t)TK_QG * k) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(topk_scan_f32_kernel<TC, Q4>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(n_strips, (Q + TK_QG - 1) / TK_QG);
-  topk_scan_f32_kernel<TC, Q4><<<grid, TK_THREADS, smem, st>>>(
-      (const float*)q_img, (const float*)q_txt, (const TC*)img, (const TC*)txt, img_s, txt_s, alpha, Q, N,
-      D, k, (N + TK_T - 1) / TK_T, cand_v, cand_i);
-  return (int)cudaGetLastError();
+                    const float* img_s, const float* txt_s, const float* alpha, const float* ceil_v,
+                    const int* ceil_r, int Q, int N, int D, int k, int n_strips, float* cand_v, int* cand_i,
+                    cudaStream_t st) {
+  if (k > TOPK_SMEM_K)
+    return scan_f32_launch<TC, Q4, true>(q_img, q_txt, img, txt, img_s, txt_s, alpha, ceil_v, ceil_r, Q, N, D, k,
+                                         n_strips, cand_v, cand_i, st);
+  return scan_f32_launch<TC, Q4, false>(q_img, q_txt, img, txt, img_s, txt_s, alpha, ceil_v, ceil_r, Q, N, D, k,
+                                        n_strips, cand_v, cand_i, st);
 }
 
 extern "C" {
@@ -612,7 +693,7 @@ extern "C" {
 // Queries one block takes: 16 on the f32 route (q_dtype 0); on the bf16 route
 // 128, or 64 when that covers all queries or the lists of k > 24 would not
 // leave room for two stages of the ring beside the 128-wide score tile. The
-// wrapper sizes the grid's strips with it.
+// wrapper sizes the grid's strips and the candidate buffer with it.
 int kemr_topk_query_block(int q_dtype, int Q, int k) {
   if (q_dtype == 0) return TK_QG;
   return (Q > 64 && k <= 24) ? 128 : 64;
@@ -621,33 +702,39 @@ int kemr_topk_query_block(int q_dtype, int Q, int k) {
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = int4 nibble-packed
 // int8 [N, D / 2] (corpus only; 2 and 3 take f32 per-row scales). D is
 // the query width. The corpus is cut into n_strips (1 .. ceil(N / 128))
-// strips of 128-row tiles. Scratch: cand_v f32 / cand_i i32 of [Q, n_strips, k].
+// strips of 128-row tiles; k is 1 .. TOPK_KL. ceil_v / ceil_r [Q] (null in a
+// first pass): the ceiling of a later pass (topk.cuh). Scratch: cand_v f32 /
+// cand_i i32 of [Q rounded up to kemr_topk_query_block, n_strips, k], and
+// for k > TOPK_SMEM_K merge_v / merge_i of [Q, ceil(n_strips / 2), k].
 int kemr_similarity_topk(int q_dtype, int c_dtype, const void* q_img, const void* q_txt,
                          const void* img, const void* txt, const void* img_s, const void* txt_s,
-                         const void* alpha, int Q, int N, int D, int k, int n_strips, void* cand_v,
-                         void* cand_i, void* out_v, void* out_i, void* stream) {
+                         const void* alpha, const void* ceil_v, const void* ceil_r, int Q, int N, int D, int k,
+                         int n_strips, void* cand_v, void* cand_i, void* merge_v, void* merge_i, void* out_v,
+                         void* out_i, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* is = (const float*)img_s;
   const float* ts = (const float*)txt_s;
   const float* a = (const float*)alpha;
-  float* cv = (float*)cand_v;
-  int* ci = (int*)cand_i;
-  if (k < 1 || k > TK_T || n_strips < 1 || n_strips > (N + TK_T - 1) / TK_T) return (int)cudaErrorInvalidValue;
+  const float* cv = (const float*)ceil_v;
+  const int* cr = (const int*)ceil_r;
+  float* c_v = (float*)cand_v;
+  int* c_i = (int*)cand_i;
+  if (k < 1 || k > TOPK_KL || n_strips < 1 || n_strips > (N + TK_T - 1) / TK_T) return (int)cudaErrorInvalidValue;
   int rc = (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && c_dtype == 0)
-    rc = scan_f32<float, false>(q_img, q_txt, img, txt, is, ts, a, Q, N, D, k, n_strips, cv, ci, st);
+    rc = scan_f32<float, false>(q_img, q_txt, img, txt, is, ts, a, cv, cr, Q, N, D, k, n_strips, c_v, c_i, st);
   else if (q_dtype == 0 && c_dtype == 2)
-    rc = scan_f32<int8_t, false>(q_img, q_txt, img, txt, is, ts, a, Q, N, D, k, n_strips, cv, ci, st);
+    rc = scan_f32<int8_t, false>(q_img, q_txt, img, txt, is, ts, a, cv, cr, Q, N, D, k, n_strips, c_v, c_i, st);
   else if (q_dtype == 0 && c_dtype == 3 && D % 2 == 0)
-    rc = scan_f32<int8_t, true>(q_img, q_txt, img, txt, is, ts, a, Q, N, D, k, n_strips, cv, ci, st);
+    rc = scan_f32<int8_t, true>(q_img, q_txt, img, txt, is, ts, a, cv, cr, Q, N, D, k, n_strips, c_v, c_i, st);
   else if (q_dtype == 1 && c_dtype == 1)
-    rc = scan_tc<1>(q_img, q_txt, img, txt, is, ts, a, Q, N, D, k, n_strips, cv, ci, st);
+    rc = scan_tc<1>(q_img, q_txt, img, txt, is, ts, a, cv, cr, Q, N, D, k, n_strips, c_v, c_i, st);
   else if (q_dtype == 1 && c_dtype == 2)
-    rc = scan_tc<2>(q_img, q_txt, img, txt, is, ts, a, Q, N, D, k, n_strips, cv, ci, st);
+    rc = scan_tc<2>(q_img, q_txt, img, txt, is, ts, a, cv, cr, Q, N, D, k, n_strips, c_v, c_i, st);
   else if (q_dtype == 1 && c_dtype == 3 && D % 2 == 0)
-    rc = scan_tc<3>(q_img, q_txt, img, txt, is, ts, a, Q, N, D, k, n_strips, cv, ci, st);
+    rc = scan_tc<3>(q_img, q_txt, img, txt, is, ts, a, cv, cr, Q, N, D, k, n_strips, c_v, c_i, st);
   if (rc != 0) return rc;
-  return kemr_topk_merge(cv, ci, Q, n_strips * k, k, (float*)out_v, (int*)out_i, st);
+  return kemr_topk_merge(c_v, c_i, Q, n_strips, k, (float*)merge_v, (int*)merge_i, (float*)out_v, (int*)out_i, st);
 }
 
 }  // extern "C"

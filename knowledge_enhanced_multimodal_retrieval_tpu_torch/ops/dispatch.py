@@ -4,12 +4,13 @@ The rule every kernel wrapper follows: a tensor on the CPU runs the plain
 PyTorch version beside the kernel; a CUDA tensor launches the hand-written
 kernel or raises. Nothing falls back from one to the other.
 
-One exception, by argument and not by failure: the blended top-k wrappers
-(``ops.similarity.fused_similarity_topk`` and its q8 / q4 forms,
-``ops.pq.pq_similarity_topk``) asked for ``k`` above the 128 rows the kernels'
-running lists hold materialize the score matrix and select from it with
-plain PyTorch on the tensor's own device, as the reference leaves its
-kernel at that ``k`` too. ``chip_smoke.py`` runs that route on the card.
+The blended top-k kernels (B2 behind ``ops.similarity.fused_similarity_topk``
+and its q8 / q4 forms, B5 behind ``ops.pq.pq_similarity_topk``) take every
+``k`` on a CUDA tensor: one launch selects up to ``KL`` = 512 rows
+(``ops.similarity.KERNEL_PASS_K``; running lists in shared memory up to 128
+rows, in the candidate buffer above), and a larger ``k`` runs as passes of
+at most 512, each under the ceiling of the pass before
+(``ops.similarity.topk_passes``).
 
 The kernels (``csrc/*.cu``) are compiled on first use with ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source, all started together, and linked into

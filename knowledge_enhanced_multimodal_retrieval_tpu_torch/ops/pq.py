@@ -10,13 +10,14 @@ row packs to scale 0 and scores exactly 0).
   training (plain Lloyd, anisotropic / score-aware, OPQ rotation) and the
   encoders. The JAX module imports ``jax`` at the top, so the port keeps
   its own copies.
-- **Scoring.** :func:`pq_similarity_topk` routes as the JAX package does,
-  with "on a TPU" read as "a CUDA tensor": CUDA and k <= 128 runs the ADC
-  kernel B5 (``csrc/pq.cu``) through :func:`fused_pq_topk`; CUDA and
-  k > 128 the plain ADC scores + segmented top-k; CPU tensors the
-  decode-and-matmul path (:func:`pq_similarity_topk_xla`), which is what the
-  JAX package runs off the TPU. The TPU kernel's k <= 64 cap was a VMEM
-  artifact; the port's cap is B2's 128-row candidate tile.
+- **Scoring.** :func:`pq_similarity_topk` routes by device: a CUDA tensor
+  runs the ADC kernel B5 (``csrc/pq.cu``) at every k (up to 512 rows a
+  pass, passes above that, as B2 does: ``similarity.topk_passes``); CPU
+  tensors the decode-and-matmul path (:func:`pq_similarity_topk_xla`),
+  which is what the JAX package runs off the TPU. The TPU kernel's caps
+  (k <= 64 on the chip, 128 in :func:`fused_pq_topk`) were VMEM artifacts;
+  :func:`fused_pq_topk` keeps the JAX refusal above 128, and the router
+  calls the kernel's wrapper directly.
 """
 
 from __future__ import annotations
@@ -28,12 +29,23 @@ import torch
 
 from . import dispatch
 from .dispatch import I, P
-from .similarity import _segmented_topk_from_scores, alpha_column, random_rotation, topk_plain
+from .similarity import (
+    _ptr,
+    _segmented_topk_from_scores,
+    _sm_count,
+    alpha_column,
+    random_rotation,
+    scan_scratch,
+    scan_strips,
+    topk_passes,
+    topk_plain,
+)
 
 # corpus rows reconstructed per scoring step of the decode path
 _DECODE_CHUNK = 4096
-_MAX_KERNEL_K = 128  # B5 selects through B2's candidate tiles
-_MAX_SMEM = 227 * 1024  # the H100's shared-memory opt-in per block
+_FUSED_K_CAP = 128  # fused_pq_topk's refusal, the JAX package's
+_PQ_QUERY_GROUP = 16  # queries per block of B5 (csrc/pq.cu PQ_QG)
+_PQ_TILE = 1024  # corpus rows per tile of B5 (PQ_T)
 
 
 def train_pq_codebooks(
@@ -457,25 +469,51 @@ def blended_scores_pq_adc(queries, img_codes, img_scale, txt_codes, txt_scale, c
 
 def pq_similarity_topk_adc(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k: int,
                            alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain ADC scores + segmented top-k (the big-k route on CUDA)."""
+    """Plain ADC scores + segmented top-k: the JAX package's big-k route on
+    the TPU, kept for parity; the port's CUDA route is B5 at every k."""
     n = img_codes.shape[0]
     scores = blended_scores_pq_adc(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, alpha)
     return _segmented_topk_from_scores(scores, min(k, n), segment=4096)
 
 
-_PQ_ARGS = [P] * 7 + [I] * 5 + [P] * 4 + [P]
+def _swap_halves(lut: torch.Tensor) -> torch.Tensor:
+    """``[..., K, 16]``: the two 8-query halves swapped in the entries of
+    codes with bit 2 set (an involution; B5's bank spreading)."""
+    n_k = lut.shape[-2]
+    swap = ((torch.arange(n_k, device=lut.device) >> 2) & 1).bool()[:, None, None]
+    pairs = lut.reshape(*lut.shape[:-1], 2, 8)
+    return torch.where(swap, pairs.flip(-2), pairs).reshape(lut.shape)
+
+
+def pq_lut_interleave(lut: torch.Tensor) -> torch.Tensor:
+    """B5's LUT layout, a plain permute: ``[M, Q, K] -> [ceil(Q / 16), M, K,
+    16]``, entry ``[g, m, c]`` holding ``lut[m, 16 g .. 16 g + 15, c]``
+    (queries past Q are zeros), its two 8-query halves swapped where bit 2
+    of the code c is set. One (subspace, code) entry holds 16 queries'
+    values, and the slice of a 16-query group and a run of subspaces is
+    contiguous."""
+    m, qn, n_k = lut.shape
+    qp = -(-qn // _PQ_QUERY_GROUP) * _PQ_QUERY_GROUP
+    lut = torch.nn.functional.pad(lut, (0, 0, 0, qp - qn))
+    lut = lut.reshape(m, qp // _PQ_QUERY_GROUP, _PQ_QUERY_GROUP, n_k).permute(1, 0, 3, 2)
+    return _swap_halves(lut).contiguous()
+
+
+_PQ_ARGS = [P] * 9 + [I] * 6 + [P] * 6 + [P]
 
 
 @dispatch.counted
 def pq_adc_topk_kernel(alpha_col, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t, k: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch B5 on CUDA tensors: bf16 LUTs ``[M, Q, K]`` per tower, uint8
-    codes ``[N, M]``, f32 scales ``[N, 1]``, f32 alpha ``[Q, 1]``."""
+    codes ``[N, M]``, f32 scales ``[N, 1]``, f32 alpha ``[Q, 1]``. The LUTs
+    go to the kernel query-interleaved (:func:`pq_lut_interleave`); one
+    launch a pass, ``pass_sizes(k)[0]`` passes."""
     dev = lut_i.device
     m, qn, n_k = lut_i.shape
     n = codes_i.shape[0]
-    if not 0 < k <= min(_MAX_KERNEL_K, n):
-        raise ValueError(f"kernel k must be in 1..{min(_MAX_KERNEL_K, n)}, got {k}")
+    if not 0 < k <= n:
+        raise ValueError(f"kernel k must be in 1..{n} (the corpus rows), got {k}")
     if not 0 < n_k <= 256:
         raise ValueError(f"codebook size {n_k} does not fit uint8 codes")
     dispatch.require(lut_i, "lut_i", torch.bfloat16, dev, (m, qn, n_k))
@@ -485,25 +523,24 @@ def pq_adc_topk_kernel(alpha_col, lut_i, lut_t, codes_i, scale_i, codes_t, scale
     dispatch.require(scale_i, "scale_i", torch.float32, dev, (n, 1))
     dispatch.require(scale_t, "scale_t", torch.float32, dev, (n, 1))
     dispatch.require(alpha_col, "alpha", torch.float32, dev, (qn, 1))
-    if n_k % 8 == 0 and (lut_i.data_ptr() % 16 or lut_t.data_ptr() % 16):
-        raise ValueError("the LUTs must start 16-byte aligned (the kernel copies them 16 bytes at a time)")
-    smem = dispatch.kernel("kemr_pq_smem_bytes", [I, I])(m, n_k)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"M={m}, K={n_k} need {smem} bytes of shared memory per block (> {_MAX_SMEM})")
-    n_tiles = -(-n // 256)  # csrc/pq.cu PQ_T
-    cand_v = torch.empty((qn, n_tiles, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((qn, n_tiles, k), dtype=torch.int32, device=dev)
-    vals = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    li, lt = pq_lut_interleave(lut_i), pq_lut_interleave(lut_t)
+    n_strips = scan_strips(n, -(-qn // _PQ_QUERY_GROUP), _sm_count(dev), tile=_PQ_TILE)
     fn = dispatch.kernel("kemr_pq_adc_topk", _PQ_ARGS)
-    status = fn(
-        lut_i.data_ptr(), lut_t.data_ptr(), codes_i.data_ptr(), codes_t.data_ptr(),
-        scale_i.data_ptr(), scale_t.data_ptr(), alpha_col.data_ptr(), qn, n, m, n_k, k,
-        cand_v.data_ptr(), cand_i.data_ptr(), vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(lut_i),
-    )
-    dispatch.check(status, "pq_adc_topk_kernel")
-    pq_adc_topk_kernel.launches += 1
-    return vals, idx
+
+    def launch(kp, ceil_v, ceil_r):
+        scratch = scan_scratch(qn, _PQ_QUERY_GROUP, n_strips, kp, dev)
+        vals = torch.empty((qn, kp), dtype=torch.float32, device=dev)
+        idx = torch.empty((qn, kp), dtype=torch.int32, device=dev)
+        status = fn(
+            li.data_ptr(), lt.data_ptr(), codes_i.data_ptr(), codes_t.data_ptr(), scale_i.data_ptr(),
+            scale_t.data_ptr(), alpha_col.data_ptr(), _ptr(ceil_v), _ptr(ceil_r), qn, n, m, n_k, kp, n_strips,
+            *map(_ptr, scratch), vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(lut_i),
+        )
+        dispatch.check(status, "pq_adc_topk_kernel")
+        pq_adc_topk_kernel.launches += 1
+        return vals, idx
+
+    return topk_passes(launch, qn, k, dev)
 
 
 def pq_adc_topk(alpha_col, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t, k: int
@@ -515,30 +552,32 @@ def pq_adc_topk(alpha_col, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t, k: 
     return pq_adc_topk_kernel(alpha_col, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t, k)
 
 
-def fused_pq_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k: int,
-                  alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused ADC scan + top-k over a PQ corpus (k <= 128): the LUTs are a
-    small einsum outside the kernel, as in JAX; scores match
-    :func:`blended_scores_pq_adc`."""
+def _adc_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k: int, alpha
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LUTs (a small einsum outside the kernel, as in JAX), then B5."""
     n, m = img_codes.shape
     if cb_img.shape[0] != m:
         raise ValueError(f"codebooks [{cb_img.shape[0]}] do not match codes [{m}] subspaces")
-    if k > _MAX_KERNEL_K:
-        raise ValueError(f"fused_pq_topk caps k at {_MAX_KERNEL_K}; use pq_similarity_topk")
-    k = min(k, n)
     a = alpha_column(alpha, queries.shape[0], queries.device)
     return pq_adc_topk(
-        a, pq_luts(queries, cb_img).contiguous(), pq_luts(queries, cb_txt).contiguous(),
-        img_codes, img_scale.reshape(-1, 1), txt_codes, txt_scale.reshape(-1, 1), k,
+        a, pq_luts(queries, cb_img), pq_luts(queries, cb_txt),
+        img_codes, img_scale.reshape(-1, 1), txt_codes, txt_scale.reshape(-1, 1), min(k, n),
     )
+
+
+def fused_pq_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k: int,
+                  alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused ADC scan + top-k over a PQ corpus, k <= 128 as in JAX; scores
+    match :func:`blended_scores_pq_adc`."""
+    if k > _FUSED_K_CAP:
+        raise ValueError(f"fused_pq_topk caps k at {_FUSED_K_CAP}; use pq_similarity_topk")
+    return _adc_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k, alpha)
 
 
 def pq_similarity_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k: int,
                        alpha=0.5, chunk: int = _DECODE_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Blended top-k over a PQ corpus, routed by device and k (module doc)."""
+    """Blended top-k over a PQ corpus, routed by device (module doc)."""
     args = (queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt)
     if not dispatch.use_kernel(queries):
         return pq_similarity_topk_xla(*args, k, alpha, chunk)
-    if min(k, img_codes.shape[0]) <= _MAX_KERNEL_K:
-        return fused_pq_topk(*args, k=k, alpha=alpha)
-    return pq_similarity_topk_adc(*args, k=k, alpha=alpha)
+    return _adc_topk(*args, k, alpha)

@@ -11,7 +11,10 @@ for the exact, int8 and int4 corpus modes:
 tensors. Selection semantics are the TPU kernel's: pad and
 NaN scores become float32 min, ties go to the lowest corpus row, and a
 query with fewer than k finite scores is filled with (float32 min, row 0).
-k > 128 takes the segmented exact selection over plain scores, as in JAX.
+On the CPU, k > 128 takes the segmented exact selection over plain scores,
+as JAX does above its kernel's cap; a CUDA tensor launches the kernel at
+every k: its running lists carry up to ``KERNEL_PASS_K`` = 512 rows a pass,
+and a larger k runs as passes under a ceiling (:func:`topk_passes`).
 
 Also here, as in JAX, the host helpers the capacity tiers share: the
 Matryoshka prefix renormalization, the seeded random rotation and the exact
@@ -30,7 +33,9 @@ from . import dispatch
 from .dispatch import I, P
 
 _NEG_INF = float(np.finfo(np.float32).min)
-_MAX_KERNEL_K = 128  # the kernel's running lists hold at most one 128-row tile
+_SEGMENTED_K = 128  # above it the CPU route selects as JAX does past its kernel's cap
+KERNEL_PASS_K = 512  # the most rows one kernel pass selects (csrc/topk.cuh TOPK_KL)
+_SMEM_LIST_K = 128  # up to it the kernels' running lists sit in shared memory (TOPK_SMEM_K)
 _TILE = 128  # corpus rows per kernel tile (csrc/similarity.cu TK_T)
 _F32_QUERY_GROUP = 16  # queries per block on the f32 route (TK_QG)
 _F32_BLOCKS_PER_SM = 3  # f32-route blocks that fit an SM (about 70 KB of shared memory each at D = 768)
@@ -232,7 +237,66 @@ def topk_plain(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     return vals, idx.to(torch.int32)
 
 
-_TOPK_ARGS = [I, I] + [P] * 7 + [I] * 5 + [P] * 4 + [P]
+def _select(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CPU route's selection: the kernel's up to k = 128, the segmented
+    one above it, as the JAX package selects past its kernel's cap."""
+    if k > _SEGMENTED_K:
+        return _segmented_topk_from_scores(scores, k, segment=4096)
+    return topk_plain(scores, k)
+
+
+def pass_sizes(k: int) -> Tuple[int, int]:
+    """``(passes, rows per pass)`` for a kernel asked for ``k`` rows: the
+    fewest passes of at most ``KERNEL_PASS_K``, all of one size, so that
+    every pass launches the same configuration and recomputes the same
+    scores."""
+    passes = -(-k // KERNEL_PASS_K)
+    return passes, -(-k // passes)
+
+
+def topk_passes(launch, n_queries: int, k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k through ``launch(k_pass, ceil_v, ceil_r) -> (values, rows)``, one
+    kernel pass per call. A pass after the first is given each query's
+    ceiling, the last (value, row) of the pass before, and selects among the
+    rows that rank below it (value descending, row ascending), so the passes
+    concatenated are the top-k. A pass that ends in a filler (float32 min)
+    ends the run: the rest are fillers."""
+    passes, kp = pass_sizes(k)
+    vals, rows = [], []
+    ceil_v = ceil_r = None
+    for p in range(passes):
+        v, r = launch(kp, ceil_v, ceil_r)
+        vals.append(v)
+        rows.append(r)
+        if p + 1 == passes:
+            break
+        if not bool((v[:, -1] > _NEG_INF).any()):
+            rest = k - (p + 1) * kp
+            vals.append(torch.full((n_queries, rest), _NEG_INF, dtype=torch.float32, device=device))
+            rows.append(torch.zeros((n_queries, rest), dtype=torch.int32, device=device))
+            break
+        ceil_v, ceil_r = v[:, -1].contiguous(), r[:, -1].contiguous()
+    return torch.cat(vals, 1)[:, :k], torch.cat(rows, 1)[:, :k]
+
+
+def topk_passes_plain(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' passes in plain PyTorch: each pass masks the rows at or
+    above the ceiling to float32 min and takes the plain top-k of what is
+    left. Equals :func:`topk_plain` at every k."""
+    scores = torch.where(torch.isnan(scores), torch.full_like(scores, _NEG_INF), scores)
+    cols = torch.arange(scores.shape[1], device=scores.device)[None, :]
+
+    def launch(kp, ceil_v, ceil_r):
+        s = scores
+        if ceil_v is not None:
+            cv, cr = ceil_v[:, None], ceil_r[:, None]
+            s = torch.where((s > cv) | ((s == cv) & (cols <= cr)), torch.full_like(s, _NEG_INF), s)
+        return topk_plain(s, kp)
+
+    return topk_passes(launch, scores.shape[0], k, scores.device)
+
+
+_TOPK_ARGS = [I, I] + [P] * 9 + [I] * 5 + [P] * 6 + [P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,14 +310,31 @@ def _query_block(q_code: int, qn: int, k: int) -> int:
     return dispatch.kernel("kemr_topk_query_block", [I, I, I])(q_code, qn, k)
 
 
-def scan_strips(n_rows: int, query_blocks: int, blocks_wanted: int) -> int:
+def scan_strips(n_rows: int, query_blocks: int, blocks_wanted: int, tile: int = _TILE) -> int:
     """Strips the kernel cuts the corpus into: each block walks one strip of
-    128-row tiles for one block of queries and carries the running top-k, so
-    the grid is ``(strips, query blocks)`` and about ``blocks_wanted`` in all
-    (the device's SM count on the tensor-core route); never more strips than
-    tiles."""
-    n_tiles = -(-n_rows // _TILE)
+    ``tile``-row tiles for one block of queries and carries the running
+    top-k, so the grid is ``(strips, query blocks)`` and about
+    ``blocks_wanted`` in all (the device's SM count on the tensor-core route
+    and for B5); never more strips than tiles."""
+    n_tiles = -(-n_rows // tile)
     return max(1, min(n_tiles, blocks_wanted // max(1, query_blocks)))
+
+
+def scan_scratch(n_queries: int, query_block: int, n_strips: int, k: int, device):
+    """The scan's scratch: the candidate lists ``[Q rounded up to the query
+    block, strips, k]`` (f32 values, i32 rows; a block above k = 128 keeps its
+    running lists there) and, above k = 128, the pairwise merge's second
+    buffer ``[Q, ceil(strips / 2), k]`` (else empty)."""
+    qp = -(-n_queries // query_block) * query_block
+    merge = (n_queries, -(-n_strips // 2), k) if k > _SMEM_LIST_K else (0,)
+    return (torch.empty((qp, n_strips, k), dtype=torch.float32, device=device),
+            torch.empty((qp, n_strips, k), dtype=torch.int32, device=device),
+            torch.empty(merge, dtype=torch.float32, device=device),
+            torch.empty(merge, dtype=torch.int32, device=device))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
 @dispatch.counted
@@ -261,7 +342,8 @@ def similarity_topk_kernel(
     queries_img, queries_txt, img, txt, img_scale, txt_scale, alpha_col, k: int, q4: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch B2 on CUDA tensors (exact mode when the scales are None; with
-    ``q4`` the int8 corpus holds nibble-packed rows of ``D / 2`` bytes)."""
+    ``q4`` the int8 corpus holds nibble-packed rows of ``D / 2`` bytes): one
+    launch a pass, ``pass_sizes(k)[0]`` passes."""
     dev = queries_img.device
     qn, d = queries_img.shape
     n = img.shape[0]
@@ -274,8 +356,8 @@ def similarity_topk_kernel(
         raise ValueError(f"q4 mode needs an int8 packed corpus and an even query width, got {cdt}, {d}")
     if cdt != torch.int8 and cdt != qdt:
         raise ValueError(f"exact mode needs queries in the corpus dtype ({cdt}), got {qdt}")
-    if not 0 < k <= _MAX_KERNEL_K:
-        raise ValueError(f"kernel k must be in 1..{_MAX_KERNEL_K}, got {k}")
+    if not 0 < k <= n:
+        raise ValueError(f"kernel k must be in 1..{n} (the corpus rows), got {k}")
     dispatch.require(queries_img, "queries_img", qdt, dev, (qn, d))
     dispatch.require(queries_txt, "queries_txt", qdt, dev, (qn, d))
     dc = d // 2 if q4 else d
@@ -285,28 +367,31 @@ def similarity_topk_kernel(
     if img_scale is not None:
         dispatch.require(img_scale, "img_scale", torch.float32, dev, (n, 1))
         dispatch.require(txt_scale, "txt_scale", torch.float32, dev, (n, 1))
-    if qdt == torch.float32 and (_F32_QUERY_GROUP * (d + 2 * k + 2 * _TILE)) * 4 > 227 * 1024:
+    kp = pass_sizes(k)[1]
+    lists = 2 * kp if kp <= _SMEM_LIST_K else 0
+    if qdt == torch.float32 and (_F32_QUERY_GROUP * (d + lists + 2 * _TILE)) * 4 > 227 * 1024:
         raise ValueError(f"embedding width {d} exceeds the kernel's shared-memory budget")
-    sms = _sm_count(dev)
-    per_block = _query_block(_DTYPE_CODE[qdt], qn, k)
-    wanted = sms * (_F32_BLOCKS_PER_SM if qdt == torch.float32 else 1)
+    codes = (_DTYPE_CODE[qdt], _Q4_CODE if q4 else _DTYPE_CODE[cdt])
+    per_block = _query_block(codes[0], qn, kp)
+    wanted = _sm_count(dev) * (_F32_BLOCKS_PER_SM if qdt == torch.float32 else 1)
     n_strips = scan_strips(n, -(-qn // per_block), wanted)
-    cand_v = torch.empty((qn, n_strips, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((qn, n_strips, k), dtype=torch.int32, device=dev)
-    vals = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((qn, k), dtype=torch.int32, device=dev)
     fn = dispatch.kernel("kemr_similarity_topk", _TOPK_ARGS)
-    status = fn(
-        _DTYPE_CODE[qdt], _Q4_CODE if q4 else _DTYPE_CODE[cdt], queries_img.data_ptr(), queries_txt.data_ptr(),
-        img.data_ptr(), txt.data_ptr(),
-        None if img_scale is None else img_scale.data_ptr(),
-        None if txt_scale is None else txt_scale.data_ptr(),
-        alpha_col.data_ptr(), qn, n, d, k, n_strips, cand_v.data_ptr(), cand_i.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(queries_img),
-    )
-    dispatch.check(status, "similarity_topk_kernel")
-    similarity_topk_kernel.launches += 1
-    return vals, idx
+
+    def launch(kp, ceil_v, ceil_r):
+        scratch = scan_scratch(qn, per_block, n_strips, kp, dev)
+        vals = torch.empty((qn, kp), dtype=torch.float32, device=dev)
+        idx = torch.empty((qn, kp), dtype=torch.int32, device=dev)
+        status = fn(
+            *codes, queries_img.data_ptr(), queries_txt.data_ptr(), img.data_ptr(), txt.data_ptr(),
+            _ptr(img_scale), _ptr(txt_scale), alpha_col.data_ptr(), _ptr(ceil_v), _ptr(ceil_r),
+            qn, n, d, kp, n_strips, *map(_ptr, scratch),
+            vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(queries_img),
+        )
+        dispatch.check(status, "similarity_topk_kernel")
+        similarity_topk_kernel.launches += 1
+        return vals, idx
+
+    return topk_passes(launch, qn, k, dev)
 
 
 def fused_similarity_topk(
@@ -321,11 +406,8 @@ def fused_similarity_topk(
     qn = queries_img.shape[0]
     q_txt = queries_img if queries_txt is None else queries_txt
     k = min(k, img_emb.shape[0])
-    if k > _MAX_KERNEL_K:
-        scores = blended_scores(queries_img, img_emb, txt_emb, alpha, queries_txt)
-        return _segmented_topk_from_scores(scores, k, segment=4096)
     if not dispatch.use_kernel(queries_img):
-        return topk_plain(blended_scores(queries_img, img_emb, txt_emb, alpha, queries_txt), k)
+        return _select(blended_scores(queries_img, img_emb, txt_emb, alpha, queries_txt), k)
     a = alpha_column(alpha, qn, queries_img.device)
     return similarity_topk_kernel(queries_img, q_txt, img_emb, txt_emb, None, None, a, k)
 
@@ -344,12 +426,8 @@ def fused_similarity_topk_q8(
     qn = queries_img.shape[0]
     q_txt = queries_img if queries_txt is None else queries_txt
     k = min(k, img_q.shape[0])
-    if k > _MAX_KERNEL_K:
-        scores = blended_scores_q8(queries_img, img_q, img_scale, txt_q, txt_scale, alpha, queries_txt)
-        return _segmented_topk_from_scores(scores, k, segment=4096)
     if not dispatch.use_kernel(queries_img):
-        scores = blended_scores_q8(queries_img, img_q, img_scale, txt_q, txt_scale, alpha, queries_txt)
-        return topk_plain(scores, k)
+        return _select(blended_scores_q8(queries_img, img_q, img_scale, txt_q, txt_scale, alpha, queries_txt), k)
     a = alpha_column(alpha, qn, queries_img.device)
     return similarity_topk_kernel(
         queries_img, q_txt, img_q, txt_q, img_scale.reshape(-1, 1), txt_scale.reshape(-1, 1), a, k
@@ -371,12 +449,8 @@ def fused_similarity_topk_q4(
     qn = queries_img.shape[0]
     q_txt = queries_img if queries_txt is None else queries_txt
     k = min(k, img_p.shape[0])
-    if k > _MAX_KERNEL_K:
-        scores = blended_scores_q4(queries_img, img_p, img_scale, txt_p, txt_scale, alpha, queries_txt)
-        return _segmented_topk_from_scores(scores, k, segment=4096)
     if not dispatch.use_kernel(queries_img):
-        scores = blended_scores_q4(queries_img, img_p, img_scale, txt_p, txt_scale, alpha, queries_txt)
-        return topk_plain(scores, k)
+        return _select(blended_scores_q4(queries_img, img_p, img_scale, txt_p, txt_scale, alpha, queries_txt), k)
     a = alpha_column(alpha, qn, queries_img.device)
     return similarity_topk_kernel(
         queries_img, q_txt, img_p, txt_p, img_scale.reshape(-1, 1), txt_scale.reshape(-1, 1), a, k, q4=True

@@ -592,11 +592,12 @@ def test_topk_q4_kernel(rng, dev, qdtype, k):
 
 
 @pytest.mark.parametrize("m,n_k", [(8, 32), (96, 256), (12, 100)])
-@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("k", [1, 20, 128, 129, 400, S.KERNEL_PASS_K, S.KERNEL_PASS_K + 1])
 def test_pq_adc_kernel(rng, dev, m, n_k, k):
-    """B5 against its plain version: ragged tiles and query group, per-query
-    alpha, pad rows with scale 0, a NaN query; K = 100 takes the scalar
-    LUT copy."""
+    """B5 against its plain version, bit for bit: ragged tiles and query
+    group, per-query alpha, pad rows with scale 0, a NaN query, rows that tie
+    exactly (the lower row first); M = 12 takes the bytewise code reads and a
+    ragged subspace group; k above 512 runs in two passes."""
     n, q, ds = 3001, 21, 4
     lut_i, lut_t = (_t(rng.standard_normal((m, q, n_k)), dev, torch.bfloat16) for _ in range(2))
     lut_i[:, 3] = float("nan")
@@ -604,20 +605,60 @@ def test_pq_adc_kernel(rng, dev, m, n_k, k):
     scale_i, scale_t = (_t(rng.uniform(0.5, 1.5, (n, 1)), dev, torch.float32) for _ in range(2))
     scale_i[-13:] = 0.0
     scale_t[-13:] = 0.0
+    for twin in (2900, 1500, 40):  # one tile apart up to the whole corpus apart
+        for c, sc in ((codes_i, scale_i), (codes_t, scale_t)):
+            c[twin], sc[twin] = c[7], sc[7]
     alpha = _t(rng.uniform(0.2, 0.8, (q, 1)), dev, torch.float32)
     args = (alpha, lut_i, lut_t, codes_i, scale_i, codes_t, scale_t)
     before = PQ.pq_adc_topk_kernel.launches
     got = PQ.pq_adc_topk(*args, k)
-    assert PQ.pq_adc_topk_kernel.launches == before + 1
-    scores = PQ.blended_adc_from_luts(*args)
-    _topk_check(got, scores, k)
+    passes = S.pass_sizes(k)[0]
+    assert PQ.pq_adc_topk_kernel.launches == before + passes
+    want = S.topk_plain(PQ.blended_adc_from_luts(*args), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0].cpu())  # the oracle's sums, bit for bit
+    assert torch.equal(got[1].cpu(), want[1].cpu())
     assert (got[1][3].cpu().numpy() == 0).all()
-    # the router at the serving shape: codebooks in, LUTs made on the card
+    # the router at the serving shape: codebooks in, LUTs made on the card, every k on the kernel
     cb_i, cb_t = (_t(rng.standard_normal((m, n_k, ds)), dev, torch.float32) for _ in range(2))
     emb = _t(rng.standard_normal((q, m * ds)), dev, torch.bfloat16)
     got = PQ.pq_similarity_topk(emb, codes_i, scale_i, codes_t, scale_t, cb_i, cb_t, k, alpha=alpha)
-    assert PQ.pq_adc_topk_kernel.launches == before + 2
+    assert PQ.pq_adc_topk_kernel.launches == before + 2 * passes
     _topk_check(got, PQ.blended_scores_pq_adc(emb, codes_i, scale_i, codes_t, scale_t, cb_i, cb_t, alpha), k)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "q8", "q4"])
+@pytest.mark.parametrize("k", [129, 400, S.KERNEL_PASS_K + 1])
+def test_topk_kernel_large_k(rng, dev, mode, k):
+    """B2 above k = 128: running lists in the candidate buffer, the pairwise
+    merge, and above 512 two passes under a ceiling; a NaN query, an exact
+    tie, a ragged corpus and query group; launches equal the passes."""
+    n, q, d = 4321, 37, 96
+    img, txt, qs = _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((n, d))), _unit(rng.standard_normal((q, d)))
+    qs[5] = np.nan
+    img[900], txt[900] = img[17], txt[17]
+    qs[6] = (img[17] + txt[17]) / 2
+    alpha = torch.tensor(rng.uniform(0.2, 0.8, q), device=dev)
+    if mode in ("f32", "bf16"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        c, fused, plain = (_t(img, dev, dt), _t(txt, dev, dt)), S.fused_similarity_topk, S.blended_scores
+        qd = _t(qs, dev, dt)
+    else:
+        quant = S.quantize_corpus_host if mode == "q8" else S.quantize_corpus_host_q4
+        (iq, is_), (tq, ts) = quant(img), quant(txt)
+        c = (_t(iq, dev, torch.int8), _t(is_, dev, torch.float32), _t(tq, dev, torch.int8), _t(ts, dev, torch.float32))
+        fused, plain = (S.fused_similarity_topk_q8, S.blended_scores_q8) if mode == "q8" else (
+            S.fused_similarity_topk_q4, S.blended_scores_q4)
+        qd = _t(qs, dev, torch.bfloat16)
+    before = S.similarity_topk_kernel.launches
+    got = fused(qd, *c, k, alpha=alpha)
+    assert S.similarity_topk_kernel.launches == before + S.pass_sizes(k)[0]
+    assert got[0].shape == (q, k)
+    _topk_check(got, plain(qd, *c, alpha), k)
+    assert (got[1][5].cpu().numpy() == 0).all()
+    if mode in ("f32", "bf16"):
+        row = got[1][6].cpu().tolist()
+        assert row.index(17) < row.index(900)
 
 
 def test_capacity_kernels_refuse_wrong_operands(rng, dev):
@@ -635,12 +676,11 @@ def test_capacity_kernels_refuse_wrong_operands(rng, dev):
         PQ.pq_adc_topk_kernel(a, lut.float(), lut, codes, scale, codes, scale, 5)
     with pytest.raises(ValueError, match="expected cuda"):
         PQ.pq_adc_topk_kernel(a, lut, lut, codes.cpu(), scale, codes, scale, 5)
-    with pytest.raises(ValueError, match="kernel k"):
-        PQ.pq_adc_topk_kernel(a, lut, lut, codes, scale, codes, scale, 129)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros((768, 4, 256), dtype=torch.bfloat16, device=dev)
-        c = torch.zeros((100, 768), dtype=torch.uint8, device=dev)
-        PQ.pq_adc_topk_kernel(a, big, big, c, scale, c, scale, 5)
+    with pytest.raises(ValueError, match="kernel k"):  # any k up to the corpus rows runs, in passes
+        PQ.pq_adc_topk_kernel(a, lut, lut, codes, scale, codes, scale, 101)
+    with pytest.raises(ValueError, match="codebook size"):
+        wide = torch.zeros((8, 4, 257), dtype=torch.bfloat16, device=dev)
+        PQ.pq_adc_topk_kernel(a, wide, wide, codes, scale, codes, scale, 5)
 
 
 def test_encode_text_fast_on_card_matches_cpu_plan(rng, dev):

@@ -57,6 +57,7 @@ SLICE_MODULES = [
     f"{PKG}.knowledge.kg",
     f"{PKG}.knowledge.text2sparql",
     f"{PKG}.scripts.profile_vision_interior",
+    f"{PKG}.scripts.time_topk",
 ]
 
 
