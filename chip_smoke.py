@@ -89,6 +89,21 @@ just after; every kernel must have launched in the path it belongs to.
    sequence; the int8 + truncate_dim 256 + rerank tier serves once at the
    retriever's default top_k = 100 (a fetch of 400 rows), through B2.
 
+14. The HTTP daemon (``daemon_phase``), built by ``cli.serve``'s own wiring
+   at ViT-L/14 (``int8`` encoder, int8 corpus, ``--bucket-queries``,
+   ``--warmup`` 1 ... 256, ``--max-pending``, ``--cache-results``) over the
+   43,000-row store with the Text2SPARQL fakes, on 127.0.0.1, port 0: 32
+   client threads x 20 requests, about 10 % ``/search_image`` (random 224 px
+   PNGs), with the launch counts set to 0 just before and read just after
+   (B1 once a layer for each text and image batch, B2 q8 once a batch);
+   q/s, p50 / p95 / p99, batch-size histograms, real and padded rows; every
+   ``/search`` answer against the engine called directly, filtered answers
+   against the plain masked top-k on the same query embeddings, candidate
+   answers against the exact host scores, ``/documents`` added, found and
+   removed, ``/snapshot``, ``/healthz`` and ``/metrics``. Then 8 requests
+   to a ``fast`` daemon with the exact corpus: B3a, B3b and B2 exact launch
+   behind it.
+
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero without that last line.
@@ -1051,13 +1066,27 @@ def _cpu_plan(plan):
     return plan.cpu()
 
 
-def serve_phase(torch, dev, model, store_path, mode, results):
-    """Drive the served slice in one mode; returns {wrapper: launches}."""
+def fake_t2s(*hits):
+    """Text2SPARQL over a fake LLM and a fake KG: every query's hits are
+    ``hits``, the uuids of the artefacts the fake KG holds."""
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.knowledge import (
         FakeKGSparqlClient,
         FakeLLMClient,
         Text2SparqlRetrieval,
     )
+
+    llm_json = {
+        "distinct": True,
+        "variables": [{"termType": "Variable", "value": "DigitalArtefact"}],
+        "branches": [{"line": {"s": "DigitalArtefact", "p": "http://crm/P1", "o": "X_1",
+                               "sType": ["http://kg/DigitalArtefact"]}}],
+    }
+    return Text2SparqlRetrieval(FakeLLMClient({}, default=json.dumps(llm_json)),
+                                FakeKGSparqlClient(entities={}, artefacts=[f"http://kg/artefact/{u}" for u in hits]))
+
+
+def serve_phase(torch, dev, model, store_path, mode, results):
+    """Drive the served slice in one mode; returns {wrapper: launches}."""
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import encode_text_fast
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
@@ -1070,16 +1099,7 @@ def serve_phase(torch, dev, model, store_path, mode, results):
     store = EmbeddingStore.load(store_path)
     kw = dict(quantize="int8", quantize_corpus="int8") if mode == "int8" else dict(corpus_dtype=torch.bfloat16)
     retriever = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, **kw)
-    llm_json = {
-        "distinct": True,
-        "variables": [{"termType": "Variable", "value": "DigitalArtefact"}],
-        "branches": [{"line": {"s": "DigitalArtefact", "p": "http://crm/P1", "o": "X_1",
-                               "sType": ["http://kg/DigitalArtefact"]}}],
-    }
-    kg_hit = store.uuids[len(store) // 3]
-    t2s = Text2SparqlRetrieval(FakeLLMClient({}, default=json.dumps(llm_json)),
-                               FakeKGSparqlClient(entities={}, artefacts=[f"http://kg/artefact/{kg_hit}"]))
-    engine = RetrievalEngine(retriever, t2s)
+    engine = RetrievalEngine(retriever, fake_t2s(store.uuids[len(store) // 3]))
     rng = np.random.default_rng(1)
     words = ["cat", "hel", "hello", "ca", "he"]
     batches = [[" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)] for _ in range(3)]
@@ -1613,6 +1633,299 @@ def capacity_phases(torch, dev, model, tmp, results):
     return counts
 
 
+DAEMON_CLIENTS, DAEMON_REQUESTS, DAEMON_IMAGE_FRAC = 32, 20, 0.1  # scripts/daemon_bench.py's mix
+DAEMON_WARMUP = "1,2,4,8,16,32,64,128,256"
+# fused answers: the engine rounds alpha * clip + beta * hit to 4 decimals,
+# so one rounding step beside the top-k tolerance
+TOL_FUSED = 1e-4 + TOL_TOPK
+
+
+def _png_blobs(rng, n, size):
+    import base64
+    import io
+
+    from PIL import Image
+
+    blobs = []
+    for _ in range(n):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8), "RGB").save(buf, format="PNG")
+        blobs.append(base64.b64encode(buf.getvalue()).decode())
+    return blobs
+
+
+def _http(base, method, path, body=None):
+    """One request; a status other than 200 raises."""
+    from urllib.request import Request, urlopen
+
+    data = None if body is None else json.dumps(body).encode()
+    req = Request(base + path, data=data, method=method, headers={"Content-Type": "application/json"})
+    with urlopen(req, timeout=300) as r:
+        if r.status != 200:
+            raise AssertionError(f"{method} {path}: HTTP {r.status}")
+        raw = r.read()
+    return raw.decode() if path == "/metrics" else json.loads(raw)
+
+
+def _same_lists(got, want, tol, tag):
+    """One query's result lists: the same uuids up to near ties (a swap only
+    between scores within ``tol``, or at the last place), scores within ``tol``."""
+    assert len(got) == len(want), (tag, len(got), len(want))
+    np.testing.assert_allclose([x["score"] for x in got], [x["score"] for x in want], atol=tol, rtol=0, err_msg=tag)
+    sg, sw = {x["uuid"]: x["score"] for x in got}, {x["uuid"]: x["score"] for x in want}
+    if want:
+        last = min(got[-1]["score"], want[-1]["score"])
+        for u in sg.keys() ^ sw.keys():
+            assert abs(sg.get(u, sw.get(u)) - last) <= 2 * tol, (tag, u)
+
+
+def _padded_rows(hist, cap):
+    return sum(min(1 << (n - 1).bit_length(), cap) * c for n, c in hist.items())
+
+
+def daemon_phase(torch, dev, tmp, store_path, results):
+    """The HTTP daemon on the card, built by ``cli.serve``'s own wiring
+    (``pop_daemon_flags``, ``build_engine``, ``warm_engine``,
+    ``make_http_server``) at ViT-L/14 over the 43,000-row store, with the
+    Text2SPARQL fakes: 32 client threads x 20 requests (about 10 % image
+    queries), then filtered, candidate, document, snapshot, health and
+    metrics requests one at a time, each held to the engine called directly;
+    then a short pass with the ``fast`` encoder and an exact corpus. Returns
+    {pass: {wrapper: launches}}."""
+    import gzip
+    import logging
+    import shutil
+    import threading
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import serve as S
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.knowledge import text2sparql  # noqa: F401 (its logger)
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import config_from_argv
+
+    t_phase = time.perf_counter()
+    # Text2SPARQL logs every query it answers: hundreds of lines under this traffic
+    t2s_log = logging.getLogger("kemr_torch.text2sparql")
+    t2s_level = t2s_log.level
+    t2s_log.setLevel(logging.WARNING)
+    vocab = os.path.join(tmp, "bpe_simple.txt.gz")
+    with gzip.open(vocab, "wt", encoding="utf-8") as f:
+        f.write("#version\n" + "\n".join(" ".join(m) for m in MERGES) + "\n")
+    os.environ["CLIP_BPE_PATH"] = vocab  # cli.serve's tokenizer: the synthetic BPE table
+    daemon_store = os.path.join(tmp, "daemon_store.npz")  # /snapshot writes here
+    shutil.copyfile(store_path, daemon_store)
+    rng = np.random.default_rng(5)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    queries = [" ".join(rng.choice(words, size=rng.integers(2, 14))) for _ in range(256)]
+    blobs = _png_blobs(rng, 8, 224)
+    counts = {}
+
+    def start(extra):
+        args = ["--model.name=ViT-L/14", "--http=0", "--http-host=127.0.0.1",
+                "--max-pending=4096", "--cache-results=1024", f"--warmup={DAEMON_WARMUP}", "--bucket-queries"] + extra
+        opts = S.pop_daemon_flags(args)
+        cfg = config_from_argv(args)
+        t0 = time.perf_counter()
+        engine = S.build_engine(cfg, daemon_store, dev)
+        engine.t2s_retriever = fake_t2s(*(f"uuid-{i:06d}" for i in (7, 4242, 31000)))
+        t_build = time.perf_counter() - t0
+        n_warm, t_warm = S.warm_engine(engine, cfg, opts.warmup, image=True)
+        server = S.make_http_server(engine, cfg, daemon_store, opts).start()
+        log(f"daemon {extra}: engine built in {t_build:.1f} s; warmup {n_warm} searches in {t_warm:.1f} s; "
+            f"listening on {server.address[0]}:{server.address[1]}")
+        return cfg, engine, server, "http://{}:{}".format(*server.address), (n_warm, t_warm)
+
+    def expected_fused(engine, cfg, clip_lists, n):
+        hits = engine.t2s_retriever.retrieval("any")
+        return [engine._apply_threshold(engine._fuse_clip_sparql_linear(c, hits, alpha=cfg.fusion.alpha,
+                                                                         beta=cfg.fusion.beta),
+                                        cfg.fusion.threshold)[:n] for c in clip_lists]
+
+    # -- the int8 daemon under concurrent traffic ------------------------------
+    cfg, engine, server, base, warm = start(["--eval.encoder=int8", "--eval.quantize_corpus=int8"])
+    retriever = engine.clip_retriever
+    assert _http(base, "GET", "/healthz")["ok"]
+    torch.cuda.synchronize()
+    lat, answers, errors = {"text": [], "image": []}, [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(DAEMON_CLIENTS + 1)
+
+    def client(cid):
+        crng = np.random.default_rng(100 + cid)
+        barrier.wait()
+        for _ in range(DAEMON_REQUESTS):
+            is_img = crng.random() < DAEMON_IMAGE_FRAC
+            t0 = time.perf_counter()
+            try:
+                if is_img:
+                    out = _http(base, "POST", "/search_image", {"image": blobs[int(crng.integers(len(blobs)))]})
+                    assert 0 < len(out["results"]) <= 20 and all(np.isfinite(x["score"]) for x in out["results"])
+                else:
+                    q = queries[int(crng.integers(len(queries)))]
+                    alpha = None if crng.random() < 0.5 else float(crng.uniform(0.2, 0.8))
+                    body = {"query": q, "n": 20} | ({} if alpha is None else {"alpha": alpha})
+                    out = _http(base, "POST", "/search", body)
+                dt = time.perf_counter() - t0
+                with lock:
+                    lat["image" if is_img else "text"].append(dt)
+                    if not is_img:
+                        answers.append((q, cfg.fusion.alpha_clip if alpha is None else alpha, out["results"]))
+            except Exception as e:  # noqa: BLE001
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(DAEMON_CLIENTS)]
+    for t in threads:
+        t.start()
+    dispatch.reset_launch_counts()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["int8"] = dispatch.launch_counts()
+    if errors:
+        raise AssertionError(f"{len(errors)} daemon requests failed: {errors[:3]}")
+    text_stats, image_stats = server.batcher.stats, server.image_batcher.stats
+    total = len(lat["text"]) + len(lat["image"])
+    # repeated (query, alpha) pairs come from the result cache, not the batcher
+    assert total == DAEMON_CLIENTS * DAEMON_REQUESTS and 0 < text_stats["served"] <= len(lat["text"])
+
+    def pct(v):
+        v = sorted(v)
+        return {p: v[min(len(v) - 1, int(q * len(v)))] * 1e3 for p, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99))}
+
+    arch = retriever.model.arch
+    want_b1 = arch.text_layers * text_stats["batches"] + arch.vision_layers * image_stats["batches"]
+    got = counts["int8"]
+    log(f"daemon int8: launches {got}; B1 {got['fused_layer_q8']} = {arch.text_layers} text layers x "
+        f"{text_stats['batches']} text batches + {arch.vision_layers} vision layers x {image_stats['batches']} image batches "
+        f"({want_b1}); B2 q8 {got['similarity_topk_kernel']} (batches {text_stats['batches'] + image_stats['batches']})")
+    assert got["fused_layer_q8"] == want_b1 > 0, "B1 did not launch once a layer for each text and image batch"
+    assert got["similarity_topk_kernel"] == text_stats["batches"] + image_stats["batches"] > 0
+    assert image_stats["batches"] > 0 and text_stats["batches"] > 0
+    real = {m: sum(n * c for n, c in st["batch_size_hist"].items()) for m, st in (("text", text_stats),
+                                                                                 ("image", image_stats))}
+    padded = {"text": _padded_rows(text_stats["batch_size_hist"], 256),
+              "image": _padded_rows(image_stats["batch_size_hist"], 64)}
+    summary = dict(
+        requests=total, wall_s=wall, qps=total / wall, text_ms=pct(lat["text"]), image_ms=pct(lat["image"]),
+        batcher_text_ms=text_stats["latency_ms"], batcher_image_ms=image_stats["latency_ms"],
+        text_hist=text_stats["batch_size_hist"], image_hist=image_stats["batch_size_hist"],
+        real_rows=real, padded_rows=padded, warmup_searches=warm[0], warmup_s=warm[1],
+        cache_hits=len(lat["text"]) - text_stats["served"],
+    )
+    log(f"daemon int8: {total} requests from {DAEMON_CLIENTS} clients in {wall:.3f} s = {total / wall:.1f} q/s; "
+        f"text end to end p50/p95/p99 {summary['text_ms']['p50']:.2f} / {summary['text_ms']['p95']:.2f} / "
+        f"{summary['text_ms']['p99']:.2f} ms, image {summary['image_ms']['p50']:.2f} / {summary['image_ms']['p95']:.2f}"
+        f" / {summary['image_ms']['p99']:.2f} ms (host clock, client threads)")
+    log(f"daemon int8: MicroBatcher submit-to-result text {text_stats['latency_ms']}, image {image_stats['latency_ms']}; "
+        f"{summary['cache_hits']} text requests answered from the result cache")
+    log(f"daemon int8: batch sizes text {text_stats['batch_size_hist']}, image {image_stats['batch_size_hist']}; "
+        f"rows real / padded to a power of two: text {real['text']} / {padded['text']}, "
+        f"image {real['image']} / {padded['image']}")
+
+    # every /search answer against the engine called directly, per seq bucket
+    # and alpha as the daemon batched them (--bucket-queries)
+    groups = {}
+    for q, a, res in answers:
+        groups.setdefault(retriever.seq_bucket(q), []).append((q, a, res))
+    for bucket, items in groups.items():
+        direct = retriever.retrieval_batch([q for q, _, _ in items], alpha=[a for _, a, _ in items])
+        for (q, a, res), want in zip(items, expected_fused(engine, cfg, direct, 20)):
+            _same_lists(res, want, TOL_FUSED, f"/search {q!r} alpha {a}")
+    # the daemon's split: one text batch of the median size, called directly
+    sizes = [n for n, c in text_stats["batch_size_hist"].items() for _ in range(c)]
+    med_batch = int(np.median(sizes))
+    b = queries[:med_batch]
+    batch_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.retrieve_text_batch(b + [b[-1]] * (_padded_rows({med_batch: 1}, 256) - med_batch),
+                                   alpha_clip=[0.5] * _padded_rows({med_batch: 1}, 256))
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    summary["median_batch"], summary["batch_ms"] = med_batch, float(np.median(batch_ms))
+    log(f"daemon int8: split of a text request: end to end p50 {summary['text_ms']['p50']:.2f} ms, of which the "
+        f"MicroBatcher (queue + batch) p50 {text_stats['latency_ms']['p50']:.2f} ms and one padded batch of the "
+        f"median size {med_batch} {summary['batch_ms']:.2f} ms (engine called directly, median of 5); the rest is "
+        f"HTTP, JSON and threads")
+
+    # filtered, candidate and document requests, one at a time
+    allow = [f"uuid-{i:06d}" for i in range(0, CORPUS, 97)]
+    deny = [f"uuid-{i:06d}" for i in range(0, CORPUS, 2)]
+    c = retriever._corpus
+    cpu = [t.cpu() for t in (c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale)]
+    for q, al, de in ((queries[0], allow, None), (queries[1], None, deny), (queries[2], allow, deny[:500])):
+        out = _http(base, "POST", "/search", {"query": q, "n": 20}
+                    | ({"allow_uuids": al} if al else {}) | ({"deny_uuids": de} if de else {}))["results"]
+        mask = retriever._mask_from_uuids(c, al, de)
+        q_emb = retriever.encode_queries([q]).to(torch.bfloat16).cpu()
+        vals, idx = SIM.masked_similarity_topk_q8(q_emb, *cpu, mask, k=retriever.top_k, alpha=cfg.fusion.alpha_clip)
+        plain = retriever.results_from_topk(vals.numpy(), idx.numpy(), _state=c, top_k=retriever.top_k)
+        _same_lists(out, expected_fused(engine, cfg, plain, 20)[0], TOL_FUSED, f"filtered {q!r}")
+        assert out and all(al is None or x["uuid"] in al for x in out)
+        assert not any(x["uuid"] in (de or ()) for x in out)
+    cands = [allow[:40], deny[100:130] + ["uuid-none"]]
+    out = _http(base, "POST", "/search", {"queries": queries[3:5], "candidates": cands, "alpha": 0.3, "n": 10})
+    q_emb = retriever.encode_queries(queries[3:5]).float().cpu().numpy()
+    row = {u: i for i, u in enumerate(c.store.uuids)}
+    for qi, (res, cand) in enumerate(zip(out["results"], cands)):
+        exact = sorted(((0.3 * float(c.store.image[row[u]] @ q_emb[qi]) + 0.7 * float(c.store.text[row[u]] @ q_emb[qi]), u)
+                        for u in cand if u in row), reverse=True)[:10]
+        _same_lists(res, [{"uuid": u, "score": s} for s, u in exact], TOL_TOPK, f"candidates {qi}")
+    # a document whose rows are a query's own embedding ranks first
+    probe = queries[5]
+    e = retriever.encode_queries([probe]).float().cpu().numpy()[0].tolist()
+    added = _http(base, "POST", "/documents", {"documents": [{"uuid": "daemon-doc", "image_embedding": e,
+                                                             "text_embedding": e}]})
+    # a raw document: the daemon encodes it (B1 on the vision and text towers)
+    added_raw = _http(base, "POST", "/documents", {"documents": [{"uuid": "daemon-raw", "image": blobs[0],
+                                                                 "text": "hello cat"}]})
+    assert added == added_raw == {"added": 1}, (added, added_raw)
+    out = _http(base, "POST", "/search", {"query": probe, "n": 5})["results"]
+    assert out[0]["uuid"] == "daemon-doc", out[:2]
+    assert _http(base, "DELETE", "/documents", {"uuids": ["daemon-doc"]}) == {"removed": 1}
+    assert all(x["uuid"] != "daemon-doc" for x in _http(base, "POST", "/search", {"query": probe, "n": 20})["results"])
+    snap = _http(base, "POST", "/snapshot", {})
+    assert snap["rows"] == CORPUS + 1 and len(EmbeddingStore.load(daemon_store)) == CORPUS + 1, snap
+    health = _http(base, "GET", "/healthz")
+    assert health["ok"] and health["stats"]["served"] >= text_stats["served"]
+    metrics = _http(base, "GET", "/metrics")
+    assert 'kemr_requests_served_total{modality="image"}' in metrics
+    server.close()
+    log(f"daemon int8: {len(answers)} /search answers == engine.retrieve_text_batch (retrieval_batch + fusion) "
+        f"within {TOL_FUSED:g}; filtered == plain masked top-k; candidates == exact host scores; "
+        f"documents added, found, removed; snapshot {snap['rows']} rows")
+    del engine, retriever, server, cpu
+    torch.cuda.empty_cache()
+
+    # -- the fast encoder and the exact corpus, briefly ---------------------------
+    shutil.copyfile(store_path, daemon_store)
+    cfg, engine, server, base, _ = start(["--eval.encoder=fast"])
+    dispatch.reset_launch_counts()
+    outs = [_http(base, "POST", "/search", {"query": q, "n": 20}) for q in queries[10:18]]
+    torch.cuda.synchronize()
+    counts["fast"] = dispatch.launch_counts()
+    direct = engine.clip_retriever.retrieval_batch(queries[10:18], alpha=cfg.fusion.alpha_clip)
+    for q, out, want in zip(queries[10:18], outs, expected_fused(engine, cfg, direct, 20)):
+        _same_lists(out["results"], want, TOL_FUSED, f"fast /search {q!r}")
+    server.close()
+    log(f"daemon fast: launches {counts['fast']}")
+    for name in ("fused_attention_block", "fused_mlp_block", "similarity_topk_kernel"):
+        assert counts["fast"][name] > 0, f"{name} never launched behind the fast daemon"
+    del engine, server
+    torch.cuda.empty_cache()
+    t2s_log.setLevel(t2s_level)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    results["daemon"] = summary
+    log(f"daemon phase: {summary['phase_s']:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1667,6 +1980,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cap = capacity_phases(torch, dev, model, tmp, results)
         log(f"capacity serve phases: {time.perf_counter() - t0:.1f} s")
+        daemon = daemon_phase(torch, dev, tmp, store_path, results)
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -1730,6 +2044,12 @@ def main() -> int:
     log("vision-interior profiler medians (ms): " + "; ".join(f"{k} {v:.3f}" for k, v in prof_ms.items()))
     log("precompute images/s (build_embedding_store, synthetic:300, batch 256): " + ", ".join(
         f"{enc} {results[f'precompute_{enc}']['images_per_s']:.1f}" for enc in ("flax", "fast", "int8")))
+    d = results["daemon"]
+    log(f"daemon (ViT-L/14 int8, {DAEMON_CLIENTS} clients): {d['qps']:.1f} q/s; text p50/p95/p99 "
+        f"{d['text_ms']['p50']:.2f} / {d['text_ms']['p95']:.2f} / {d['text_ms']['p99']:.2f} ms; launches int8 "
+        f"B1 {daemon['int8']['fused_layer_q8']}, B2 q8 {daemon['int8']['similarity_topk_kernel']}; fast B3a "
+        f"{daemon['fast']['fused_attention_block']}, B3b {daemon['fast']['fused_mlp_block']}, B2 exact "
+        f"{daemon['fast']['similarity_topk_kernel']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

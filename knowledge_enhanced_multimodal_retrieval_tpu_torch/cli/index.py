@@ -8,12 +8,16 @@ loads (``cli.serve --eval.ann=ivf --eval.ann_index=ivf.npz``):
     python -m knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.index \\
         --store store.npz --out ivf.npz \\
         [--eval.ann_nlist=256] [--eval.quantize_corpus=int8|int4|pq] \\
-        [--calibrate=0.95 --calibrate-k=10 --calibrate-sample=256] [--device=cuda]
+        [--calibrate=0.95 --calibrate-k=10 --calibrate-sample=256] \\
+        [--eval.mmap_store=true] [--device=cuda]
 
 The file is the JAX package's format: either package serves it. It binds
 to the store by content fingerprint, so serving another (or an updated)
 store with it rebuilds instead of serving wrong results. ``--device``
-(default ``cpu``) runs k-means and the calibration probes there.
+(default ``cuda``, as every entry point of the port; it never falls back,
+so the CPU takes ``--device=cpu``) runs k-means and the calibration probes
+there.
+``--eval.mmap_store`` memory-maps the store's rows.
 """
 
 from __future__ import annotations
@@ -42,15 +46,13 @@ def main(argv=None) -> str:
     calibrate = pop_flag(args, "--calibrate")
     calibrate_k = int(pop_flag(args, "--calibrate-k", "10"))
     calibrate_sample = int(pop_flag(args, "--calibrate-sample", "256"))
-    device = resolve_device(pop_flag(args, "--device", "cpu"))
+    device = resolve_device(pop_flag(args, "--device", "cuda"))
     if not store_path or not out:
         raise ValueError("--store and --out are required")
     cfg = config_from_argv(args)
-    if cfg.eval.mmap_store:
-        raise NotImplementedError("--eval.mmap_store is not ported yet: ROADMAP A2 (serving shell)")
     logging.basicConfig(level=logging.INFO)
 
-    store = EmbeddingStore.load(store_path)
+    store = EmbeddingStore.load(store_path, mmap=cfg.eval.mmap_store)
     nlist = cfg.eval.ann_nlist or max(1, int(np.sqrt(len(store))))
     quantize = resolve_quantize_corpus(cfg.eval.quantize_corpus)
     if quantize == "binary":

@@ -1,14 +1,28 @@
-"""Serving entry point: knowledge-enhanced retrieval queries on one device.
+"""Serving entry point: knowledge-enhanced retrieval queries and the HTTP daemon.
 
-The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/serve.py``
-for the ``--query`` and ``--batch`` modes: load a precomputed embedding
-store, build the CLIP towers (checkpoint or seeded weights), wire the
-Text2SPARQL retriever when its endpoints are configured, and answer:
+The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/serve.py``:
+load a precomputed embedding store, build the CLIP towers (checkpoint or
+seeded weights), wire the Text2SPARQL retriever when its endpoints are
+configured, and answer one query, a batch from stdin, or HTTP requests:
 
     python -m knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.serve \
         --store=data/embeddings/store.npz --model.name=ViT-L/14 \
         --eval.encoder=int8 --eval.quantize_corpus=int8 \
         [--device=cuda] [--query="madonna and child" | --batch < queries.txt]
+
+    python -m knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.serve \
+        --store=store.npz --eval.encoder=int8 --eval.quantize_corpus=int8 \
+        --http 8080 [--http-host 0.0.0.0] [--max-pending 512] \
+        [--cache-results 4096] [--warmup 1,2,4,8,16,32,64,128,256] [--bucket-queries]
+
+The daemon (``retrieval.http_server``) serves ``/search`` (per-request
+alpha, ``allow_uuids`` / ``deny_uuids`` filters, per-query ``candidates``),
+``/search_image``, ``POST`` / ``DELETE /documents`` (embeddings or raw
+images and texts, encoded on the device), ``/snapshot`` (the live corpus
+back to ``--store``), ``/healthz`` and ``/metrics``; SIGTERM drains it.
+``--warmup`` runs each listed batch size at every seq bucket (and the image
+search) before the socket opens; ``--bucket-queries`` splits micro-batches
+by seq bucket.
 
 The capacity tiers take the JAX CLI's flags: ``--eval.quantize_corpus=
 int4|pq|binary``, ``--eval.pq_m``, ``--eval.pq_aniso_t``, ``--eval.rotate``
@@ -16,7 +30,8 @@ with ``--eval.rotate_mode=random|opq`` and ``--eval.rotate_seed``,
 ``--eval.truncate_dim``, ``--eval.rerank`` with ``--eval.rerank_factor``,
 and ``--eval.ann=ivf`` with ``--eval.ann_nlist``, ``--eval.ann_nprobe``,
 ``--eval.ann_index`` (an index cache, e.g. from ``cli.index``) and
-``--eval.ann_max_batch_lookups``.
+``--eval.ann_max_batch_lookups``. ``--eval.mmap_store`` memory-maps the
+store's rows.
 
 ``--device`` defaults to ``cuda`` and never falls back: serving on the CPU
 (the kernels' plain versions) takes ``--device=cpu``.
@@ -25,7 +40,11 @@ and ``--eval.ann=ivf`` with ``--eval.ann_nlist``, ``--eval.ann_nprobe``,
 from __future__ import annotations
 
 import json
+import logging
 import sys
+import time
+from dataclasses import dataclass
+from typing import Optional
 
 from ..utils.config import (
     Endpoints,
@@ -38,31 +57,26 @@ from ..data.tokenizer import CLIPTokenizer
 from ..retrieval.clip_retrieval import CLIPRetrieval
 from ..retrieval.embedding_store import EmbeddingStore
 from ..retrieval.engine import RetrievalEngine
+from ..retrieval.http_server import RetrievalHTTPServer
 from .common import build_model, pop_flag, resolve_device
+
+logger = logging.getLogger("kemr_torch.cli.serve")  # standard error: standard output carries the answers
 
 # entry-point flags of the JAX CLI that this port does not serve yet
 _NOT_PORTED_FLAGS = {
-    "--http": "A2 (serving shell: HTTP daemon)",
-    "--http-host": "A2 (serving shell: HTTP daemon)",
-    "--max-pending": "A2 (serving shell: HTTP daemon)",
-    "--cache-results": "A2 (serving shell: HTTP daemon)",
-    "--warmup": "A2 (serving shell: warmup)",
-    "--bucket-queries": "A2 (serving shell: MicroBatcher)",
     "--multihost": "A5 (parallel modes)",
     "--multihost-batch": "A5 (parallel modes)",
 }
 
 
 def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEngine:
-    if cfg.eval.mmap_store:
-        raise NotImplementedError("--eval.mmap_store is not ported yet: ROADMAP A2 (serving shell)")
     if cfg.eval.compile_cache:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
     if cfg.fusion.head_params:
         raise NotImplementedError("--fusion.head_params is not ported yet: ROADMAP A3 (eval and fusion)")
     model = build_model(cfg, device)
     tokenizer = CLIPTokenizer.find_default()
-    store = EmbeddingStore.load(store_path)
+    store = EmbeddingStore.load(store_path, mmap=cfg.eval.mmap_store)
     # eval.encoder: flax (module tower), fast (bf16 fused layers), int8 (W8A8)
     use_fast, quantize = resolve_encoder(cfg.eval.encoder)
     clip_r = CLIPRetrieval(
@@ -116,6 +130,90 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
     return RetrievalEngine(clip_r, t2s, cfg.fusion)
 
 
+@dataclass
+class DaemonOptions:
+    """The daemon's flags (``--http`` and its companions)."""
+
+    port: Optional[int] = None  # None: no daemon
+    host: str = "127.0.0.1"  # bind address (containers usually need 0.0.0.0)
+    max_pending: int = 0  # 0 = queue without bound; > 0 = HTTP 503 past that many pending requests
+    cache_results: int = 0  # (query, alpha) result-cache entries; emptied on every corpus update
+    warmup: str = ""  # comma-separated batch sizes to run before serving
+    bucket_queries: bool = False  # split micro-batches by seq bucket
+
+
+def pop_daemon_flags(args) -> DaemonOptions:
+    """Remove the daemon's flags from ``args``."""
+    port = pop_flag(args, "--http")
+    opts = DaemonOptions(
+        port=None if port is None else int(port),
+        host=pop_flag(args, "--http-host", "127.0.0.1"),
+        max_pending=int(pop_flag(args, "--max-pending", "0")),
+        cache_results=int(pop_flag(args, "--cache-results", "0")),
+        warmup=pop_flag(args, "--warmup", ""),
+        bucket_queries="--bucket-queries" in args,
+    )
+    if opts.bucket_queries:
+        args.remove("--bucket-queries")
+    return opts
+
+
+def warm_engine(engine: RetrievalEngine, cfg, sizes: str, image: bool):
+    """``--warmup``: run each batch size of ``sizes`` at every seq bucket
+    (and the image search when the daemon serves it); returns (searches run,
+    seconds)."""
+    batch_sizes = [int(x) for x in sizes.split(",") if x.strip()]
+    t0 = time.monotonic()
+    n = engine.clip_retriever.warmup(batch_sizes, alpha=cfg.fusion.alpha_clip, image=image)
+    return n, time.monotonic() - t0
+
+
+def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: DaemonOptions) -> RetrievalHTTPServer:
+    """The daemon over ``engine``: the JAX CLI's wiring, hook for hook. The
+    socket is bound here; serve with ``serve_forever()`` or ``start()``."""
+    clip_r = engine.clip_retriever
+    batch_fn = engine.retrieve_text_batch if engine.t2s_retriever else engine.retrieve_text_noknowledge_batch
+    default_alpha = cfg.fusion.alpha_clip
+
+    def resolve_alphas(alphas):
+        # per-request blend (alpha in the request): None takes the default;
+        # mixed alphas ride one micro-batch
+        return [default_alpha if a is None else float(a) for a in alphas]
+
+    def alphas_batch_fn(queries, alphas):
+        return batch_fn(queries, alpha_clip=resolve_alphas(alphas))
+
+    def filtered_batch_fn(queries, alphas, allow, deny):
+        # hard filters need an exact scan: under ann='ivf' this raises
+        # ValueError, which the daemon answers with 400
+        return engine.retrieve_text_filtered_batch(queries, allow, deny, alpha_clip=resolve_alphas(alphas))
+
+    def candidates_batch_fn(queries, candidates, alphas):
+        # caller-supplied candidate sets, scored exactly on the host store
+        return clip_r.retrieval_candidates_batch(queries, candidates, alpha=resolve_alphas(alphas))
+
+    return RetrievalHTTPServer(
+        batch_fn, host=opts.host, port=opts.port, max_pending=opts.max_pending,
+        result_cache_size=opts.cache_results,
+        alphas_batch_fn=alphas_batch_fn,
+        # live corpus updates: searches serve the old corpus until the new
+        # one swaps in; raw documents are encoded on the device
+        add_documents_fn=clip_r.add_documents,
+        remove_documents_fn=clip_r.remove_documents,
+        encode_documents_fn=clip_r.encode_documents,
+        # POST /snapshot writes the live corpus back to the store file
+        # (atomic replace), so ingested documents survive a restart
+        snapshot_fn=lambda: {"path": store_path, "rows": clip_r.save_store(store_path)},
+        image_batch_fn=engine.retrieve_image_batch,
+        image_preprocess_fn=clip_r.preprocess_images,
+        filtered_batch_fn=filtered_batch_fn,
+        candidates_batch_fn=candidates_batch_fn,
+        # learned-fusion rescoring is ROADMAP A3: {"fused": true} answers 501
+        fused_batch_fn=None,
+        length_bucket_fn=clip_r.seq_bucket if opts.bucket_queries else None,
+    )
+
+
 def main(argv=None) -> None:
     args = list(sys.argv[1:] if argv is None else argv)
     for flag, item in _NOT_PORTED_FLAGS.items():
@@ -127,9 +225,41 @@ def main(argv=None) -> None:
     store_path = pop_flag(args, "--store", "data/embeddings/store.npz")
     kg_path = pop_flag(args, "--kg", "")
     query = pop_flag(args, "--query")
+    opts = pop_daemon_flags(args)
     device = resolve_device(pop_flag(args, "--device", "cuda"))
     cfg = config_from_argv(args)
+    logging.basicConfig(level=logging.INFO)
     engine = build_engine(cfg, store_path, device, kg_path=kg_path)
+    mode = "knowledge-enhanced" if engine.t2s_retriever else "CLIP-only (no KG endpoints configured)"
+    logger.info("engine ready on %s: %s", device, mode)
+    if opts.warmup:
+        n, secs = warm_engine(engine, cfg, opts.warmup, image=opts.port is not None)
+        logger.info("warmed %d searches for batch sizes %s in %.1fs", n, opts.warmup, secs)
+
+    if opts.port is not None:
+        server = make_http_server(engine, cfg, store_path, opts)
+        logger.info("serving HTTP on %s:%d (/search, /search_image, /documents, /snapshot, /healthz, /metrics)",
+                    *server.address)
+        # SIGTERM: the handler only asks serve_forever to return (shutdown()
+        # called from this thread's signal frame would deadlock, so a helper
+        # thread calls it); the full close, socket and batcher drain, then
+        # runs on the main thread, which keeps the process alive until the
+        # drain completes
+        import signal
+        import threading
+
+        def _stop(signum, frame):
+            logger.info("signal %d: draining and shutting down", signum)
+            threading.Thread(target=server.request_shutdown, daemon=True).start()
+
+        signal.signal(signal.SIGTERM, _stop)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.close()
+        return
 
     def answer_batch(qs) -> None:
         if engine.t2s_retriever:

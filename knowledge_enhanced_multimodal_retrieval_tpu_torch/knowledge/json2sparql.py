@@ -98,13 +98,18 @@ def _escape_string(value: Any) -> str:
 
 def _escape_uri(uri: Any) -> str:
     """Make a URI safe inside ``<...>``: percent-encode the delimiters and
-    whitespace an adversarial value could use to escape the IRI ref."""
+    whitespace an adversarial value could use to escape the IRI ref, and a
+    leading ``=``, which right after the ``<`` would read as the ``<=``
+    operator (the parser's tokenizer reads nothing else inside ``<...>``
+    before the closing ``>``)."""
     s = str(uri)
     for ch, enc in (("<", "%3C"), (">", "%3E"), ('"', "%22"), ("{", "%7B"),
                     ("}", "%7D"), ("|", "%7C"), ("^", "%5E"), ("`", "%60"),
                     ("\\", "%5C"), ("\r", "%0D"), ("\n", "%0A"), (" ", "%20"),
                     ("\t", "%09")):
         s = s.replace(ch, enc)
+    if s.startswith("="):
+        s = "%3D" + s[1:]
     return s
 
 
@@ -114,14 +119,25 @@ def _comment(label: Any) -> str:
     return str(label).replace("\r", " ").replace("\n", " ")
 
 
-_VAR_BAD = re.compile(r"\W")
+_VAR_CLEAN = re.compile(r"[A-Za-z][A-Za-z0-9]*(?:_[A-Za-z0-9]+)*")
+_VAR_BAD = re.compile(r"[^A-Za-z0-9_]")
 
 
 def _safe_var(name: Any) -> str:
-    """Variable names must be word characters; deterministic sanitization so
-    every mention of the same raw name maps to the same variable."""
-    cleaned = _VAR_BAD.sub("_", str(name))
-    return cleaned or "v"
+    """A SPARQL variable name for a raw name: ASCII, letter first, and one
+    to one. A clean name (an ASCII letter, then letters and digits in runs
+    joined by single underscores) is kept as it is; any other name becomes
+    its ASCII-sanitized form, letter first, then ``__`` and the hex of its
+    UTF-8 bytes. No clean name holds ``__``, and the hex tail names the raw
+    name, so distinct raw names stay distinct, and every mention of one
+    raw name maps to the same variable."""
+    raw = str(name)
+    if _VAR_CLEAN.fullmatch(raw):
+        return raw
+    cleaned = _VAR_BAD.sub("_", raw).strip("_")
+    if not cleaned[:1].isalpha():
+        cleaned = "v" + cleaned
+    return f"{cleaned}__{raw.encode('utf-8').hex()}"
 
 
 def _format_literal(value: Any, datatype: str) -> str:

@@ -180,10 +180,14 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device
 
 
 # -- launch counters ----------------------------------------------------------
-# Each kernel wrapper carries a plain integer ``launches`` that it raises by
-# one where it launches its kernel, and nowhere else.
+# Each kernel wrapper carries an integer ``launches`` that it raises by one
+# (:func:`count_launch`) where it launches its kernel, and nowhere else. The
+# daemon launches from several threads at once (the text and image
+# micro-batch workers, filtered requests on request threads), so the
+# counters change under a lock.
 
 _COUNTED: Dict[str, object] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def counted(fn):
@@ -192,10 +196,17 @@ def counted(fn):
     return fn
 
 
+def count_launch(fn) -> None:
+    with _COUNT_LOCK:
+        fn.launches += 1
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    with _COUNT_LOCK:
+        return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    with _COUNT_LOCK:
+        for fn in _COUNTED.values():
+            fn.launches = 0

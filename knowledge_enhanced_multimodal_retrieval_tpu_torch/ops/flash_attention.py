@@ -80,7 +80,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ca
         b * h, sq, sk, d, int(causal), _scale(d), dispatch.stream_of(q),
     )
     dispatch.check(status, "flash_attention_kernel")
-    flash_attention_kernel.launches += 1
+    dispatch.count_launch(flash_attention_kernel)
     return out
 
 

@@ -361,7 +361,7 @@ def fused_attention_block(
         dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_attention_block")
-    fused_attention_block.launches += 1
+    dispatch.count_launch(fused_attention_block)
     return out
 
 
@@ -401,7 +401,7 @@ def fused_mlp_block(
         n, width, ff, eps, dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_mlp_block")
-    fused_mlp_block.launches += 1
+    dispatch.count_launch(fused_mlp_block)
     return out
 
 
@@ -470,7 +470,7 @@ def fused_layer_q8(
         dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_layer_q8")
-    fused_layer_q8.launches += 1
+    dispatch.count_launch(fused_layer_q8)
     return out
 
 
@@ -514,7 +514,7 @@ def fused_attention_block_q8(
         x.shape[0], width, heads, seq_len, mask_len, int(causal), eps, dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_attention_block_q8")
-    fused_attention_block_q8.launches += 1
+    dispatch.count_launch(fused_attention_block_q8)
     return out
 
 
@@ -556,7 +556,7 @@ def fused_mlp_block_q8(
         x.shape[0], width, ff, n_chunks, eps, dispatch.stream_of(x),
     )
     dispatch.check(status, "fused_mlp_block_q8")
-    fused_mlp_block_q8.launches += 1
+    dispatch.count_launch(fused_mlp_block_q8)
     return out
 
 

@@ -17,7 +17,9 @@ row packs to scale 0 and scores exactly 0).
   which is what the JAX package runs off the TPU. The TPU kernel's caps
   (k <= 64 on the chip, 128 in :func:`fused_pq_topk`) were VMEM artifacts;
   :func:`fused_pq_topk` keeps the JAX refusal above 128, and the router
-  calls the kernel's wrapper directly.
+  calls the kernel's wrapper directly. Filtered search
+  (:func:`masked_pq_similarity_topk`) takes the decode path on every
+  device, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from . import dispatch
 from .dispatch import I, P
 from .similarity import (
+    _masked_topk_from_scores,
     _ptr,
     _segmented_topk_from_scores,
     _sm_count,
@@ -429,6 +432,15 @@ def pq_similarity_topk_xla(queries, img_codes, img_scale, txt_codes, txt_scale, 
     return _segmented_topk_from_scores(scores, min(k, n), segment=4096)
 
 
+def masked_pq_similarity_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, mask, k: int,
+                              alpha=0.5, chunk: int = _DECODE_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Filtered top-k over a PQ corpus: the decode path's scores, a bool row
+    mask, ``-1`` row sentinels on dead slots (as ``masked_similarity_topk``)."""
+    n = img_codes.shape[0]
+    scores = blended_scores_pq(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, alpha, chunk)
+    return _masked_topk_from_scores(scores, mask, min(k, n))
+
+
 def pq_luts(queries: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """``[Q, D] x [M, K, ds] -> bf16 LUT [M, Q, K]``: ``LUT[m, q, k] =
     q_sub[q, m] . cb[m, k]`` in f32, cast to bf16 (the one rounding the ADC
@@ -537,7 +549,7 @@ def pq_adc_topk_kernel(alpha_col, lut_i, lut_t, codes_i, scale_i, codes_t, scale
             *map(_ptr, scratch), vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(lut_i),
         )
         dispatch.check(status, "pq_adc_topk_kernel")
-        pq_adc_topk_kernel.launches += 1
+        dispatch.count_launch(pq_adc_topk_kernel)
         return vals, idx
 
     return topk_passes(launch, qn, k, dev)

@@ -16,6 +16,9 @@ as JAX does above its kernel's cap; a CUDA tensor launches the kernel at
 every k: its running lists carry up to ``KERNEL_PASS_K`` = 512 rows a pass,
 and a larger k runs as passes under a ceiling (:func:`topk_passes`).
 
+The masked (filtered) top-k at the end of the module is plain PyTorch on
+every device, as it is plain XLA in the JAX package.
+
 Also here, as in JAX, the host helpers the capacity tiers share: the
 Matryoshka prefix renormalization, the seeded random rotation and the exact
 f32 host rerank of fetched candidates.
@@ -388,7 +391,7 @@ def similarity_topk_kernel(
             vals.data_ptr(), idx.data_ptr(), dispatch.stream_of(queries_img),
         )
         dispatch.check(status, "similarity_topk_kernel")
-        similarity_topk_kernel.launches += 1
+        dispatch.count_launch(similarity_topk_kernel)
         return vals, idx
 
     return topk_passes(launch, qn, k, dev)
@@ -455,3 +458,47 @@ def fused_similarity_topk_q4(
     return similarity_topk_kernel(
         queries_img, q_txt, img_p, txt_p, img_scale.reshape(-1, 1), txt_scale.reshape(-1, 1), a, k, q4=True
     )
+
+
+# -- masked (filtered) search -------------------------------------------------
+# A bool row mask, [N] (one filter for the batch) or [Q, N] (one per query),
+# restricts the scan to eligible rows: the JAX package's masked search, which
+# runs no Pallas kernel there either. The blended scores are materialized
+# (a [256, 43,000] f32 matrix is 44 MB), ineligible rows score float32 min,
+# and the selection is the segmented exact top-k. Slots past the eligible
+# rows come back with the -1 row sentinel, as the IVF path returns them.
+
+
+def normalize_mask(mask, n_queries: int, n_rows: int, device=None) -> torch.Tensor:
+    """A row filter as a bool ``[1 or Q, N]`` tensor (True = row eligible)."""
+    m = torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask) else mask, device=device)
+    if m.ndim == 1:
+        m = m[None, :]
+    if m.ndim != 2 or m.shape[-1] != n_rows or m.shape[0] not in (1, n_queries):
+        raise ValueError(f"mask shape {tuple(m.shape)} incompatible with {n_queries} queries x {n_rows} rows")
+    return m.bool()
+
+
+def _masked_topk_from_scores(scores: torch.Tensor, mask, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = normalize_mask(mask, scores.shape[0], scores.shape[1], device=scores.device)
+    scores = torch.where(m, scores, torch.full_like(scores, _NEG_INF))
+    vals, idx = _segmented_topk_from_scores(scores, k, segment=4096)
+    # fewer than k eligible rows: sentinel the dead slots
+    return vals, torch.where(vals > _NEG_INF / 2, idx, torch.full_like(idx, -1))
+
+
+def masked_similarity_topk(queries, img_emb, txt_emb, mask, k: int, alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact blended top-k restricted to ``mask``-eligible corpus rows."""
+    return _masked_topk_from_scores(blended_scores(queries, img_emb, txt_emb, alpha), mask, k)
+
+
+def masked_similarity_topk_q8(queries, img_q, img_scale, txt_q, txt_scale, mask, k: int,
+                              alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over an int8 corpus (the q8 scan's rounding)."""
+    return _masked_topk_from_scores(blended_scores_q8(queries, img_q, img_scale, txt_q, txt_scale, alpha), mask, k)
+
+
+def masked_similarity_topk_q4(queries, img_p, img_scale, txt_p, txt_scale, mask, k: int,
+                              alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over a nibble-packed int4 corpus."""
+    return _masked_topk_from_scores(blended_scores_q4(queries, img_p, img_scale, txt_p, txt_scale, alpha), mask, k)

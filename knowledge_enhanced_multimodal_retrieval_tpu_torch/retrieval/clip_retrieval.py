@@ -14,11 +14,13 @@ layers) encoders, and the JAX retriever's corpus ladder: exact (bf16 /
 f32), int8 and int4 (kernel B2), product-quantized (kernel B5 on CUDA),
 binary sign sketches, and IVF lists (exact / int8 / int4 / residual PQ),
 each optionally rotated (random or OPQ) or truncated, with the host
-rerank. Every tensor lives on the explicit ``device``; CUDA runs the
-hand-written kernels, the CPU their plain versions. The search runs eagerly
-(no per-bucket compiled program). Options of the JAX retriever that this
-port does not carry yet raise ``NotImplementedError`` naming their ROADMAP
-item.
+rerank. Also the serving shell's entry points: filtered search (a uuid
+allow / deny row mask, plain masked top-k), candidate scoring on the host,
+the pipelined batch streams, warmup, and corpus replacement and snapshots.
+Every tensor lives on the explicit ``device``; CUDA runs the hand-written
+kernels, the CPU their plain versions. The search runs eagerly (no
+per-bucket compiled program). Options of the JAX retriever that this port
+does not carry yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,18 +29,21 @@ import dataclasses
 import os
 import threading
 import zipfile
+from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.preprocess import preprocess_pil
+from ..data.tokenizer import DEFAULT_BUCKETS as _WARMUP_BUCKETS
 from ..data.tokenizer import CLIPTokenizer, trim_to_bucket
 from ..models.clip import CLIP, l2_normalize
 from ..models.fast_encode import encode_image_fast, encode_text_fast, make_text_plan, make_vision_plan
 from ..ops.binary_sketch import hamming_topk, pack_sign_bits_host
 from ..ops.pq import (
+    masked_pq_similarity_topk,
     pack_pq_host,
     pq_similarity_topk,
     train_opq_rotation,
@@ -49,6 +54,10 @@ from ..ops.similarity import (
     fused_similarity_topk,
     fused_similarity_topk_q4,
     fused_similarity_topk_q8,
+    masked_similarity_topk,
+    masked_similarity_topk_q4,
+    masked_similarity_topk_q8,
+    normalize_mask,
     prefix_normalize,
     prefix_normalize_host,
     quantize_corpus_host,
@@ -58,7 +67,7 @@ from ..ops.similarity import (
 )
 from .ann import _SUBLANE as _CAP_SUBLANE
 from .ann import IVFIndex, build_ivf_index, corpus_fingerprint, ivf_search, load_ivf_index, save_ivf_index
-from .embedding_store import EmbeddingStore
+from .embedding_store import EmbeddingStore, host_tensor
 
 # options of the JAX retriever outside this port's slice -> ROADMAP item
 _NOT_PORTED = {
@@ -66,8 +75,6 @@ _NOT_PORTED = {
     "shard_corpus": "A5 (parallel modes)",
     "shard_queries": "A5 (parallel modes)",
 }
-_FILTERED = "filtered search is not ported yet: ROADMAP A2 (serving shell: filtered and candidate search)"
-_SERVING_SHELL = "is not ported yet: ROADMAP A2 (serving shell: filtered and candidate search)"
 _FUSION = "is not ported yet: ROADMAP A3 (eval and fusion)"
 
 
@@ -259,7 +266,7 @@ class CLIPRetrieval:
     # -- corpus state ----------------------------------------------------------
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device=self.device, dtype=dtype)
+        return host_tensor(a).to(device=self.device, dtype=dtype)
 
     def _install_corpus(self, store: EmbeddingStore) -> None:
         """Build the corpus device state and swap it in atomically."""
@@ -383,6 +390,11 @@ class CLIPRetrieval:
     def top_k(self) -> int:
         return self._corpus.top_k
 
+    def set_store(self, store: EmbeddingStore) -> None:
+        """Replace the corpus wholesale (rebuilds the device state, then swaps)."""
+        with self._update_lock:
+            self._install_corpus(store)
+
     def add_documents(self, image: np.ndarray, text: np.ndarray, uuids: Sequence[str]) -> None:
         """Append documents (L2-normalized [n, D] tower embeddings + uuids)."""
         with self._update_lock:
@@ -392,6 +404,16 @@ class CLIPRetrieval:
         """Retire documents by uuid (unknown uuids raise KeyError)."""
         with self._update_lock:
             self._install_corpus(self._corpus_real_store().with_removed(uuids))
+
+    def save_store(self, path: str) -> int:
+        """Persist the current corpus (live-ingested documents included,
+        capacity pads left out) to ``path`` atomically; returns the row
+        count. Serialized against updates, so the snapshot is one corpus
+        version; a memory-mapped store writes its live rows."""
+        with self._update_lock:
+            store = self._corpus_real_store()
+        store.save(path)
+        return len(store)
 
     def _corpus_real_store(self) -> EmbeddingStore:
         c = self._corpus
@@ -411,10 +433,13 @@ class CLIPRetrieval:
         """The seq bucket this query encodes at."""
         return int(self._tokenize([query]).shape[1])
 
-    @torch.no_grad()
     def encode_queries(self, queries: Sequence[str]) -> torch.Tensor:
         """Queries -> L2-normalized [B, D] embeddings on the device."""
-        ids = torch.as_tensor(self._tokenize(queries), dtype=torch.long).to(self.device)
+        return self._encode_ids(self._tokenize(queries))
+
+    @torch.no_grad()
+    def _encode_ids(self, ids) -> torch.Tensor:
+        ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
         if self.use_fused_encoder:
             q = encode_text_fast(self.model.arch, self._text_plan, ids)
         else:
@@ -465,6 +490,32 @@ class CLIPRetrieval:
         q = q.to(c.corpus_img.dtype).contiguous()
         return fused_similarity_topk(q, c.corpus_img, c.corpus_txt, k=k, alpha=alpha)
 
+    def _score_masked(self, c: _CorpusState, q: torch.Tensor, alpha, mask, k: int):
+        """Blend + top-k restricted to ``mask``-eligible rows (the JAX
+        retriever's ``_score_fn_masked``, in its order: truncate, rotate, the
+        binary refusal, pq, int4 / int8, exact). Dead slots carry row -1."""
+        if self.truncate_dim:
+            q = prefix_normalize(q, self.truncate_dim)
+        if self._rot is not None:
+            q = q.float() @ self._rot
+        if self.quantize_corpus == "binary":
+            raise ValueError(
+                "filtered search is not supported over a binary-sketch "
+                "corpus — use candidate scoring (retrieval_candidates_batch)"
+            )
+        mask = normalize_mask(mask, q.shape[0], len(c.store), device=self.device)
+        if self.quantize_corpus == "pq":
+            q = q.to(self.model.dtype)
+            (codes_i, cb_i), (codes_t, cb_t) = c.corpus_img, c.corpus_txt
+            return masked_pq_similarity_topk(
+                q, codes_i, c.corpus_img_scale, codes_t, c.corpus_txt_scale, cb_i, cb_t, mask, k=k, alpha=alpha
+            )
+        if self.quantize_corpus:
+            q = q.to(self.model.dtype)
+            fn = masked_similarity_topk_q4 if self.quantize_corpus == "int4" else masked_similarity_topk_q8
+            return fn(q, c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, mask, k=k, alpha=alpha)
+        return masked_similarity_topk(q.to(c.corpus_img.dtype), c.corpus_img, c.corpus_txt, mask, k=k, alpha=alpha)
+
     def _k_fetch(self, c: _CorpusState, k: int) -> int:
         """Pad rows score exactly 0 and could displace negative-scoring real
         matches: over-fetch by the bucket's maximum pad count; the rerank
@@ -491,6 +542,44 @@ class CLIPRetrieval:
                 "quantize_corpus='int8'/'int4' with ann='ivf' (dense probes), or "
                 "raise ann_max_batch_lookups (<= 0 disables the check)."
             )
+
+    # -- warmup ---------------------------------------------------------------------
+
+    @torch.no_grad()
+    def warmup(
+        self,
+        batch_sizes: Sequence[int],
+        *,
+        alpha: float = 0.5,
+        top_k: Optional[int] = None,
+        seq_buckets: Optional[Sequence[int]] = None,
+        image: bool = False,
+    ) -> int:
+        """Run the search once per (batch size, seq bucket), and the image
+        search once per batch size with ``image=True``, before serving;
+        returns the count of searches run (the JAX retriever's count for the
+        same arguments). Nothing compiles here: the first searches load the
+        kernel library, fill the tensor-map caches and size the allocator's
+        pools, which a daemon should pay before it takes connections."""
+        c = self._corpus
+        ctx = self.model.arch.context_length
+        buckets = sorted({b for b in (seq_buckets or _WARMUP_BUCKETS) if b <= ctx}) or [ctx]
+        count = 0
+        for b in batch_sizes:
+            if b < 1:
+                raise ValueError(f"warmup batch size must be >= 1, got {b}")
+            for s in buckets:
+                q = self._encode_ids(np.ones((int(b), int(s)), np.int64))
+                self._search_state_emb(c, q, alpha, top_k)
+                count += 1
+            if image:
+                size = self.model.arch.image_resolution
+                pixels = np.zeros((int(b), size, size, 3), np.float32)
+                self._search_state_emb(c, self.encode_images(pixels), alpha, top_k)
+                count += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return count
 
     # -- IVF calibration ----------------------------------------------------------
 
@@ -563,30 +652,171 @@ class CLIPRetrieval:
             vals, idx = vals.float().cpu().numpy(), idx.cpu().numpy()
         return self.results_from_topk(vals, idx, _state=c, top_k=k)
 
-    # -- filtered search (ROADMAP A2) ---------------------------------------------
+    # -- filtered search -------------------------------------------------------------
+    # A bool row mask over the padded store restricts the scan; changing the
+    # filter changes an operand, nothing else. Pad rows are always masked, so
+    # the filtered path needs no pad over-fetch.
 
-    def search_filtered_batch(self, *args, **kwargs):
-        raise NotImplementedError(_FILTERED)
+    def _mask_from_uuids(
+        self, c: _CorpusState, allow_uuids: Optional[Iterable[str]], deny_uuids: Optional[Iterable[str]]
+    ) -> np.ndarray:
+        """Bool row mask over the padded store (pads always False). Unknown
+        uuids in either list are ignored: a filter is a predicate over the
+        corpus, not a membership assertion."""
+        if allow_uuids is None and deny_uuids is None:
+            raise ValueError("filtered search needs allow_uuids and/or deny_uuids")
+        uuids = c.store.uuids
+        if allow_uuids is not None:
+            allowed = set(allow_uuids)
+            mask = np.fromiter((u in allowed for u in uuids), bool, len(uuids))
+        else:
+            mask = np.fromiter((not u.startswith("__pad_") for u in uuids), bool, len(uuids))
+        if deny_uuids is not None:
+            denied = set(deny_uuids)
+            if denied:
+                mask &= np.fromiter((u not in denied for u in uuids), bool, len(uuids))
+        return mask
 
-    def retrieval_filtered_batch(self, *args, **kwargs):
-        raise NotImplementedError(_FILTERED)
+    def _k_fetch_masked(self, c: _CorpusState, k: int) -> int:
+        # pads are masked out (never displace winners); only the rerank over-fetches
+        return min(k * self.rerank_factor, len(c.store)) if self.rerank else k
 
-    def retrieval_filtered(self, *args, **kwargs):
-        raise NotImplementedError(_FILTERED)
+    def search_filtered_batch(
+        self,
+        queries: Sequence[str],
+        allow_uuids: Optional[Iterable[str]] = None,
+        deny_uuids: Optional[Iterable[str]] = None,
+        alpha=0.5,
+        top_k: Optional[int] = None,
+    ):
+        """Batched search restricted by uuid allow / deny lists (raw winners,
+        as :meth:`search_batch` returns them); slots past the eligible rows
+        carry row -1. Needs an exact corpus scan: with ``ann='ivf'`` use
+        :meth:`retrieval_candidates_batch`."""
+        return self._search_filtered_state(self._corpus, queries, allow_uuids, deny_uuids, alpha, top_k)
 
-    def retrieval_filtered_embeddings_batch(self, *args, **kwargs):
-        raise NotImplementedError(_FILTERED)
+    def _search_filtered_state(self, c: _CorpusState, queries, allow_uuids, deny_uuids, alpha, top_k):
+        if self.ann == "ivf":
+            raise ValueError(
+                "filtered search needs an exact corpus scan (ann='ivf' probes "
+                "clusters); use retrieval_candidates_batch for allow-lists in ann mode"
+            )
+        mask = self._mask_from_uuids(c, allow_uuids, deny_uuids)
+        return self._filtered_emb(c, self.encode_queries(queries), mask, alpha, top_k)
 
-    # -- candidate, pipelined and fused search (ROADMAP A2, A3) --------------------
+    @torch.no_grad()
+    def _filtered_emb(self, c: _CorpusState, q_emb, mask, alpha, top_k: Optional[int]):
+        k = min(top_k or c.top_k, c.n_real)
+        q = torch.as_tensor(q_emb, dtype=torch.float32, device=self.device)
+        vals, idx = self._score_masked(c, q, alpha, mask, self._k_fetch_masked(c, k))
+        return (vals, idx, q) if self.rerank else (vals, idx)
 
-    def retrieval_candidates_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"CLIPRetrieval.retrieval_candidates_batch {_SERVING_SHELL}")
+    def retrieval_filtered_batch(
+        self,
+        queries: Sequence[str],
+        allow_uuids: Optional[Iterable[str]] = None,
+        deny_uuids: Optional[Iterable[str]] = None,
+        alpha=0.5,
+        top_k: Optional[int] = None,
+    ) -> List[List[Dict]]:
+        """Filtered batched search -> one ``[{"uuid", "score"}]`` list per
+        query; only rows that pass the filter appear, so a query with fewer
+        eligible rows than ``top_k`` gets a shorter list."""
+        c = self._corpus
+        out = self._search_filtered_state(c, queries, allow_uuids, deny_uuids, alpha, top_k)
+        return self._ranked(c, out, alpha, top_k)
 
-    def retrieval_batches(self, *args, **kwargs):
-        raise NotImplementedError(f"CLIPRetrieval.retrieval_batches {_SERVING_SHELL}")
+    def retrieval_filtered(
+        self,
+        query: str,
+        allow_uuids: Optional[Iterable[str]] = None,
+        deny_uuids: Optional[Iterable[str]] = None,
+        alpha: float = 0.5,
+        top_k: Optional[int] = None,
+    ) -> List[Dict]:
+        """Single-query filtered search -> ``[{"uuid", "score"}]`` descending."""
+        return self.retrieval_filtered_batch([query], allow_uuids, deny_uuids, alpha=alpha, top_k=top_k)[0]
 
-    def search_batches_pipelined(self, *args, **kwargs):
-        raise NotImplementedError(f"CLIPRetrieval.search_batches_pipelined {_SERVING_SHELL}")
+    def retrieval_filtered_embeddings_batch(
+        self,
+        q_emb,
+        allow_uuids: Optional[Iterable[str]] = None,
+        deny_uuids: Optional[Iterable[str]] = None,
+        alpha=0.5,
+        top_k: Optional[int] = None,
+    ) -> List[List[Dict]]:
+        """Filtered search from L2-normalized [Q, D] query embeddings."""
+        c = self._corpus
+        if self.ann == "ivf":
+            raise ValueError("filtered search needs an exact corpus scan (ann='ivf' probes clusters)")
+        mask = self._mask_from_uuids(c, allow_uuids, deny_uuids)
+        return self._ranked(c, self._filtered_emb(c, q_emb, mask, alpha, top_k), alpha, top_k)
+
+    # -- candidate scoring and pipelined batches -----------------------------------
+
+    def retrieval_candidates_batch(
+        self, queries: Sequence[str], candidates: Sequence[Sequence[str]], alpha=0.5, top_k: Optional[int] = None
+    ) -> List[List[Dict]]:
+        """Exact scoring restricted to per-query candidate uuid lists (e.g.
+        each query's Text2SPARQL hits): the queries encode on the device in
+        one batch, the scoring runs on the f32 host store
+        (:func:`ops.similarity.rerank_scores_host`), so it works in every
+        corpus mode, IVF included. Unknown uuids are ignored."""
+        if len(queries) != len(candidates):
+            raise ValueError(f"{len(queries)} queries vs {len(candidates)} candidate lists")
+        c = self._corpus
+        k = min(top_k or c.top_k, c.n_real)
+        row_of = {u: i for i, u in enumerate(c.store.uuids[: c.n_real])}
+        width = max(1, max((len(cd) for cd in candidates), default=1))
+        idx = np.full((len(queries), width), -1, np.int64)
+        for qi, cand in enumerate(candidates):
+            rows = [row_of[u] for u in dict.fromkeys(cand) if u in row_of]
+            idx[qi, : len(rows)] = rows
+        q = self.encode_queries(queries)
+        vals, idx = self._rerank_host(c, q, torch.from_numpy(idx), alpha)
+        return self.results_from_topk(vals, idx, _state=c, top_k=k)
+
+    def search_batches_pipelined(
+        self, query_batches: Iterable[Sequence[str]], alpha=0.5, top_k: Optional[int] = None, depth: int = 4
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Stream batches with up to ``depth`` searches queued on the device:
+        batch i's winners are fetched while later batches are tokenized and
+        launched. Yields ``(values, rows)`` numpy pairs in order."""
+        pending: deque = deque()
+        for queries in query_batches:
+            pending.append(self.search_batch(queries, alpha=alpha, top_k=top_k))
+            if len(pending) >= max(1, depth):
+                vals, idx = pending.popleft()[:2]
+                yield vals.float().cpu().numpy(), idx.cpu().numpy()
+        while pending:
+            vals, idx = pending.popleft()[:2]
+            yield vals.float().cpu().numpy(), idx.cpu().numpy()
+
+    def retrieval_batches(
+        self, query_batches: Iterable[Sequence[str]], alpha=0.5, top_k: Optional[int] = None, depth: int = 4
+    ) -> Iterator[List[List[Dict]]]:
+        """Streamed :meth:`retrieval_batch`: pipelined as
+        :meth:`search_batches_pipelined`, one result list per query, in
+        order. Each batch maps through the corpus snapshot its search ran
+        on, so results stay uuid-correct under concurrent updates."""
+        pending: deque = deque()
+
+        def dispatch(queries):
+            c = self._corpus
+            return c, self._search_state(c, queries, alpha, top_k)
+
+        def finish(item):
+            c, out = item
+            return self._ranked(c, out, alpha, top_k)
+
+        for queries in query_batches:
+            pending.append(dispatch(queries))
+            if len(pending) >= max(1, depth):
+                yield finish(pending.popleft())
+        while pending:
+            yield finish(pending.popleft())
+
+    # -- fused search (ROADMAP A3) ----------------------------------------------------
 
     def retrieval_fused(self, *args, **kwargs):
         raise NotImplementedError(f"CLIPRetrieval.retrieval_fused {_FUSION}")

@@ -4,7 +4,7 @@ The port's copy of ``EmbeddingStore`` from
 ``knowledge_enhanced_multimodal_retrieval_tpu/retrieval/embedding_store.py``:
 L2-normalized image/text tower embeddings + row-aligned uuids, persisted as
 one ``.npz`` in the same format (a store written by either package loads in
-the other). :meth:`EmbeddingStore.device_arrays` replaces the JAX upload;
+the other; either can memory-map it). :meth:`EmbeddingStore.device_arrays` replaces the JAX upload;
 :func:`build_embedding_store` precomputes a store with the port's towers.
 """
 
@@ -19,6 +19,16 @@ import torch
 from ..data.datasets import DataPipeline
 from ..eval.evaluator import encode_dataset
 from ..models.clip import CLIP
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor, copied only where torch cannot share it:
+    a read-only array (a memory-mapped store) is copied, since torch would
+    warn and hand out a writable view of it."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
 
 
 class DuplicateUUIDError(ValueError):
@@ -71,7 +81,53 @@ class EmbeddingStore:
             raise
 
     @classmethod
-    def load(cls, path: str) -> "EmbeddingStore":
+    def load(cls, path: str, mmap: bool = False) -> "EmbeddingStore":
+        """Load a saved store. ``mmap=True`` memory-maps the tower arrays
+        (read-only) instead of reading them into RAM: the packed-corpus
+        modes only read the f32 rows (host quantization streams them once,
+        the host rerank gathers candidate rows), so the OS pages in what is
+        touched. Needs an uncompressed ``.npz`` (``save`` writes one) and
+        keeps the file open for the store's lifetime."""
+        if mmap:
+            import struct
+            import zipfile
+
+            # np.load(mmap_mode=...) ignores mmap for zip members, so map each
+            # member at its offset in the archive: the local zip header (30
+            # bytes + name + extra), the .npy header, then the array bytes
+            with zipfile.ZipFile(path) as zf:
+
+                def as_mmap(name):
+                    info = zf.getinfo(name + ".npy")
+                    if info.compress_type != zipfile.ZIP_STORED:
+                        raise ValueError(
+                            f"{path!r} member {name} is compressed; mmap needs "
+                            "an uncompressed .npz (np.savez, not savez_compressed)"
+                        )
+                    with zf.open(name + ".npy") as f:
+                        version = np.lib.format.read_magic(f)
+                        read_header = {
+                            (1, 0): np.lib.format.read_array_header_1_0,
+                            (2, 0): np.lib.format.read_array_header_2_0,
+                        }.get(version)
+                        if read_header is None:
+                            raise ValueError(f"unsupported .npy version {version}")
+                        shape, fortran, dtype = read_header(f)
+                        npy_header = f.tell()
+                    with open(path, "rb") as raw:
+                        raw.seek(info.header_offset + 26)
+                        name_len, extra_len = struct.unpack("<HH", raw.read(4))
+                    data_off = info.header_offset + 30 + name_len + extra_len + npy_header
+                    return np.memmap(
+                        path, dtype=dtype, mode="r", shape=shape,
+                        offset=data_off, order="F" if fortran else "C",
+                    )
+
+                image = as_mmap("image")
+                text = as_mmap("text")
+                with zf.open("uuids.npy") as f:
+                    uuids = [str(u) for u in np.lib.format.read_array(f, allow_pickle=True)]
+            return cls(image=image, text=text, uuids=uuids)
         with np.load(path, allow_pickle=True) as data:
             return cls(image=data["image"], text=data["text"], uuids=[str(u) for u in data["uuids"]])
 
@@ -79,8 +135,8 @@ class EmbeddingStore:
 
     def device_arrays(self, dtype: torch.dtype, device):
         """Both towers as ``dtype`` tensors on ``device``."""
-        img = torch.as_tensor(np.asarray(self.image, np.float32)).to(device=device, dtype=dtype)
-        txt = torch.as_tensor(np.asarray(self.text, np.float32)).to(device=device, dtype=dtype)
+        img = host_tensor(self.image).to(device=device, dtype=dtype)
+        txt = host_tensor(self.text).to(device=device, dtype=dtype)
         return img.contiguous(), txt.contiguous()
 
     # -- incremental updates ---------------------------------------------------

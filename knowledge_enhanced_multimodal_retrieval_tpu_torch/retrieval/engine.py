@@ -11,13 +11,19 @@ The port's copy of the text- and image-query API of
 - their ``_batch`` forms (one device search per batch; Text2SPARQL calls fan
   out over threads);
 - ``retrieve_image`` / ``retrieve_image_batch`` — visual search, CLIP only
-  (Text2SPARQL has no image modality).
+  (Text2SPARQL has no image modality);
+- ``retrieve_text_filtered{,_batch}`` — uuid allow / deny hard filters,
+  then the same fusion;
+- ``retrieve_text_constrained{,_batch}`` — only the Text2SPARQL hits are
+  scored (exact, on the host), with a fallback to the unconstrained search
+  when the knowledge graph returns nothing;
+- ``retrieve_text_noknowledge_batches`` — the streaming CLIP-only mode.
 
 The Text2SPARQL side and ``FusionConfig`` are the port's own copies of the
 reference package's ``knowledge.*`` and ``utils.config`` modules. The
-reference engine's other entry points (filtered, constrained and fused
-retrieval, the pipelined batches, ``set_fusion_head``) are not ported yet:
-each raises ``NotImplementedError`` naming its ROADMAP item.
+learned-fusion entry points (``set_fusion_head``, ``retrieve_text_fused
+{,_batch}``) are not ported yet: each raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +35,6 @@ from ..utils.config import FusionConfig
 from .clip_retrieval import CLIPRetrieval
 
 # entry points of the reference engine that the port does not carry yet -> ROADMAP item
-_SERVING_SHELL = "is not ported yet: ROADMAP A2 (serving shell: filtered and candidate search)"
 _FUSION = "is not ported yet: ROADMAP A3 (eval and fusion)"
 
 
@@ -162,23 +167,111 @@ class RetrievalEngine:
             if item.get("score", 0) >= threshold
         ]
 
+    # -- filtered and knowledge-constrained retrieval ----------------------------
 
-    # -- not ported yet (ROADMAP A2, A3) ----------------------------------------
+    def retrieve_text_filtered(
+        self,
+        query: str,
+        allow_uuids=None,
+        deny_uuids=None,
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        alpha_clip: Optional[float] = None,
+        threshold: Optional[float] = None,
+    ) -> List[Dict]:
+        """Knowledge-enhanced retrieval restricted by uuid allow / deny lists:
+        only eligible documents appear, and the SPARQL bonus reorders within
+        them as in :meth:`retrieve_text`. Needs an exact corpus scan."""
+        return self.retrieve_text_filtered_batch(
+            [query], allow_uuids, deny_uuids, alpha, beta, alpha_clip, threshold
+        )[0]
 
-    def retrieve_text_filtered(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_filtered {_SERVING_SHELL}")
+    def retrieve_text_filtered_batch(
+        self,
+        queries: Sequence[str],
+        allow_uuids=None,
+        deny_uuids=None,
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        alpha_clip=None,
+        threshold: Optional[float] = None,
+        max_workers: int = 8,
+    ) -> List[List[Dict]]:
+        """Batched filtered retrieval: one masked search for the batch;
+        Text2SPARQL fans out over threads when configured."""
+        alpha = self.fusion.alpha if alpha is None else alpha
+        beta = self.fusion.beta if beta is None else beta
+        alpha_clip = self.fusion.alpha_clip if alpha_clip is None else alpha_clip
+        threshold = self.fusion.threshold if threshold is None else threshold
+        clip_lists = self.clip_retriever.retrieval_filtered_batch(queries, allow_uuids, deny_uuids, alpha=alpha_clip)
+        t2s_lists = self._t2s_batch(queries, max_workers)
+        return [
+            self._apply_threshold(self._fuse_clip_sparql_linear(c, t, alpha=alpha, beta=beta), threshold)
+            for c, t in zip(clip_lists, t2s_lists)
+        ]
 
-    def retrieve_text_filtered_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_filtered_batch {_SERVING_SHELL}")
+    def retrieve_text_constrained(
+        self,
+        query: str,
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        alpha_clip: Optional[float] = None,
+        threshold: Optional[float] = None,
+        fallback: bool = True,
+    ) -> List[Dict]:
+        """Knowledge-constrained retrieval: only the Text2SPARQL uuid hits are
+        scored (exact f32 on the host, any corpus mode), so the knowledge
+        graph defines the candidates and CLIP ranks within them. With no KG
+        hit, ``fallback=True`` answers as :meth:`retrieve_text` would without
+        a bonus; ``False`` returns ``[]``."""
+        return self.retrieve_text_constrained_batch([query], alpha, beta, alpha_clip, threshold, fallback)[0]
 
-    def retrieve_text_constrained(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_constrained {_SERVING_SHELL}")
+    def retrieve_text_constrained_batch(
+        self,
+        queries: Sequence[str],
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        alpha_clip=None,
+        threshold: Optional[float] = None,
+        fallback: bool = True,
+        max_workers: int = 8,
+    ) -> List[List[Dict]]:
+        if self.t2s_retriever is None:
+            raise ValueError("constrained retrieval needs a Text2SPARQL retriever")
+        alpha = self.fusion.alpha if alpha is None else alpha
+        beta = self.fusion.beta if beta is None else beta
+        alpha_clip = self.fusion.alpha_clip if alpha_clip is None else alpha_clip
+        threshold = self.fusion.threshold if threshold is None else threshold
+        t2s_lists = self._t2s_batch(queries, max_workers)
+        clip_lists = self.clip_retriever.retrieval_candidates_batch(queries, t2s_lists, alpha=alpha_clip)
+        empties = [i for i, t in enumerate(t2s_lists) if not t]
+        fb: Dict[int, List[Dict]] = {}
+        if fallback and empties:
+            fb_alpha = [alpha_clip[i] for i in empties] if isinstance(alpha_clip, (list, tuple)) else alpha_clip
+            fb_lists = self.clip_retriever.retrieval_batch([queries[i] for i in empties], alpha=fb_alpha)
+            fb = dict(zip(empties, fb_lists))
+        out: List[List[Dict]] = []
+        for i, (clip_results, t2s_results) in enumerate(zip(clip_lists, t2s_lists)):
+            if not t2s_results:
+                fused = self._fuse_clip_sparql_linear(fb.get(i, []), [], alpha=alpha, beta=beta)
+            else:
+                fused = self._fuse_clip_sparql_linear(clip_results, t2s_results, alpha=alpha, beta=beta)
+            out.append(self._apply_threshold(fused, threshold))
+        return out
 
-    def retrieve_text_constrained_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_constrained_batch {_SERVING_SHELL}")
+    def retrieve_text_noknowledge_batches(
+        self, query_batches, alpha_clip: Optional[float] = None, threshold: Optional[float] = None
+    ):
+        """Streaming CLIP-only retrieval over an iterable of query batches
+        (:meth:`CLIPRetrieval.retrieval_batches`): later batches are launched
+        while earlier results are fetched. Yields one ``List[List[Dict]]``
+        per batch, in order."""
+        alpha_clip = self.fusion.alpha_clip if alpha_clip is None else alpha_clip
+        threshold = self.fusion.threshold if threshold is None else threshold
+        for results in self.clip_retriever.retrieval_batches(query_batches, alpha=alpha_clip):
+            yield [self._apply_threshold(r, threshold) for r in results]
 
-    def retrieve_text_noknowledge_batches(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_noknowledge_batches {_SERVING_SHELL}")
+    # -- not ported yet (ROADMAP A3) ------------------------------------------------
 
     def set_fusion_head(self, *args, **kwargs):
         raise NotImplementedError(f"RetrievalEngine.set_fusion_head {_FUSION}")

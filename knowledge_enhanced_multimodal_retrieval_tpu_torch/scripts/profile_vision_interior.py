@@ -124,7 +124,7 @@ def attn_q8_variant(
         x.shape[0], width, heads, seq_len, mask_len, int(causal), int(interior), 1e-5, dispatch.stream_of(x),
     )
     dispatch.check(status, "attn_q8_variant")
-    attn_q8_variant.launches += 1
+    dispatch.count_launch(attn_q8_variant)
     return out
 
 
@@ -157,7 +157,7 @@ def mlp_q8_diag(
         1e-5, dispatch.stream_of(x),
     )
     dispatch.check(status, "mlp_q8_diag")
-    mlp_q8_diag.launches += 1
+    dispatch.count_launch(mlp_q8_diag)
     return out
 
 

@@ -250,7 +250,7 @@ def test_serve_cli_takes_the_capacity_flags(world, tmp_path, monkeypatch):
     # IVF from an index the port's cli.index wrote; the engine rounds nothing
     out = str(tmp_path / "ivf.npz")
     assert index_cli.main([f"--store={path}", f"--out={out}", "--eval.quantize_corpus=int4",
-                           f"--eval.ann_nlist={NLIST}", "--calibrate=0.9", "--calibrate-k=5"]) == out
+                           f"--eval.ann_nlist={NLIST}", "--calibrate=0.9", "--calibrate-k=5", "--device=cpu"]) == out
     got = _serve(base + ["--eval.quantize_corpus=int4", "--eval.ann=ivf", f"--eval.ann_index={out}",
                          f"--eval.ann_nlist={NLIST}", "--eval.ann_nprobe=5", "--eval.ann_max_batch_lookups=0"])
     t = TRetrieval(tower, TTok(MERGES), TStore.load(path), device="cpu", quantize_corpus="int4", ann="ivf",
@@ -261,22 +261,10 @@ def test_serve_cli_takes_the_capacity_flags(world, tmp_path, monkeypatch):
 def test_index_cli_output_loads_in_jax(world, tmp_path):
     _, _, path, _ = world
     out = str(tmp_path / "ivf_pq.npz")
-    index_cli.main(["--store", path, "--out", out, "--eval.quantize_corpus=pq", "--eval.pq_m=16"])
+    index_cli.main(["--store", path, "--out", out, "--eval.quantize_corpus=pq", "--eval.pq_m=16", "--device=cpu"])
     store = JStore.load(path)
     jindex = JA.load_ivf_index(out, expected_fingerprint=JA.corpus_fingerprint(store.image, store.text))
     assert jindex.mode == "pq" and jindex.packed_img.shape[-1] == 16
     assert jindex.nlist == int(np.sqrt(N_DOCS))
     with pytest.raises(ValueError, match="int8, int4, or pq"):
-        index_cli.main(["--store", path, "--out", out, "--eval.quantize_corpus=binary"])
-
-
-@pytest.mark.parametrize(
-    "method", ["search_filtered_batch", "retrieval_filtered_batch", "retrieval_filtered",
-               "retrieval_filtered_embeddings_batch"],
-)
-def test_filtered_search_raises_with_its_item(world, method):
-    _, params, path, _ = world
-    t = TRetrieval(from_flax_params(params, dtype=torch.float32, arch=ARCH), TTok(MERGES), TStore.load(path),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        getattr(t, method)(["cat"], allow_uuids=["uuid-000001"])
+        index_cli.main(["--store", path, "--out", out, "--eval.quantize_corpus=binary", "--device=cpu"])

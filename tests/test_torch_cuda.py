@@ -790,3 +790,49 @@ def test_vision_encoders_on_card_match_cpu(rng, dev):
             assert counts["fused_layer_q8" if quantize else "fused_attention_block"] == arch.vision_layers
             cos = torch.nn.functional.cosine_similarity(gpu.cpu(), cpu, dim=-1)
             assert cos.min().item() > 0.999, (quantize, cos)
+
+
+def _masked_inputs(rng, mode, n=5000, d=256, q=16):
+    norm = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)  # noqa: E731
+    img = norm(rng.standard_normal((n, d))).astype(np.float32)
+    txt = norm(rng.standard_normal((n, d))).astype(np.float32)
+    qs = torch.tensor(rng.standard_normal((q, d)), dtype=torch.bfloat16 if mode != "exact_f32" else torch.float32)
+    if mode.startswith("exact"):
+        dt = torch.bfloat16 if mode == "exact_bf16" else torch.float32
+        return S.masked_similarity_topk, [qs, torch.tensor(img).to(dt), torch.tensor(txt).to(dt)]
+    if mode in ("q8", "q4"):
+        quant = S.quantize_corpus_host if mode == "q8" else S.quantize_corpus_host_q4
+        (a, sa), (b, sb) = quant(img), quant(txt)
+        fn = S.masked_similarity_topk_q8 if mode == "q8" else S.masked_similarity_topk_q4
+        return fn, [qs] + [torch.from_numpy(x) for x in (a, sa, b, sb)]
+    cb_i, cb_t = PQ.train_pq_codebooks(img[:2000], m=32), PQ.train_pq_codebooks(txt[:2000], m=32)
+    (ci, si), (ct, st) = PQ.pack_pq_host(img, cb_i), PQ.pack_pq_host(txt, cb_t)
+    return PQ.masked_pq_similarity_topk, [qs] + [torch.from_numpy(x) for x in (ci, si, ct, st, cb_i, cb_t)]
+
+
+@pytest.mark.parametrize("mask_kind", ["row", "per_query", "few"])
+@pytest.mark.parametrize("mode", ["exact_f32", "exact_bf16", "q8", "q4", "pq"])
+def test_masked_topk_on_card_matches_cpu(rng, dev, mode, mask_kind):
+    """The masked top-k (plain PyTorch on every device) on CUDA tensors
+    against the same function on the CPU: the same eligible rows, -1 where
+    none is left, values within 1e-4 (another summation order)."""
+    fn, args = _masked_inputs(rng, mode)
+    n, q = args[1].shape[0], args[0].shape[0]
+    mask = {"row": rng.random(n) < 0.3, "per_query": rng.random((q, n)) < 0.2,
+            "few": np.isin(np.arange(n), [3, 999, 4321])}[mask_kind]
+    alpha = list(np.linspace(0.1, 0.9, q))
+    want_v, want_i = fn(*args, mask, k=40, alpha=alpha)
+    got_v, got_i = fn(*[a.to(dev) for a in args], mask, k=40, alpha=alpha)
+    assert got_i.is_cuda and got_i.dtype == torch.int32
+    got_v, got_i = got_v.cpu(), got_i.cpu()
+    np.testing.assert_allclose(got_v.numpy(), want_v.numpy(), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got_i < 0, want_i < 0)
+    # every chosen row is eligible, and its CPU score is the card's value
+    # (rows may trade places only within a near tie)
+    all_v, all_i = fn(*args, mask, k=n, alpha=alpha)
+    m = np.broadcast_to(mask, (q, n))
+    for qi in range(q):
+        cpu = dict(zip(all_i[qi].tolist(), all_v[qi].tolist()))
+        live = got_i[qi][got_i[qi] >= 0].numpy()
+        assert m[qi][live].all() and len(set(live.tolist())) == len(live)
+        np.testing.assert_allclose([cpu[r] for r in live], got_v[qi][: len(live)].numpy(), atol=1e-4, rtol=1e-4)

@@ -135,15 +135,8 @@ def test_k_major_operands_check_the_given_copies(rng):
         FB._k_major_operands((w,), (FB.k_major(w).float(),), ("a_qt",))
 
 
-_ENGINE_STUBS = {
-    "retrieve_text_filtered": "A2", "retrieve_text_filtered_batch": "A2", "retrieve_text_constrained": "A2",
-    "retrieve_text_constrained_batch": "A2", "retrieve_text_noknowledge_batches": "A2",
-    "set_fusion_head": "A3", "retrieve_text_fused": "A3", "retrieve_text_fused_batch": "A3",
-}
-_RETRIEVER_STUBS = {
-    "retrieval_candidates_batch": "A2", "retrieval_batches": "A2", "search_batches_pipelined": "A2",
-    "retrieval_fused": "A3", "retrieval_fused_batch": "A3",
-}
+_ENGINE_STUBS = {"set_fusion_head": "A3", "retrieve_text_fused": "A3", "retrieve_text_fused_batch": "A3"}
+_RETRIEVER_STUBS = {"retrieval_fused": "A3", "retrieval_fused_batch": "A3"}
 _STUBS = [(RetrievalEngine, n, i) for n, i in _ENGINE_STUBS.items()] + \
          [(CLIPRetrieval, n, i) for n, i in _RETRIEVER_STUBS.items()]
 

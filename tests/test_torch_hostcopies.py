@@ -267,3 +267,88 @@ def test_fake_clients_and_circuit_wrappers_equal_the_original():
         assert wrapped.retrieval("anything") == ["uuid-007"]
         assert wrapped.retrieval("anything") == ["uuid-007"]  # served from the cache
     assert set(TK.__dict__) >= {n for n in JK.__dict__ if not n.startswith("_")}
+
+
+# ---------------------------------------------------------------------------
+# json2sparql: the port's repaired sanitizers
+# ---------------------------------------------------------------------------
+
+_HOSTILE_NAMES = ["1abc", "中文", "a.b", "a-b", "a b", "_x", "a__b", "9", "?", "v__"]
+
+
+def _hostile_doc(subject, obj, predicate):
+    return {
+        "distinct": True,
+        "variables": [{"termType": "Variable", "value": subject}],
+        "branches": [{"line": {"s": subject, "p": predicate, "o": obj, "sType": [DA], "oType": []}}],
+    }
+
+
+@pytest.mark.parametrize("name", _HOSTILE_NAMES)
+def test_hostile_names_parse_and_run_in_the_port(name):
+    """The names that the original's sanitizers let through (digit-first,
+    non-ASCII, ``=`` at the start of a predicate IRI) now give SPARQL that
+    the port's own parser reads and runs."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.knowledge.json2sparql import _safe_var
+
+    var = _safe_var(name)
+    assert var.isascii() and var[0].isalpha() and all(c.isalnum() or c == "_" for c in var)
+    for predicate in (P62, "=evil", "<=evil>", "=" + P62):
+        sparql = TK.convert(_hostile_doc(name, "Entity_1", predicate))
+        TK.parse_query(sparql)
+        rows = TK.execute(_graph(TK), sparql)["results"]["bindings"]
+        assert (len(rows) == 3) if predicate == P62 else rows == []  # three artefacts depict an entity
+
+
+def test_safe_var_keeps_distinct_names_distinct():
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.knowledge.json2sparql import _escape_uri, _safe_var
+
+    names = _HOSTILE_NAMES + ["", "DigitalArtefact", "Entity_1", "a_b", "x", "v", "v1abc"]
+    assert len({_safe_var(n) for n in names}) == len(names)
+    assert _safe_var("a.b") == _safe_var("a.b") != _safe_var("a-b")
+    for clean in ("DigitalArtefact", "Entity_1", "Dimension_1", "X_1"):
+        assert _safe_var(clean) == clean  # clean names are kept, as the original keeps them
+    assert _escape_uri("=evil") == "%3Devil" and _escape_uri(P62) == P62
+    sparql = TK.convert(_hostile_doc("a.b", "a-b", P62))
+    assert "?a_b__612e62" in sparql and "?a_b__612d62" in sparql
+
+
+# ---------------------------------------------------------------------------
+# utils.data_utils and utils.profiling
+# ---------------------------------------------------------------------------
+
+
+def test_data_utils_copy(tmp_path):
+    from knowledge_enhanced_multimodal_retrieval_tpu.utils import data_utils as JD
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils import data_utils as TD
+
+    types = {f"u{i}": ["painting", "coin", "vase", "rare"][min(i % 7, 3)] for i in range(60)}
+    assert TD.stratified_splits(types) == JD.stratified_splits(types)
+    assert TD.stratified_splits({"a": "x", "b": "y"}) == JD.stratified_splits({"a": "x", "b": "y"})
+    uuids = list(types)[:10]
+    assert TD.get_text_variant_for_batch(uuids, 3) == JD.get_text_variant_for_batch(uuids, 3)
+    out = str(tmp_path / "splits" / "s.json")
+    TD.save_splits_to_json(["a"], ["b"], ["c", "d"], out)
+    assert JD.load_splits_from_json(out) == TD.load_splits_from_json(out) == (["a"], ["b"], ["c", "d"])
+
+
+def test_profiling_counterparts(tmp_path):
+    import time
+
+    import torch
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    t = StepTimer(window=3)
+    assert t.stats() == {}
+    for _ in range(5):
+        t.tick()
+        time.sleep(0.002)
+    stats = t.stats(batch_size=32)
+    assert set(stats) == {"step_time_s", "steps_per_sec", "examples_per_sec"} and len(t._times) == 3
+    assert stats["examples_per_sec"] == 32 * stats["steps_per_sec"]
+    with trace(str(tmp_path / "prof")):
+        with annotate("kemr-region"):
+            torch.ones(8).sum()
+    body = (tmp_path / "prof" / "trace.json").read_text()
+    assert "kemr-region" in body

@@ -38,12 +38,16 @@ SLICE_MODULES = [
     f"{PKG}.retrieval.ann",
     f"{PKG}.retrieval.clip_retrieval",
     f"{PKG}.retrieval.engine",
+    f"{PKG}.retrieval.server",
+    f"{PKG}.retrieval.http_server",
     f"{PKG}.cli.common",
     f"{PKG}.cli.precompute",
     f"{PKG}.cli.serve",
     f"{PKG}.cli.index",
     f"{PKG}.utils.config",
     f"{PKG}.utils.logging_utils",
+    f"{PKG}.utils.profiling",
+    f"{PKG}.utils.data_utils",
     f"{PKG}.native",
     f"{PKG}.native.build",
     f"{PKG}.native.bpe_wrapper",
@@ -58,6 +62,7 @@ SLICE_MODULES = [
     f"{PKG}.knowledge.text2sparql",
     f"{PKG}.scripts.profile_vision_interior",
     f"{PKG}.scripts.time_topk",
+    f"{PKG}.scripts.daemon_bench",
 ]
 
 

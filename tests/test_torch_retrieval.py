@@ -235,5 +235,5 @@ def test_serve_cli_refuses_silent_fallbacks(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device=cpu"):
             serve.main([f"--store={path}", "--query=x"])  # default --device=cuda
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        serve.main([f"--store={path}", "--http=8080", "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        serve.main([f"--store={path}", "--multihost", "--device=cpu"])
