@@ -103,6 +103,36 @@ just after; every kernel must have launched in the path it belongs to.
    removed, ``/snapshot``, ``/healthz`` and ``/metrics``. Then 8 requests
    to a ``fast`` daemon with the exact corpus: B3a, B3b and B2 exact launch
    behind it.
+15. Evaluation (``eval_phase``): ``cli.evaluate.main`` at ViT-L/14 on
+   ``synthetic:1024`` with a Text2SPARQL results file (every 7th query's
+   own artefact is a hit), once per encoder: ``flax`` (B6 once a layer on
+   both towers), ``fast`` (B3a + B3b) and ``int8`` (B1), each launch counted
+   per tower call; the serving encoders' embeddings against the module
+   towers' at the stores' cosine bound; the ranks of every task on the card
+   against the CPU on the same embeddings (rows within 1e-5 of a competitor
+   excepted and counted). Then ``fusion_sweep`` (18 cells, stripes of 1,024
+   queries) over 43,000 seeded 768-d rows on a 2^-9 grid (every product
+   exact in f32) with 1 % of the queries carrying hits, timed per cell, and
+   at 4,096 rows against the CPU: equal ranks in every cell.
+16. Learned fusion (``fusion_phase``): ``cli.train_fusion.main`` (``int8``,
+   ``simple_gated``, synthetic:512, B1 once a layer on both towers), the
+   five other heads trained 2 epochs on the same frozen embeddings, every
+   head's scores on the card against the CPU; then the daemon built by
+   ``cli.serve``'s wiring with ``--fusion.head_params`` over the 43,000-row
+   int8 store: 8 clients x 8 ``{"fused": true}`` requests (each one stage-1
+   fetch of 400 rows through B2 q8), every answer against the engine called
+   directly, requests/s and p50 / p99; the head's scores at top_k 20 and
+   100 against the CPU head over the same candidates.
+17. The quality sweep (``quality_phase``): the port's
+   ``scripts/quality_sweep.py`` (``--rotate --nprobes 8``) and
+   ``scripts/autotune.py`` (``--no-rotate``) on the capacity tiers'
+   clustered store, 256 corpus rows as queries, k = 10: B2 q8, B2-q4 and B5
+   launch once a row and fetch; the int4 / pq / pq + OPQ recall against the
+   served tiers' recall@10 on the same 256 rows (within 0.002); then
+   ``scripts/consistency_check.py`` (the f32 ``flax`` path on the card
+   against the CPU: cosine > 0.9999, the same metrics).
+The kernel line's entries carry ``launches_by_path`` for the launches of
+items 15-17 beside the earlier paths', and ``launches`` is their sum.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -1535,7 +1565,9 @@ def capacity_serve_phase(torch, dev, model, store_path, tier, kw, results):
                               for e, r in zip(exact_ids, res)]))
 
     recall = recall_at_10(q)
-    recall_rows = recall_at_10(txt[torch.as_tensor(rng.choice(CORPUS, QUERIES, replace=False), device=dev)])
+    # the rows the quality sweep script samples as queries at its --seed 0
+    rows_q = np.random.default_rng(0).choice(CORPUS, QUERIES, replace=False)
+    recall_rows = recall_at_10(txt[torch.as_tensor(rows_q, device=dev)])
     med = float(np.median(lat) * 1e3)
     secs = time.perf_counter() - t_phase
     log(f"serve {tier}: build {build_s:.1f} s; 256-query batch median {med:.2f} ms; recall@10 {recall:.4f} "
@@ -1926,6 +1958,455 @@ def daemon_phase(torch, dev, tmp, store_path, results):
     return counts
 
 
+# -- evaluation, learned fusion and the quality sweep --------------------------
+
+EVAL_N = 1024  # synthetic examples each cli.evaluate run encodes (4 batches of 256)
+SWEEP_CPU_ROWS, SWEEP_BLOCK = 4096, 1024  # the sweep held to the CPU; stripe rows
+NEAR_TIE = 1e-5  # a row whose diagonal and a competitor lie this close may rank either way
+FUSION_N, HEAD_EPOCHS = 512, 2  # cli.train_fusion's synthetic split; epochs of the five other heads
+FUSED_CLIENTS, FUSED_REQUESTS = 8, 8
+# a head on the card against the same head on the CPU (f32, TF32 off)
+TOL_HEAD_CARD = dict(rtol=1e-4, atol=1e-5)
+# the same head over the same candidates (tests/test_fused_serving.py:45)
+TOL_HEAD = dict(rtol=2e-5, atol=1e-6)
+TOL_RECALL = 0.002  # quality sweep rows against the served tiers' recall@10
+
+
+class _Spy:
+    """Wrap callables (``(owner, name)`` pairs, module or class attributes)
+    while a phase runs, and keep each call's wall seconds (the card synced
+    before and after), its kernel launches and its result; restored on exit."""
+
+    def __init__(self, torch, targets):
+        from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+
+        self.torch, self.dispatch, self.targets = torch, dispatch, targets
+        self.calls = {name: [] for _, name in targets}
+        self.saved = []
+
+    def _wrap(self, name, fn):
+        def spy(*a, **kw):
+            self.torch.cuda.synchronize()
+            before = self.dispatch.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            after = self.dispatch.launch_counts()
+            self.calls[name].append(dict(seconds=time.perf_counter() - t0, result=out,
+                                         launches={k: after[k] - before[k] for k in after}))
+            return out
+
+        return spy
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            fn = owner.__dict__[name]
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        return False
+
+    def launches(self, name, kernel):
+        return [c["launches"][kernel] for c in self.calls[name]]
+
+
+def _near_tie_rows(torch, sim):
+    """Rows of a square score matrix whose diagonal lies within ``NEAR_TIE``
+    of another entry (their rank may differ with the summation order)."""
+    gap = (sim - torch.diagonal(sim)[:, None]).abs()
+    gap.fill_diagonal_(float("inf"))
+    return (gap.min(dim=1).values <= NEAR_TIE).cpu().numpy()
+
+
+def _ranks_agree(torch, got, want, near, tag):
+    got, want = np.asarray(got), np.asarray(want)
+    bad = (got != want) & ~near
+    assert not bad.any(), f"{tag}: {int(bad.sum())} rows rank differently on the card, e.g. {np.flatnonzero(bad)[:5]}"
+    return int(near.sum())
+
+
+def eval_phase(torch, dev, tmp, results):
+    """``cli.evaluate.main`` at ViT-L/14 in the ``flax`` / ``fast`` / ``int8``
+    modes on ``synthetic:1024`` with a Text2SPARQL results file: B6, B3a +
+    B3b and B1 launch once a layer on both towers; the serving encoders'
+    embeddings agree with the module towers'; the card's ranks equal the
+    CPU's on the same embeddings. Then ``fusion_sweep`` at the corpus scale
+    (43,000 rows, 18 cells) and at 4,096 rows against the CPU, on rows whose
+    products are exact in f32 (equal ranks, no exception). Returns
+    {mode: {tower: {wrapper: launches}}}."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import evaluate as evaluate_cli
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import evaluator as EV
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import fusion as F
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import metrics as M
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+
+    t_phase = time.perf_counter()
+    arch = CM.ARCHS["ViT-L/14"]
+    uuids = [f"uuid-{i:06d}" for i in range(EVAL_N)]
+    t2s_path = os.path.join(tmp, "t2s_results.json")
+    with open(t2s_path, "w") as f:  # every 7th query's own artefact is a hit, with one other
+        json.dump({u: [f"http://kg/artefact/{u}", f"http://kg/artefact/{uuids[(31 * i) % EVAL_N]}"]
+                   for i, u in enumerate(uuids) if i % 7 == 0}, f)
+    kernel = {"flax": ("flash_attention_kernel",), "fast": ("fused_attention_block", "fused_mlp_block"),
+              "int8": ("fused_layer_q8",)}
+    towers = {"image": ("encode_image_fast", "encode_image"), "text": ("encode_text_fast", "encode_text")}
+    enc, split, counts = {}, {}, {}
+    for mode in ("flax", "fast", "int8"):
+        targets = [(EV, "encode_dataset"), (EV, "encode_image_fast"), (EV, "encode_text_fast"),
+                   (CM.CLIP, "encode_image"), (CM.CLIP, "encode_text"), (EV, "evaluate_clip_model"),
+                   (EV, "evaluate_weighted"), (EV, "fusion_sweep")]
+        out_dir = os.path.join(tmp, f"eval_{mode}")
+        with _Spy(torch, targets) as spy:
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            report = evaluate_cli.main([
+                "--model.name=ViT-L/14", f"--data.dataset=synthetic:{EVAL_N}", "--eval.batch_size=256",
+                f"--eval.encoder={mode}", f"--eval.output_dir={out_dir}", f"--t2s_results={t2s_path}",
+                f"--device={dev.type}",
+            ])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            total = dispatch.launch_counts()
+        enc[mode] = spy.calls["encode_dataset"][0]["result"]
+        assert os.listdir(out_dir) == ["eval_ViT-L-14_zeroshot.json"], os.listdir(out_dir)
+        assert report["num_samples"] == EVAL_N and len(report["fusion_sweep"]) == 18
+        assert all(np.isfinite(v) for v in report["per_task"].values())
+        # each tower: one launch of the mode's kernel(s) a layer a call
+        counts[mode] = {}
+        for tower, names in towers.items():
+            layers = arch.vision_layers if tower == "image" else arch.text_layers
+            for k in kernel[mode]:
+                per_call = [n for name in names for n in spy.launches(name, k)]
+                assert per_call and all(n == layers for n in per_call), (mode, tower, k, per_call)
+                counts[mode].setdefault(tower, {})[k] = sum(per_call)
+        for k in kernel[mode]:
+            assert total[k] == sum(counts[mode][t][k] for t in towers), (mode, k, total[k])
+        split[mode] = dict(wall_s=wall, encode_s=spy.calls["encode_dataset"][0]["seconds"],
+                           metrics_s=spy.calls["evaluate_clip_model"][0]["seconds"]
+                           + spy.calls["evaluate_weighted"][0]["seconds"],
+                           sweep_s=spy.calls["fusion_sweep"][0]["seconds"])
+        log(f"eval {mode}: cli.evaluate on synthetic:{EVAL_N} in {wall:.2f} s (model build included; host clock): "
+            f"encode {split[mode]['encode_s']:.2f} s, 3-task + weighted metrics {split[mode]['metrics_s']:.3f} s, "
+            f"fusion sweep (18 cells, {EVAL_N} rows) {split[mode]['sweep_s']:.3f} s; launches by tower "
+            f"{counts[mode]}; T2I R@1 {report['per_task']['T2I_R@1']:.2f}, MRR {report['per_task']['T2I_MRR']:.3f}")
+    for mode in ("fast", "int8"):
+        cos = min(float(np.sum(getattr(enc[mode], a) * getattr(enc["flax"], a), axis=1).min())
+                  for a in ("image", "query", "target"))
+        log(f"eval: {mode} embeddings vs flax, min row cosine {cos:.6f} (bound {STORE_COS})")
+        assert cos > STORE_COS, (mode, cos)
+    # the metrics again on the CPU, from the same embeddings
+    pairs = {"T2I": ("query", "image"), "I2T": ("image", "target"), "T2T": ("query", "target")}
+    ties = {}
+    for mode, e in enc.items():
+        for task, (a, b) in pairs.items():
+            qc, cc = (torch.as_tensor(getattr(e, x)) for x in (a, b))
+            sim = qc @ cc.T
+            got = M.diagonal_ranks(qc.to(dev) @ cc.to(dev).T).cpu().numpy()
+            ties[f"{mode} {task}"] = _ranks_agree(torch, got, M.diagonal_ranks(sim).numpy(),
+                                                  _near_tie_rows(torch, sim), f"eval {mode} {task}")
+        cpu = EV.evaluate_clip_model(e, device="cpu")
+        card = EV.evaluate_clip_model(e, device=dev)
+        if not any(ties[f"{mode} {t}"] for t in pairs):  # equal ranks: equal metrics up to the mean's order
+            for key, v in cpu.items():
+                assert abs(card[key] - v) <= 1e-5 * max(1.0, abs(v)), (mode, key, card[key], v)
+    log(f"eval: card ranks == CPU ranks on the same embeddings, except rows within {NEAR_TIE:g} of a competitor: "
+        f"{ties}")
+
+    # the fusion sweep at the corpus scale: seeded correlated unit rows on a
+    # 2^-9 grid (|x| <= 0.19), so every product sum is exact in f32 in any
+    # order and the card and the CPU rank identically; 1 % of the queries
+    # carry five hits (their own artefact and four others)
+    rng = np.random.default_rng(12)
+    base = rng.standard_normal((CORPUS, WIDTH)).astype(np.float32)
+    norm = lambda a: (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    grid = lambda a: (np.clip(np.round(a * 512.0), -97, 97) / 512.0).astype(np.float32)  # noqa: E731
+    q, t, i = (grid(norm(base + s * rng.standard_normal((CORPUS, WIDTH)).astype(np.float32))) for s in (2.5, 3.0, 2.5))
+    uuids = [f"uuid-{k:06d}" for k in range(CORPUS)]
+    hits = {uuids[k]: [uuids[k]] + [uuids[j] for j in rng.integers(0, CORPUS, 4)]
+            for k in rng.choice(CORPUS, CORPUS // 100, replace=False)}
+    encoded = EV.EncodedDataset(image=i, query=q, target=t, uuids=uuids)
+    EV.fusion_sweep(EV.EncodedDataset(i[:2048], q[:2048], t[:2048], uuids[:2048]), hits, block=SWEEP_BLOCK,
+                    device=dev)  # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = EV.fusion_sweep(encoded, hits, block=SWEEP_BLOCK, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    assert not any(dispatch.launch_counts().values()), "the sweep is plain matrix products: no kernel of the port"
+    assert len(sweep) == 18 and all(np.isfinite(v) for m in sweep.values() for v in m.values())
+    cell_ms = sweep_s / len(sweep) * 1e3
+    best = max(sweep, key=lambda c: sweep[c]["MRR"])
+    log(f"eval: fusion_sweep at {CORPUS} x {WIDTH}, 18 cells, block {SWEEP_BLOCK}: {sweep_s:.3f} s = {cell_ms:.1f} ms "
+        f"a cell (host clock, synced; f32 products, TF32 off); best cell {best} MRR {sweep[best]['MRR']:.3f}")
+    # 4,096 rows: every cell's ranks on the card equal the CPU's
+    n = SWEEP_CPU_ROWS
+    sub = EV.EncodedDataset(image=i[:n], query=q[:n], target=t[:n], uuids=uuids[:n])
+    idx, mask, _ = F.build_hit_indices(hits, sub.uuids, sub.uuids)
+    qc, tc, ic = (torch.as_tensor(x) for x in (sub.query, sub.target, sub.image))
+    for w_t2i, w_t2t in ((0.5, 0.5), (0.1, 0.9)):
+        for alpha in (0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1):
+            kw = dict(t2i_weight=w_t2i, t2t_weight=w_t2t, alpha=alpha, sparql_weight=1.0 - alpha, block=SWEEP_BLOCK)
+            got = F.weighted_fusion_ranks_blocked(qc.to(dev), tc.to(dev), ic.to(dev), idx, mask, **kw).cpu().numpy()
+            want = F.weighted_fusion_ranks_blocked(qc, tc, ic, idx, mask, **kw).numpy()
+            assert np.array_equal(got, want), (w_t2i, w_t2t, alpha, int((got != want).sum()))
+    card, cpu = EV.fusion_sweep(sub, hits, block=SWEEP_BLOCK, device=dev), EV.fusion_sweep(sub, hits, device="cpu")
+    for cell, m in cpu.items():
+        for key, v in m.items():  # equal ranks: equal metrics up to the mean's summation order
+            assert abs(card[cell][key] - v) <= 1e-5 * max(1.0, abs(v)), (cell, key, card[cell][key], v)
+    log(f"eval: fusion sweep at {n} rows: all 18 cells rank every row on the card as on the CPU; "
+        f"cell t2i0.5_t2t0.5_alpha0.5 MRR {card['t2i0.5_t2t0.5_alpha0.5']['MRR']:.3f}")
+    results["eval"] = dict(split=split, sweep_s=sweep_s, sweep_cell_ms=cell_ms, ties=ties,
+                           phase_s=time.perf_counter() - t_phase)
+    log(f"eval phase: {results['eval']['phase_s']:.1f} s")
+    return counts
+
+
+def fusion_phase(torch, dev, tmp, store_path, results):
+    """``cli.train_fusion.main`` (``int8`` encoder, the default
+    ``simple_gated`` head), the five other heads trained on the same frozen
+    embeddings, each head's scores on the card against the CPU; then
+    ``cli.serve --http`` at ViT-L/14 ``int8`` with ``--fusion.head_params``
+    over the 43,000-row store: 8 clients x 8 ``{"fused": true}`` requests,
+    each answer against the engine called directly, the head's scores
+    against the CPU head over the same candidates, B2 q8 once a stage-1
+    batch. Returns {path: {wrapper: launches}}."""
+    import gzip
+    import threading
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import serve as S
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import train_fusion as train_fusion_cli
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.clip import ARCHS
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fusion_heads import FUSION_TYPES, FusionModel
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train.fusion_trainer import load_fusion_head, train_fusion_head
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import config_from_argv
+
+    t_phase = time.perf_counter()
+    arch = ARCHS["ViT-L/14"]
+    counts, heads = {}, {}
+    head_path = os.path.join(tmp, "fusion_head.npz")
+    with _Spy(torch, [(train_fusion_cli, "encode_dataset")]) as spy:
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = train_fusion_cli.main([
+            "--model.name=ViT-L/14", f"--data.dataset=synthetic:{FUSION_N}", "--eval.batch_size=256",
+            "--eval.encoder=int8", "--train.epochs=3", "--train.batch_size=64", "--train.lr=1e-3",
+            f"--out={head_path}", f"--device={dev.type}",
+        ])
+        torch.cuda.synchronize()
+        train_cli_s = time.perf_counter() - t0
+        counts["train_fusion"] = dispatch.launch_counts()
+    enc = spy.calls["encode_dataset"][0]["result"]
+    batches = 2 * -(-FUSION_N // 256)  # the train and the test split
+    want_b1 = batches * (arch.vision_layers + 2 * arch.text_layers)
+    assert counts["train_fusion"]["fused_layer_q8"] == want_b1, (counts["train_fusion"], want_b1)
+    with open(os.path.splitext(head_path)[0] + ".metrics.json") as f:
+        history = json.load(f)["history"]["loss"]
+    assert len(history) == 3 and all(np.isfinite(history))
+    log(f"fusion: cli.train_fusion (int8, simple_gated, synthetic:{FUSION_N}, 3 epochs) in {train_cli_s:.2f} s "
+        f"(model build and two encodes included; host clock): loss {history}; FUSION_MRR "
+        f"{report['fusion']['FUSION_MRR']:.3f} vs BASELINE_MRR {report['baseline']['BASELINE_MRR']:.3f}; "
+        f"B1 {counts['train_fusion']['fused_layer_q8']} = {batches} batches x "
+        f"({arch.vision_layers} + 2 x {arch.text_layers}) layers")
+
+    # the other five heads on the same frozen embeddings, and every head on the card against the CPU
+    fm0, heads["simple_gated"] = load_fusion_head(head_path, device=dev)
+    assert fm0.fusion_type == "simple_gated" and fm0.embed_dim == WIDTH
+    train_s = {}
+    for ft in FUSION_TYPES:
+        fm = FusionModel(ft, WIDTH)
+        if ft != "simple_gated":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            heads[ft], hist = train_fusion_head(fm, enc, epochs=HEAD_EPOCHS, batch_size=64, lr=1e-3, seed=0, device=dev)
+            torch.cuda.synchronize()
+            train_s[ft] = time.perf_counter() - t0
+            assert all(np.isfinite(hist["loss"])), (ft, hist)
+        q, i, t = (torch.as_tensor(x) for x in (enc.query[:64], enc.image, enc.target))
+        with torch.no_grad():
+            got = fm.scores(heads[ft], q.to(dev), i.to(dev), t.to(dev)).cpu().numpy()
+            cpu_head = FusionModel(ft, WIDTH).init(0)
+            cpu_head.load_state_dict({k: v.cpu() for k, v in heads[ft].state_dict().items()})
+            want = fm.scores(cpu_head, q, i, t).numpy()
+        np.testing.assert_allclose(got, want, err_msg=ft, **TOL_HEAD_CARD)
+    log(f"fusion: the five other heads trained {HEAD_EPOCHS} epochs on the {FUSION_N} frozen rows (s, host clock, "
+        f"synced): {', '.join(f'{k} {v:.2f}' for k, v in train_s.items())}; all six heads' scores [64 x {FUSION_N}] "
+        f"on the card == on the CPU (rtol {TOL_HEAD_CARD['rtol']:g}, atol {TOL_HEAD_CARD['atol']:g})")
+
+    # the daemon, serving the trained head
+    vocab = os.path.join(tmp, "bpe_fused.txt.gz")
+    with gzip.open(vocab, "wt", encoding="utf-8") as f:
+        f.write("#version\n" + "\n".join(" ".join(m) for m in MERGES) + "\n")
+    os.environ["CLIP_BPE_PATH"] = vocab
+    args = ["--model.name=ViT-L/14", "--http=0", "--http-host=127.0.0.1", "--eval.encoder=int8",
+            "--eval.quantize_corpus=int8", f"--fusion.head_params={head_path}"]
+    opts = S.pop_daemon_flags(args)
+    cfg = config_from_argv(args)
+    engine = S.build_engine(cfg, store_path, dev)
+    retriever = engine.clip_retriever
+    fm, head = engine.fusion_head
+    server = S.make_http_server(engine, cfg, store_path, opts).start()
+    base = "http://{}:{}".format(*server.address)
+    rng = np.random.default_rng(13)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    queries = [" ".join(rng.choice(words, size=rng.integers(2, 12))) for _ in range(64)]
+    _http(base, "POST", "/search", {"query": queries[0], "n": 20, "fused": True})  # warm-up
+    lat, answers, errors = [], [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(FUSED_CLIENTS + 1)
+
+    def client(cid):
+        crng = np.random.default_rng(200 + cid)
+        barrier.wait()
+        for r in range(FUSED_REQUESTS):
+            q = queries[cid * FUSED_REQUESTS + r]
+            alpha = None if crng.random() < 0.5 else float(crng.uniform(0.2, 0.8))
+            t0 = time.perf_counter()
+            try:
+                out = _http(base, "POST", "/search", {"query": q, "n": 20, "fused": True}
+                            | ({} if alpha is None else {"alpha": alpha}))
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+                    answers.append((q, cfg.fusion.alpha_clip if alpha is None else alpha, out["results"]))
+            except Exception as e:  # noqa: BLE001
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(FUSED_CLIENTS)]
+    for th in threads:
+        th.start()
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["fused daemon"] = dispatch.launch_counts()
+    server.close()
+    if errors:
+        raise AssertionError(f"{len(errors)} fused requests failed: {errors[:3]}")
+    n_req = FUSED_CLIENTS * FUSED_REQUESTS
+    assert len(answers) == n_req
+    # {"fused": true} bypasses the MicroBatcher: each request is one stage-1 batch
+    got = counts["fused daemon"]
+    assert got["similarity_topk_kernel"] == n_req, got
+    assert got["fused_layer_q8"] == n_req * arch.text_layers, got
+    for q, a, res in answers:
+        want = engine.retrieve_text_fused_batch([q], alpha_clip=[a])[0][:20]
+        assert len(res) == 20
+        _same_lists(res, want, TOL_FUSED, f"fused {q!r} alpha {a}")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    fused = dict(requests=n_req, wall_s=wall, qps=n_req / wall, p50_ms=lat_ms[len(lat_ms) // 2],
+                 p99_ms=lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))])
+
+    # the head's scores against the CPU head over the same candidates, at
+    # top_k 20 (fetch 80) and at the retriever's default 100 (fetch 400:
+    # B2's running lists in the candidate buffer)
+    cpu_head = FusionModel(fm.fusion_type, fm.embed_dim).init(0)
+    cpu_head.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+    row = {u: k for k, u in enumerate(retriever.store.uuids)}
+    qe = retriever.encode_queries(queries[:16]).float().cpu()
+    for top_k in (20, 100):
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        res = retriever.retrieval_fused_batch(queries[:16], fm, head, alpha=0.5, top_k=top_k, factor=cfg.fusion.factor)
+        torch.cuda.synchronize()
+        counts[f"fused top_k={top_k}"] = dispatch.launch_counts()
+        assert counts[f"fused top_k={top_k}"]["similarity_topk_kernel"] == 1, counts[f"fused top_k={top_k}"]
+        for qi, r in enumerate(res):
+            assert len(r) == top_k
+            rows = [row[x["uuid"]] for x in r]
+            with torch.no_grad():
+                want = fm.scores(cpu_head, qe[qi : qi + 1], torch.as_tensor(retriever.store.image[rows]),
+                                 torch.as_tensor(retriever.store.text[rows]))[0].numpy()
+            np.testing.assert_allclose([x["score"] for x in r], want, err_msg=f"top_k {top_k}", **TOL_HEAD)
+    log(f"fusion daemon (ViT-L/14 int8, int8 corpus {CORPUS} rows, simple_gated head, factor {cfg.fusion.factor}, "
+        f"fetch {cfg.fusion.factor * retriever.top_k}): {n_req} fused requests from {FUSED_CLIENTS} clients in "
+        f"{wall:.3f} s = {fused['qps']:.1f} requests/s; p50 {fused['p50_ms']:.2f} ms, p99 {fused['p99_ms']:.2f} ms "
+        f"(host clock, client threads); launches {got}; every answer == engine.retrieve_text_fused_batch; head "
+        f"scores == the CPU head over the same candidates at top_k 20 and 100 (rtol {TOL_HEAD['rtol']:g})")
+    del engine, retriever, server, head, heads
+    torch.cuda.empty_cache()
+    results["fusion"] = dict(train_cli_s=train_cli_s, head_train_s=train_s, fused=fused,
+                             phase_s=time.perf_counter() - t_phase)
+    log(f"fusion phase: {results['fusion']['phase_s']:.1f} s")
+    return counts
+
+
+def quality_phase(torch, dev, tmp, results):
+    """The quality sweep and the autotuner (the port's scripts) on the
+    capacity phase's clustered 43,000-row store, 256 queries, k = 10: the
+    int8 / int4 / pq rows through B2, B2-q4 and B5, their recall against the
+    served tiers' recall@10 on the same 256 corpus rows; then the card-
+    versus-CPU consistency check. Returns {row kind: {wrapper: launches}}."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import quality as Q
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import autotune as autotune_script
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import consistency_check
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import quality_sweep as sweep_script
+
+    t_phase = time.perf_counter()
+    store = os.path.join(tmp, "clustered.npz")
+    wrapped = ("fused_similarity_topk_q8", "fused_similarity_topk_q4", "pq_similarity_topk")
+    common = ["--store", store, "--queries", str(QUERIES), "--k", "10", f"--device={dev.type}"]
+    with _Spy(torch, [(Q, n) for n in wrapped]) as spy:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sweep_script.main(common + ["--nprobes", str(NPROBE), "--rotate"])
+        sweep_s = time.perf_counter() - t0
+        total = dispatch.launch_counts()
+        counts = {"int8": sum(spy.launches("fused_similarity_topk_q8", "similarity_topk_kernel")),
+                  "int4": sum(spy.launches("fused_similarity_topk_q4", "similarity_topk_kernel")),
+                  "pq": sum(spy.launches("pq_similarity_topk", "pq_adc_topk_kernel"))}
+    # one launch a row and a fetch: 2 spaces x (k, rerank fetch); pq adds pq+opq
+    assert counts == {"int8": 4, "int4": 4, "pq": 6}, counts
+    assert (total["similarity_topk_kernel"], total["pq_adc_topk_kernel"]) == (8, 6), total
+    rows = {r["config"]: r for r in out["rows"]}
+    cap = results["capacity_tiers"]
+    diffs = {}
+    for tier in ("int4", "pq", "pq+opq"):
+        diffs[tier] = rows[tier]["recall_at_k"] - cap[tier]["recall_at_10_corpus_rows"]
+    log(f"quality: quality_sweep on the clustered store ({CORPUS} rows, {QUERIES} corpus rows as queries, k 10, "
+        f"--nprobes {NPROBE} --rotate) in {sweep_s:.1f} s (host clock; codebook and OPQ training included); "
+        f"{len(rows)} rows; launches B2 q8 {counts['int8']}, B2-q4 {counts['int4']}, B5 {counts['pq']}; recall@10 "
+        + "; ".join(f"{r} {rows[r]['recall_at_k']:.4f}" for r in rows if r != "exact")
+        + f"; against the served tiers' recall@10 on the same rows: {diffs}")
+    for tier, d in diffs.items():
+        assert abs(d) <= TOL_RECALL, (tier, rows[tier]["recall_at_k"], cap[tier]["recall_at_10_corpus_rows"])
+    with _Spy(torch, [(Q, n) for n in wrapped]) as spy:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = autotune_script.main(common + ["--recall-target", "0.95", "--no-rotate"])
+        autotune_s = time.perf_counter() - t0
+        total = dispatch.launch_counts()
+        counts["autotune"] = {"int8": sum(spy.launches("fused_similarity_topk_q8", "similarity_topk_kernel")),
+                              "int4": sum(spy.launches("fused_similarity_topk_q4", "similarity_topk_kernel")),
+                              "pq": sum(spy.launches("pq_similarity_topk", "pq_adc_topk_kernel"))}
+    assert counts["autotune"] == {"int8": 2, "int4": 2, "pq": 2}, counts["autotune"]
+    assert (total["similarity_topk_kernel"], total["pq_adc_topk_kernel"]) == (4, 2), total
+    assert rec["predicted_recall_at_k"] >= 0.95
+    log(f"quality: autotune (--recall-target 0.95 --no-rotate) in {autotune_s:.1f} s: {rec['config']} "
+        f"(recall@10 {rec['predicted_recall_at_k']:.4f}, {rec['capacity_multiplier']:.0f}x capacity), flags "
+        f"{rec['serve_flags']!r}")
+    t0 = time.perf_counter()
+    rc = consistency_check.main([f"--device={dev.type}"])
+    assert rc == 0, "consistency_check: the card's f32 evaluation differs from the CPU's"
+    results["quality"] = dict(sweep_s=sweep_s, autotune_s=autotune_s, recall_diff=diffs,
+                              consistency_s=time.perf_counter() - t0, phase_s=time.perf_counter() - t_phase)
+    log(f"quality phase: {results['quality']['phase_s']:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1981,6 +2462,9 @@ def main() -> int:
         cap = capacity_phases(torch, dev, model, tmp, results)
         log(f"capacity serve phases: {time.perf_counter() - t0:.1f} s")
         daemon = daemon_phase(torch, dev, tmp, store_path, results)
+        ev = eval_phase(torch, dev, tmp, results)
+        fu = fusion_phase(torch, dev, tmp, store_path, results)
+        qu = quality_phase(torch, dev, tmp, results)
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -2026,6 +2510,27 @@ def main() -> int:
         f"B4a fused_attention_block_q8{v336}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],
         f"B4b fused_mlp_block_q8{vis}": prof["fused_mlp_block_q8"] + route["fused_mlp_block_q8"],
     }
+    # the launches of this slice's paths, beside each kernel's earlier ones
+    by_path = {
+        "B6 flash_attention s=257": {"eval flax image tower": ev["flax"]["image"]["flash_attention_kernel"],
+                                     "eval flax text tower (s=77)": ev["flax"]["text"]["flash_attention_kernel"]},
+        "B3a fused_attention_block": {"eval fast text tower": ev["fast"]["text"]["fused_attention_block"]},
+        "B3b fused_mlp_block": {"eval fast text tower": ev["fast"]["text"]["fused_mlp_block"]},
+        f"B3a fused_attention_block{vis}": {"eval fast image tower": ev["fast"]["image"]["fused_attention_block"]},
+        f"B3b fused_mlp_block{vis}": {"eval fast image tower": ev["fast"]["image"]["fused_mlp_block"]},
+        "B1 fused_layer_q8": {"eval int8 text tower": ev["int8"]["text"]["fused_layer_q8"],
+                              "fused daemon text encoder": fu["fused daemon"]["fused_layer_q8"],
+                              "cli.train_fusion int8, both towers": fu["train_fusion"]["fused_layer_q8"]},
+        f"B1 fused_layer_q8{vis}": {"eval int8 image tower": ev["int8"]["image"]["fused_layer_q8"]},
+        "B2 similarity_topk q8": {"fused serving top_k=20 (fetch 80)": fu["fused top_k=20"]["similarity_topk_kernel"],
+                                  "quality sweep int8 rows": qu["int8"], "autotune int8 rows": qu["autotune"]["int8"]},
+        "B2 similarity_topk q8 k=400": {"fused daemon (fetch 400)": fu["fused daemon"]["similarity_topk_kernel"],
+                                        "fused serving top_k=100 (fetch 400)":
+                                            fu["fused top_k=100"]["similarity_topk_kernel"]},
+        f"B2-q4 similarity_topk q4 [{CORPUS}]": {"quality sweep int4 rows": qu["int4"],
+                                                 "autotune int4 rows": qu["autotune"]["int4"]},
+        f"B5 pq_adc_topk [{CORPUS}]": {"quality sweep pq rows": qu["pq"], "autotune pq rows": qu["autotune"]["pq"]},
+    }
     for name in results:
         if name.startswith("S1 "):
             launches[name] = prof["attn_q8_variant"]
@@ -2036,6 +2541,12 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{name} never launched in the path it belongs to")
         results[name]["launches"] = n
+    for name, paths in by_path.items():
+        for path, n in paths.items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched on {path}")
+        results[name]["launches_by_path"] = {"earlier slices' paths": results[name]["launches"], **paths}
+        results[name]["launches"] += sum(paths.values())
     kernels = [results[name] for name in launches]
     log(f"serve batch medians: fast {results['serve_fast_batch_ms']:.2f} ms, int8 {results['serve_int8_batch_ms']:.2f} ms")
     log("capacity tiers (256-query batch ms, recall@10 text queries / corpus rows): " + "; ".join(
@@ -2050,6 +2561,16 @@ def main() -> int:
         f"B1 {daemon['int8']['fused_layer_q8']}, B2 q8 {daemon['int8']['similarity_topk_kernel']}; fast B3a "
         f"{daemon['fast']['fused_attention_block']}, B3b {daemon['fast']['fused_mlp_block']}, B2 exact "
         f"{daemon['fast']['similarity_topk_kernel']}")
+    e, fu_r = results["eval"], results["fusion"]
+    log(f"eval (ViT-L/14, synthetic:{EVAL_N}, cli.evaluate): " + "; ".join(
+        f"{m} encode {v['encode_s']:.2f} s, metrics {v['metrics_s']:.3f} s, sweep {v['sweep_s']:.3f} s, "
+        f"run {v['wall_s']:.2f} s" for m, v in e["split"].items())
+        + f"; fusion sweep at {CORPUS} rows {e['sweep_cell_ms']:.1f} ms a cell; phase {e['phase_s']:.1f} s")
+    log(f"fusion: cli.train_fusion {fu_r['train_cli_s']:.2f} s; heads {fu_r['head_train_s']}; fused daemon "
+        f"{fu_r['fused']['qps']:.1f} requests/s, p50 {fu_r['fused']['p50_ms']:.2f} ms, p99 {fu_r['fused']['p99_ms']:.2f} "
+        f"ms; phase {fu_r['phase_s']:.1f} s ({smi})")
+    log(f"quality: sweep {results['quality']['sweep_s']:.1f} s, autotune {results['quality']['autotune_s']:.1f} s, "
+        f"recall against the served tiers {results['quality']['recall_diff']}; phase {results['quality']['phase_s']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,10 @@ with ``--eval.rotate_mode=random|opq`` and ``--eval.rotate_seed``,
 and ``--eval.ann=ivf`` with ``--eval.ann_nlist``, ``--eval.ann_nprobe``,
 ``--eval.ann_index`` (an index cache, e.g. from ``cli.index``) and
 ``--eval.ann_max_batch_lookups``. ``--eval.mmap_store`` memory-maps the
-store's rows.
+store's rows. ``--fusion.head_params=<head.npz>`` (a ``cli.train_fusion``
+artifact of either package) serves a trained fusion head: the one-shot and
+``--batch`` answers and HTTP ``{"fused": true}`` rescore the blended
+top-(``--fusion.factor`` x k) candidates with it.
 
 ``--device`` defaults to ``cuda`` and never falls back: serving on the CPU
 (the kernels' plain versions) takes ``--device=cpu``.
@@ -72,8 +75,6 @@ _NOT_PORTED_FLAGS = {
 def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEngine:
     if cfg.eval.compile_cache:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
-    if cfg.fusion.head_params:
-        raise NotImplementedError("--fusion.head_params is not ported yet: ROADMAP A3 (eval and fusion)")
     model = build_model(cfg, device)
     tokenizer = CLIPTokenizer.find_default()
     store = EmbeddingStore.load(store_path, mmap=cfg.eval.mmap_store)
@@ -127,7 +128,17 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
                 raise_on_degrade=True,
             )
         )
-    return RetrievalEngine(clip_r, t2s, cfg.fusion)
+    engine = RetrievalEngine(clip_r, t2s, cfg.fusion)
+    if cfg.fusion.head_params:
+        # learned-fusion serving: a trained head artifact (either package's
+        # cli.train_fusion) rescores stage-1 candidates where fused retrieval
+        # is asked for (the CLI answers, HTTP {"fused": true}); plain /search
+        # keeps the linear blend
+        from ..train.fusion_trainer import load_fusion_head
+
+        fm, fparams = load_fusion_head(cfg.fusion.head_params, device=device)
+        engine.set_fusion_head(fm, fparams, factor=cfg.fusion.factor)
+    return engine
 
 
 @dataclass
@@ -192,6 +203,11 @@ def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: Daemon
         # caller-supplied candidate sets, scored exactly on the host store
         return clip_r.retrieval_candidates_batch(queries, candidates, alpha=resolve_alphas(alphas))
 
+    fused_batch_fn = None
+    if engine.fusion_head is not None:
+        def fused_batch_fn(queries, alphas):
+            return engine.retrieve_text_fused_batch(queries, alpha_clip=resolve_alphas(alphas))
+
     return RetrievalHTTPServer(
         batch_fn, host=opts.host, port=opts.port, max_pending=opts.max_pending,
         result_cache_size=opts.cache_results,
@@ -208,8 +224,9 @@ def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: Daemon
         image_preprocess_fn=clip_r.preprocess_images,
         filtered_batch_fn=filtered_batch_fn,
         candidates_batch_fn=candidates_batch_fn,
-        # learned-fusion rescoring is ROADMAP A3: {"fused": true} answers 501
-        fused_batch_fn=None,
+        # learned-fusion rescoring ({"fused": true}) only with a trained head
+        # (--fusion.head_params); without one the daemon answers 501
+        fused_batch_fn=fused_batch_fn,
         length_bucket_fn=clip_r.seq_bucket if opts.bucket_queries else None,
     )
 
@@ -262,7 +279,11 @@ def main(argv=None) -> None:
         return
 
     def answer_batch(qs) -> None:
-        if engine.t2s_retriever:
+        # a configured fusion head (--fusion.head_params) takes over scoring;
+        # otherwise the reference's linear blend
+        if engine.fusion_head is not None:
+            batches = engine.retrieve_text_fused_batch(qs)
+        elif engine.t2s_retriever:
             batches = engine.retrieve_text_batch(qs)
         else:
             batches = engine.retrieve_text_noknowledge_batch(qs)

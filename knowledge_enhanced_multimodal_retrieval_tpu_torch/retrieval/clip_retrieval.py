@@ -16,7 +16,8 @@ binary sign sketches, and IVF lists (exact / int8 / int4 / residual PQ),
 each optionally rotated (random or OPQ) or truncated, with the host
 rerank. Also the serving shell's entry points: filtered search (a uuid
 allow / deny row mask, plain masked top-k), candidate scoring on the host,
-the pipelined batch streams, warmup, and corpus replacement and snapshots.
+the pipelined batch streams, warmup, and corpus replacement and snapshots;
+and learned-fusion serving (a trained head rescores the scan's candidates).
 Every tensor lives on the explicit ``device``; CUDA runs the hand-written
 kernels, the CPU their plain versions. The search runs eagerly (no
 per-bucket compiled program). Options of the JAX retriever that this port
@@ -75,7 +76,6 @@ _NOT_PORTED = {
     "shard_corpus": "A5 (parallel modes)",
     "shard_queries": "A5 (parallel modes)",
 }
-_FUSION = "is not ported yet: ROADMAP A3 (eval and fusion)"
 
 
 @dataclass(frozen=True)
@@ -816,13 +816,53 @@ class CLIPRetrieval:
         while pending:
             yield finish(pending.popleft())
 
-    # -- fused search (ROADMAP A3) ----------------------------------------------------
+    # -- learned-fusion serving -------------------------------------------------------
+    # Stage 1 fetches the blended top-(factor * k) candidates through the
+    # corpus tier's scan (B2 / B2-q4 / B5 / IVF on the card); stage 2 rescores
+    # them with a trained head over their exact f32 store rows, so the head
+    # sees exact embeddings whatever the tier packed.
 
-    def retrieval_fused(self, *args, **kwargs):
-        raise NotImplementedError(f"CLIPRetrieval.retrieval_fused {_FUSION}")
+    @torch.no_grad()
+    def retrieval_fused_batch(
+        self,
+        queries: Sequence[str],
+        fusion,
+        fusion_params,
+        alpha=0.5,
+        top_k: Optional[int] = None,
+        factor: int = 4,
+    ) -> List[List[Dict]]:
+        """Two-tier learned-fusion search -> ``[{"uuid", "score"}]`` lists.
 
-    def retrieval_fused_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"CLIPRetrieval.retrieval_fused_batch {_FUSION}")
+        ``fusion``: a :class:`models.fusion_heads.FusionModel`;
+        ``fusion_params``: its trained head module (on any device; the
+        candidates go to it). ``alpha`` steers only the stage-1 fetch of
+        ``min(factor * top_k, rows)`` candidates; the head gives the final
+        scores, so with ``factor * k`` at the corpus size the result is the
+        head's exact full-corpus ranking.
+        """
+        c = self._corpus
+        k = min(top_k or c.top_k, c.n_real)
+        fetch = min(factor * k, c.n_real)
+        q = self.encode_queries(queries)
+        idx = self._search_state_emb(c, q, alpha, fetch)[1].cpu().numpy()
+        safe = np.maximum(idx, 0)
+        head_dev = next(fusion_params.parameters()).device
+        img = torch.as_tensor(np.asarray(c.store.image[safe], np.float32), device=head_dev)  # [Q, R, D] exact rows
+        tgt = torch.as_tensor(np.asarray(c.store.text[safe], np.float32), device=head_dev)
+        scores = fusion.candidate_scores(fusion_params, q.float().to(head_dev), img, tgt).float().cpu().numpy()
+        # sentinels (-1) and pad rows (>= n_real, zero vectors) never rank
+        scores = np.where((idx >= 0) & (idx < c.n_real), scores, -np.inf)
+        order = np.argsort(-scores, axis=1, kind="stable")
+        return self.results_from_topk(
+            np.take_along_axis(scores, order, 1), np.take_along_axis(idx, order, 1), _state=c, top_k=k
+        )
+
+    def retrieval_fused(self, query: str, fusion, fusion_params, alpha: float = 0.5,
+                        top_k: Optional[int] = None, factor: int = 4) -> List[Dict]:
+        """Single-query learned-fusion search."""
+        return self.retrieval_fused_batch([query], fusion, fusion_params, alpha=alpha, top_k=top_k,
+                                          factor=factor)[0]
 
     # -- reference-parity API --------------------------------------------------
 

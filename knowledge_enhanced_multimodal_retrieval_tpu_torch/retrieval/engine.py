@@ -19,11 +19,11 @@ The port's copy of the text- and image-query API of
   when the knowledge graph returns nothing;
 - ``retrieve_text_noknowledge_batches`` — the streaming CLIP-only mode.
 
+- ``set_fusion_head`` + ``retrieve_text_fused{,_batch}`` — a trained
+  fusion head rescores the CLIP candidates, then the same Text2SPARQL bonus.
+
 The Text2SPARQL side and ``FusionConfig`` are the port's own copies of the
-reference package's ``knowledge.*`` and ``utils.config`` modules. The
-learned-fusion entry points (``set_fusion_head``, ``retrieve_text_fused
-{,_batch}``) are not ported yet: each raises ``NotImplementedError`` naming
-its ROADMAP item.
+reference package's ``knowledge.*`` and ``utils.config`` modules.
 """
 
 from __future__ import annotations
@@ -34,15 +34,22 @@ from ..utils.config import FusionConfig
 
 from .clip_retrieval import CLIPRetrieval
 
-# entry points of the reference engine that the port does not carry yet -> ROADMAP item
-_FUSION = "is not ported yet: ROADMAP A3 (eval and fusion)"
-
 
 class RetrievalEngine:
     def __init__(self, clip_retriever: CLIPRetrieval, t2s_retriever=None, fusion: FusionConfig = FusionConfig()):
         self.clip_retriever = clip_retriever
         self.t2s_retriever = t2s_retriever
         self.fusion = fusion
+        self.fusion_head = None  # (FusionModel, head module) via set_fusion_head
+        self._fusion_factor = 4
+
+    def set_fusion_head(self, fm, params, factor: int = 4) -> None:
+        """Attach a trained fusion head (``models.fusion_heads.FusionModel`` and
+        its head module, e.g. from ``train.fusion_trainer.load_fusion_head``)
+        for :meth:`retrieve_text_fused`; ``factor * top_k`` candidates are
+        fetched for it per query."""
+        self.fusion_head = (fm, params)
+        self._fusion_factor = factor
 
     @staticmethod
     def _fuse_clip_sparql_linear(
@@ -271,13 +278,43 @@ class RetrievalEngine:
         for results in self.clip_retriever.retrieval_batches(query_batches, alpha=alpha_clip):
             yield [self._apply_threshold(r, threshold) for r in results]
 
-    # -- not ported yet (ROADMAP A3) ------------------------------------------------
+    # -- learned-fusion serving ----------------------------------------------------
 
-    def set_fusion_head(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.set_fusion_head {_FUSION}")
+    def retrieve_text_fused(
+        self,
+        query: str,
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        alpha_clip: Optional[float] = None,
+        threshold: Optional[float] = None,
+    ) -> List[Dict]:
+        """Retrieval scored by the attached trained head (stage 1 fetches
+        the blended top-(factor * k) on the device, stage 2 rescores their
+        exact f32 rows), then ``alpha * head_score + beta * hit`` and the
+        threshold, as in :meth:`retrieve_text`."""
+        return self.retrieve_text_fused_batch([query], alpha, beta, alpha_clip, threshold)[0]
 
-    def retrieve_text_fused(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_fused {_FUSION}")
-
-    def retrieve_text_fused_batch(self, *args, **kwargs):
-        raise NotImplementedError(f"RetrievalEngine.retrieve_text_fused_batch {_FUSION}")
+    def retrieve_text_fused_batch(
+        self,
+        queries: Sequence[str],
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        alpha_clip=None,
+        threshold: Optional[float] = None,
+        max_workers: int = 8,
+    ) -> List[List[Dict]]:
+        if self.fusion_head is None:
+            raise ValueError("no fusion head attached — call set_fusion_head first")
+        fm, fparams = self.fusion_head
+        alpha = self.fusion.alpha if alpha is None else alpha
+        beta = self.fusion.beta if beta is None else beta
+        alpha_clip = self.fusion.alpha_clip if alpha_clip is None else alpha_clip
+        threshold = self.fusion.threshold if threshold is None else threshold
+        clip_lists = self.clip_retriever.retrieval_fused_batch(
+            queries, fm, fparams, alpha=alpha_clip, factor=self._fusion_factor
+        )
+        t2s_lists = self._t2s_batch(queries, max_workers)
+        return [
+            self._apply_threshold(self._fuse_clip_sparql_linear(c, t, alpha=alpha, beta=beta), threshold)
+            for c, t in zip(clip_lists, t2s_lists)
+        ]

@@ -836,3 +836,97 @@ def test_masked_topk_on_card_matches_cpu(rng, dev, mode, mask_kind):
         live = got_i[qi][got_i[qi] >= 0].numpy()
         assert m[qi][live].all() and len(set(live.tolist())) == len(live)
         np.testing.assert_allclose([cpu[r] for r in live], got_v[qi][: len(live)].numpy(), atol=1e-4, rtol=1e-4)
+
+
+# -- evaluation and learned fusion -------------------------------------------
+
+
+@pytest.mark.parametrize("fusion_type", ["linear", "cross_attention", "gated", "simple_gated",
+                                         "simple_gated_with_bias", "bilinear"])
+def test_fusion_heads_on_card_match_cpu(rng, dev, fusion_type):
+    """A head on the card (f32, TF32 off) scores as on the CPU, whole matrix
+    and per-query candidates."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fusion_heads import FusionModel
+
+    fm = FusionModel(fusion_type, 64)
+    head = fm.init(3)
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    q, i, t = (torch.tensor(norm(rng.standard_normal((n, 64)))) for n in (8, 40, 40))
+    with torch.no_grad():
+        want = fm.scores(head, q, i, t)
+        got = fm.scores(head.to(dev), q.to(dev), i.to(dev), t.to(dev))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+    cand = torch.tensor(np.stack([rng.permutation(40)[:12] for _ in range(8)]))
+    want_c = fm.candidate_scores(head.cpu(), q, i[cand], t[cand])
+    got_c = fm.candidate_scores(head.to(dev), q.to(dev), i[cand].to(dev), t[cand].to(dev))
+    np.testing.assert_allclose(got_c.cpu().numpy(), want_c.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_blocked_ranks_on_card_match_cpu(rng, dev):
+    """The metric stripes and the fusion stripes rank on the card as on the
+    CPU, except rows whose diagonal sits within 1e-5 of a competitor."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import fusion as F
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import metrics as M
+
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    base = rng.standard_normal((3000, 96))
+    q, t, i = (norm(base + s * rng.standard_normal((3000, 96))) for s in (0.8, 0.9, 1.0))
+    uuids = [f"u{k}" for k in range(3000)]
+    idx, mask, _ = F.build_hit_indices({f"u{k}": [f"u{(k * 13) % 3000}"] for k in range(0, 3000, 5)}, uuids, uuids)
+    sim = 0.6 * (0.1 * (q @ i.T) + 0.9 * (q @ t.T))
+    sim[np.arange(3000)[:, None], idx] += 0.4 * mask
+    gap = np.abs(sim - np.diag(sim)[:, None])
+    np.fill_diagonal(gap, np.inf)
+    safe = gap.min(1) > 1e-5
+    for got, want in (
+        (M.diagonal_ranks_blocked(torch.tensor(q, device=dev), torch.tensor(i, device=dev), block=512),
+         M.diagonal_ranks_blocked(q, i, block=512)),
+        (F.weighted_fusion_ranks_blocked(*(torch.tensor(x, device=dev) for x in (q, t, i)), idx, mask,
+                                         0.1, 0.9, 0.6, 0.4, block=512),
+         F.weighted_fusion_ranks_blocked(q, t, i, idx, mask, 0.1, 0.9, 0.6, 0.4, block=512)),
+    ):
+        assert got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy()[safe], want.numpy()[safe])
+
+
+@pytest.mark.parametrize("quantize_corpus", [False, "int8"])
+def test_retrieval_fused_batch_launches_b2(rng, dev, quantize_corpus):
+    """Fused serving fetches its stage-1 candidates through B2 (one launch a
+    batch; a fetch above 128 rows too) and rescores them with the head: the
+    answers equal the same retriever's on the CPU, and each score equals
+    the head over the candidate's exact row."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fusion_heads import FusionModel
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+
+    arch = CLIPArch(64, 32, 1, 128, 16, 77, 49408, 128, 2, 2)
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    store = EmbeddingStore(image=norm(rng.standard_normal((2000, 64))), text=norm(rng.standard_normal((2000, 64))),
+                           uuids=[f"uuid-{k:06d}" for k in range(2000)])
+    tok = CLIPTokenizer([("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")])
+    fm = FusionModel("bilinear", 64)
+    queries = ["hello cat", "he cat hel", "cat cat ca"]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model("tiny", dtype=torch.float32, seed=0, device=d, arch=arch)
+        # the module towers in f32 (the serving encoders take bf16 on the card)
+        r = CLIPRetrieval(model, tok, store, device=d, top_k=10, quantize_corpus=quantize_corpus,
+                          use_fused_encoder=False)
+        head = fm.init(1, device=d)
+        dispatch.reset_launch_counts()
+        out[d.type] = [r.retrieval_fused_batch(queries, fm, head, top_k=k, factor=f) for k, f in ((10, 4), (50, 4))]
+        if d.type == "cuda":
+            assert dispatch.launch_counts()["similarity_topk_kernel"] == 2  # fetch 40, then 200 (one pass)
+            q = r.encode_queries(queries).float()
+    for got_b, want_b in zip(out["cuda"], out["cpu"]):
+        for got, want in zip(got_b, want_b):
+            np.testing.assert_allclose([x["score"] for x in got], [x["score"] for x in want], rtol=1e-4, atol=1e-5)
+    row = {u: n for n, u in enumerate(store.uuids)}
+    head = fm.init(1, device=dev)
+    for qi, res in enumerate(out["cuda"][0]):
+        rows = [row[x["uuid"]] for x in res]
+        with torch.no_grad():
+            want = fm.scores(head, q[qi : qi + 1], torch.tensor(store.image[rows], device=dev),
+                             torch.tensor(store.text[rows], device=dev))[0].cpu().numpy()
+        np.testing.assert_allclose([x["score"] for x in res], want, rtol=2e-5, atol=1e-6)

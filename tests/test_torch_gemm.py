@@ -1,6 +1,5 @@
 """The layer kernels' GEMM contract on the CPU: the plain version of one
-GEMM with one epilogue, the K-major weight copies, the stubs of entry points
-that are not ported yet, and ``mha``'s routing rule.
+GEMM with one epilogue, the K-major weight copies and ``mha``'s routing rule.
 
 The GEMM kernel itself runs only on the card (``tests/test_torch_cuda.py``);
 here its plain version is held to numpy and, composed into whole blocks, to
@@ -14,8 +13,6 @@ import torch
 
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import attention as A
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import fused_block as FB
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine
 
 
 @pytest.fixture()
@@ -133,22 +130,6 @@ def test_k_major_operands_check_the_given_copies(rng):
         FB._k_major_operands((w,), (w.t(),), ("a_qt",))
     with pytest.raises(ValueError, match="a_qt has dtype"):
         FB._k_major_operands((w,), (FB.k_major(w).float(),), ("a_qt",))
-
-
-_ENGINE_STUBS = {"set_fusion_head": "A3", "retrieve_text_fused": "A3", "retrieve_text_fused_batch": "A3"}
-_RETRIEVER_STUBS = {"retrieval_fused": "A3", "retrieval_fused_batch": "A3"}
-_STUBS = [(RetrievalEngine, n, i) for n, i in _ENGINE_STUBS.items()] + \
-         [(CLIPRetrieval, n, i) for n, i in _RETRIEVER_STUBS.items()]
-
-
-@pytest.mark.parametrize("cls,name,item", _STUBS, ids=[f"{c.__name__}.{n}" for c, n, _ in _STUBS])
-def test_unported_entry_points_raise_with_their_item(cls, name, item):
-    """Entry points of the reference that the port does not carry yet raise
-    ``NotImplementedError`` naming the method and its ROADMAP item, whatever
-    they are called with (an ``AttributeError`` would say nothing)."""
-    obj = object.__new__(cls)  # the stubs read no state
-    with pytest.raises(NotImplementedError, match=rf"{cls.__name__}\.{name} is not ported yet: ROADMAP {item} \("):
-        getattr(obj, name)(["a query"], alpha=0.5)
 
 
 class _CardTensor:

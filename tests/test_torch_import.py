@@ -33,7 +33,21 @@ SLICE_MODULES = [
     f"{PKG}.data.tokenizer",
     f"{PKG}.data.preprocess",
     f"{PKG}.data.datasets",
+    f"{PKG}.eval",
     f"{PKG}.eval.evaluator",
+    f"{PKG}.eval.metrics",
+    f"{PKG}.eval.fusion",
+    f"{PKG}.eval.quality",
+    f"{PKG}.eval.autotune",
+    f"{PKG}.models.fusion_heads",
+    f"{PKG}.ops.image_ops",
+    f"{PKG}.train",
+    f"{PKG}.train.fusion_trainer",
+    f"{PKG}.cli.evaluate",
+    f"{PKG}.cli.train_fusion",
+    f"{PKG}.scripts.quality_sweep",
+    f"{PKG}.scripts.autotune",
+    f"{PKG}.scripts.consistency_check",
     f"{PKG}.retrieval.embedding_store",
     f"{PKG}.retrieval.ann",
     f"{PKG}.retrieval.clip_retrieval",
