@@ -131,8 +131,29 @@ just after; every kernel must have launched in the path it belongs to.
    served tiers' recall@10 on the same 256 rows (within 0.002); then
    ``scripts/consistency_check.py`` (the f32 ``flax`` path on the card
    against the CPU: cosine > 0.9999, the same metrics).
+18. Checkpoint layouts (``checkpoint_layouts_phase``): the ViT-L/14 weights
+   written by the port's writers (``models.convert``) as an OpenAI ``.pt``,
+   an HF-layout state-dict ``.pt`` and a flax ``.npz`` (~1.7 GB each, in a
+   temporary directory), each loaded through ``cli.common.build_model`` to
+   parameters bit-identical to the written model; one 256-query ``int8``
+   and one ``fast`` batch through each (rows equal, scores within 1e-5).
+19. The parity runbook (``parity_phase``): ``cli.parity --dry-run`` with the
+   JAX dry run's stage statuses; real mode with the ViT-L/14 ``.pt`` as
+   ``CLIP_PT_PATH`` on ``synthetic:256`` in the ``flax`` / ``fast`` /
+   ``int8`` encoders (``converter_openai`` and ``evaluation`` ``ok``), with
+   ``CLIP_HF_PATH`` (an HF export of the same weights) for the first run
+   only where ``transformers`` imports.
+20. Text baselines (``baseline_phase``): ``evaluate_text_model`` (single,
+   multi) and ``evaluate_lm_query_target`` with ``HashTextEncoder`` (768)
+   at 4,300 artefacts x 5 variants on the card against the CPU: ranks
+   equal but for near ties (1e-5), metrics within 1e-6 without them.
+21. The profiling scripts (``profiling_scripts_phase``): ``scripts.{profile_serving,
+   profile_vision, vision_batch_sweep, profile_pq, profile_ivf,
+   scale_bench}.main`` once each at full width with repeats cut
+   (``SCRIPT_RUNS``; ``scale_bench`` at 1,000,000 rows), their JSON under
+   ``chiprun_out/``; every line finite, the scans' recall checked.
 The kernel line's entries carry ``launches_by_path`` for the launches of
-items 15-17 beside the earlier paths', and ``launches`` is their sum.
+items 15-21 beside the earlier paths', and ``launches`` is their sum.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -143,6 +164,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2407,6 +2429,333 @@ def quality_phase(torch, dev, tmp, results):
     return counts
 
 
+# -- items 18-21: checkpoint layouts, the parity runbook, text baselines, the profiling scripts --
+
+PARITY_N = 256  # synthetic examples each real-mode parity run evaluates (one batch)
+BASELINE_N, BASELINE_VARIANTS, BASELINE_DIM = 4_300, 5, 768  # the 43k corpus's test split; HashTextEncoder width
+TOL_BASELINE = 1e-6  # card metrics against the CPU's on the same embeddings, where no near ties exist
+# a 768-d f32 dot product of unit rows is off by at most D * 2^-24 (~4.6e-5; measured up to 1.1e-5 on the card,
+# 5.6e-6 on its host), so two candidates closer than twice that to each other may order either way
+NEAR_TIE_F32 = 2 * BASELINE_DIM * 2.0 ** -24
+# the JAX dry run's pinned stage statuses (tests/test_parity_runbook.py:18-36)
+PARITY_DRY_STAGES = {"tokenizer": "skipped", "converter_openai": "ok", "converter_hf": "skipped", "evaluation": "ok"}
+
+
+class _Tally(_Spy):
+    """A :class:`_Spy` that adds each call's kernel launches to the wrapped
+    name's tally, without a synchronize: the launch counters move on the
+    host at launch time, so the timing loops inside the path stay
+    undisturbed."""
+
+    def __init__(self, targets):
+        super().__init__(None, targets)
+        self.tally = {name: {} for _, name in targets}
+
+    def _wrap(self, name, fn):
+        def tally(*a, **kw):
+            before = self.dispatch.launch_counts()
+            out = fn(*a, **kw)
+            after = self.dispatch.launch_counts()
+            for k, n in after.items():
+                if n != before[k]:
+                    self.tally[name][k] = self.tally[name].get(k, 0) + n - before[k]
+            return out
+
+        return tally
+
+    def of(self, name, kernel):
+        return self.tally[name].get(kernel, 0)
+
+
+def checkpoint_layouts_phase(torch, dev, ckpt_dir, store_path, model, results):
+    """The ViT-L/14 weights written by the port's own writers as an OpenAI
+    ``.pt``, an HF-layout state-dict ``.pt`` and a flax ``.npz``; each loaded
+    through ``cli.common.build_model`` (``--model.checkpoint``) to parameters
+    bit-identical to the model they were written from; one 256-query ``int8``
+    batch and one ``fast`` batch served through each (top-k rows equal,
+    scores within 1e-5). Returns ({mode: {wrapper: launches}}, the OpenAI
+    ``.pt`` path)."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.common import build_model as cli_build_model
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import convert as CV
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import config_from_argv
+
+    t_phase = time.perf_counter()
+    writers = {"openai .pt": (CV.save_openai_pt, "vit_l14_openai.pt"), "hf .pt": (CV.save_hf_pt, "vit_l14_hf.pt"),
+               "flax .npz": (CV.save_params_npz, "vit_l14_flax.npz")}
+    sd = CV.openai_state_dict(model)
+    paths, write_s, load_s, size_gb = {}, {}, {}, {}
+    for name, (writer, fname) in writers.items():
+        paths[name] = os.path.join(ckpt_dir, fname)
+        t0 = time.perf_counter()
+        writer(sd, paths[name])
+        write_s[name] = time.perf_counter() - t0
+        size_gb[name] = os.path.getsize(paths[name]) / 2**30
+    del sd
+    ref = model.state_dict()
+    models = {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        models[name] = cli_build_model(config_from_argv([f"--model.checkpoint={path}"]), dev)
+        torch.cuda.synchronize()
+        load_s[name] = time.perf_counter() - t0
+        got = models[name].state_dict()
+        assert got.keys() == ref.keys(), name
+        bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+        assert not bad, f"{name}: parameters differ from the written model: {bad[:4]}"
+    log(f"checkpoints: ViT-L/14 written by the port's writers and loaded through cli.common.build_model, "
+        f"parameters bit-identical: " + "; ".join(
+            f"{n} {size_gb[n]:.2f} GB, write {write_s[n]:.1f} s, load {load_s[n]:.1f} s" for n in paths))
+
+    tok, store = CLIPTokenizer(MERGES), EmbeddingStore.load(store_path)
+    rng = np.random.default_rng(21)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    queries = [" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)]
+    counts, serve_ms = {}, {}
+    for mode, kw in (("int8", dict(quantize="int8", quantize_corpus="int8")),
+                     ("fast", dict(corpus_dtype=torch.bfloat16))):
+        retrievers = {n: CLIPRetrieval(m, tok, store, device=dev, top_k=K, use_fused_encoder=True, **kw)
+                      for n, m in models.items()}
+        for r in retrievers.values():
+            r.search_batch(queries[:8])  # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        outs = {}
+        for n, r in retrievers.items():
+            t0 = time.perf_counter()
+            vals, idx = r.search_batch(queries)
+            outs[n] = (vals.float().cpu().numpy(), idx.cpu().numpy())
+            serve_ms[f"{mode} {n}"] = (time.perf_counter() - t0) * 1e3
+        counts[mode] = dispatch.launch_counts()
+        want_v, want_i = outs["openai .pt"]
+        assert want_v.shape == (QUERIES, K) and np.isfinite(want_v).all()
+        for n, (v, i) in outs.items():
+            assert np.array_equal(i, want_i), f"{mode} {n}: top-k rows differ from the OpenAI .pt model's"
+            np.testing.assert_allclose(v, want_v, rtol=0, atol=TOL_TOPK, err_msg=f"{mode} {n}")
+        log(f"checkpoints: {mode} batch of {QUERIES} through each layout's model: rows equal, scores within "
+            f"{TOL_TOPK:g}; launches {counts[mode]}")
+        del retrievers
+    del models
+    torch.cuda.empty_cache()
+    results["checkpoints"] = dict(write_s=write_s, load_s=load_s, size_gb=size_gb, serve_ms=serve_ms,
+                                  phase_s=time.perf_counter() - t_phase)
+    log(f"checkpoint layouts phase: {results['checkpoints']['phase_s']:.1f} s")
+    return counts, paths["openai .pt"]
+
+
+def parity_phase(torch, dev, ckpt_dir, pt_path, model, results):
+    """``cli.parity``: the dry run's stage statuses equal the JAX dry run's
+    pins; then real mode with the ViT-L/14 ``.pt`` as ``CLIP_PT_PATH`` on
+    ``synthetic:256`` in the ``flax`` / ``fast`` / ``int8`` encoders:
+    ``converter_openai`` and ``evaluation`` ``ok`` with R@K numbers.
+    ``CLIP_HF_PATH`` (an HF export of the same weights) is set for the first
+    run only if ``transformers`` imports here. Returns {encoder: {tower:
+    {wrapper: launches}}}."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import parity
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import evaluator as EV
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import convert as CV
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+
+    t_phase = time.perf_counter()
+    saved_env = {v: os.environ.pop(v, None) for v in ("CLIP_BPE_PATH", "CLIP_PT_PATH", "CLIP_HF_PATH")}
+    try:
+        t0 = time.perf_counter()
+        rep = parity.main(["--dry-run", "--out", os.path.join(ckpt_dir, "parity_dry.json"), f"--device={dev.type}"])
+        assert rep["ok"] and rep["stages"] == PARITY_DRY_STAGES, rep["stages"]
+        assert rep["results"]["converter_openai"]["finite"] is True
+        assert rep["results"]["evaluation"]["num_samples"] == 32
+        dry_s = time.perf_counter() - t0
+        log(f"parity: dry run stages {rep['stages']} (the JAX dry run's) in {dry_s:.1f} s")
+        try:
+            import transformers
+        except ImportError:
+            transformers = None
+        hf_dir = None
+        if transformers is None:
+            log("parity: transformers does not import here: CLIP_HF_PATH left unset, converter_hf skips")
+        else:
+            t0 = time.perf_counter()
+            hf_dir = CV.export_hf_checkpoint(model, model.arch, os.path.join(ckpt_dir, "hf_export"))
+            log(f"parity: transformers {transformers.__version__} imports here: CLIP_HF_PATH set to an HF export "
+                f"of the same weights ({time.perf_counter() - t0:.1f} s) for the flax run")
+        os.environ["CLIP_PT_PATH"] = pt_path
+        towers = {"image": ("encode_image_fast", "encode_image"), "text": ("encode_text_fast", "encode_text")}
+        counts, reports, run_s = {}, {}, {}
+        for enc in ("flax", "fast", "int8"):
+            if hf_dir and enc == "flax":
+                os.environ["CLIP_HF_PATH"] = hf_dir
+            targets = [(EV, "encode_image_fast"), (EV, "encode_text_fast"), (CM.CLIP, "encode_image"),
+                       (CM.CLIP, "encode_text")]
+            with _Tally(targets) as tl:
+                torch.cuda.synchronize()
+                dispatch.reset_launch_counts()
+                t0 = time.perf_counter()
+                rep = parity.main(["--out", os.path.join(ckpt_dir, f"parity_{enc}.json"), f"--device={dev.type}",
+                                   f"--data.dataset=synthetic:{PARITY_N}", f"--eval.encoder={enc}",
+                                   f"--eval.batch_size={PARITY_N}"])
+                torch.cuda.synchronize()
+                run_s[enc] = time.perf_counter() - t0
+            os.environ.pop("CLIP_HF_PATH", None)
+            st = rep["stages"]
+            want_hf = "ok" if hf_dir and enc == "flax" else "skipped"
+            assert (st["tokenizer"], st["converter_openai"], st["converter_hf"], st["evaluation"]) == (
+                "skipped", "ok", want_hf, "ok"), (enc, st, {k: v.get("error") for k, v in rep["results"].items()})
+            ev = rep["results"]["evaluation"]
+            assert ev["num_samples"] == PARITY_N and any(k.startswith("T2I_R@") for k in ev["per_task"])
+            assert all(np.isfinite(v) for v in ev["per_task"].values())
+            counts[enc] = {t: {k: sum(tl.of(n, k) for n in names) for k in dispatch.launch_counts()}
+                           for t, names in towers.items()}
+            reports[enc] = {"stages": st, "converter_openai": rep["results"]["converter_openai"],
+                            "converter_hf": rep["results"]["converter_hf"].get("cosine"),
+                            "T2I_R@1": ev["per_task"]["T2I_R@1"], "T2T_R@10": ev["per_task"]["T2T_R@10"]}
+            log(f"parity {enc}: stages {st} in {run_s[enc]:.1f} s; T2I R@1 {ev['per_task']['T2I_R@1']:.2f}, "
+                f"T2T R@10 {ev['per_task']['T2T_R@10']:.2f}; converter_hf cosine "
+                f"{rep['results']['converter_hf'].get('cosine')}; launches by tower "
+                f"{ {t: {k: n for k, n in c.items() if n} for t, c in counts[enc].items()} }")
+    finally:
+        for var, value in saved_env.items():
+            os.environ.pop(var, None)
+            if value is not None:
+                os.environ[var] = value
+    results["parity"] = dict(dry_s=dry_s, run_s=run_s, reports=reports, hf=bool(hf_dir),
+                             phase_s=time.perf_counter() - t_phase)
+    log(f"parity phase: {results['parity']['phase_s']:.1f} s")
+    return counts
+
+
+def _variant_texts(n, v, seed):
+    """``n`` artefacts x ``v`` text variants: an artefact word and random
+    words; every 7th artefact repeats one text in all its variants."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(400)]
+    return [[f"artifact {i} " + " ".join(rng.choice(words, rng.integers(3, 12))) for _ in range(v)] if i % 7
+            else [f"artifact {i} " + " ".join(rng.choice(words, 5))] * v for i in range(n)]
+
+
+def baseline_phase(torch, dev, results):
+    """``evaluate_text_model`` (``single`` and ``multi``) and
+    ``evaluate_lm_query_target`` with ``HashTextEncoder`` (768 dims) at
+    4,300 artefacts x 5 variants on the card, against the port's CPU run of
+    the same inputs: grouped ranks equal except queries with other
+    artefacts' candidates within ``NEAR_TIE_F32`` (2 x 768 x 2^-24, the f32
+    dot product's rounding bound; 1e-5 is below what the card was measured
+    to round) of their best (f64 products, equal ones included; those may
+    move by as many ranks as such candidates),
+    metrics within 1e-6 where no such query exists. The hash encoder's 768
+    dims repeat four digest bytes, so such ties are common."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.baselines import text_models as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import metrics as MET
+
+    t_phase = time.perf_counter()
+    texts = _variant_texts(BASELINE_N, BASELINE_VARIANTS, seed=13)
+    enc = TT.HashTextEncoder(BASELINE_DIM)
+    emb = [torch.as_tensor(enc.encode([t[v] for t in texts])) for v in range(BASELINE_VARIANTS)]
+    out, near_by_mode = {}, {}
+    for mode in ("single", "multi"):
+        t0 = time.perf_counter()
+        card = TT.evaluate_text_model(enc, texts, mode=mode, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        cpu = TT.evaluate_text_model(enc, texts, mode=mode, device="cpu")
+        near = 0
+        for qv in ([0] if mode == "single" else range(BASELINE_VARIANTS)):
+            pool, groups = TT._pool(emb, qv)
+            got = TT.grouped_ranks(emb[qv].to(dev) @ pool.to(dev).T, groups.to(dev)).cpu()
+            want = TT.grouped_ranks(emb[qv] @ pool.T, groups)
+            sim = emb[qv].to(dev).double() @ pool.to(dev).double().T
+            own = groups.to(dev)[None, :] == torch.arange(BASELINE_N, device=dev)[:, None]
+            best = torch.where(own, sim, -torch.inf).amax(1)
+            # other artefacts' candidates within NEAR_TIE_F32 of the best (f64 ties included: two f32 sums
+            # in another order can split them) may order either way against it
+            window = (((sim - best[:, None]).abs() < NEAR_TIE_F32) & ~own).sum(1).cpu()
+            is_near = window > 0
+            near += int(is_near.sum())
+            assert torch.equal(got[~is_near], want[~is_near]), (mode, qv, int((got != want).sum()))
+            assert ((got - want).abs() <= window).all(), (mode, qv)
+        if near == 0:
+            for key, v in cpu.items():
+                assert abs(card[key] - v) <= TOL_BASELINE * max(1.0, abs(v)), (mode, key, card[key], v)
+        out[mode], near_by_mode[mode] = dict(card=card, card_s=card_s), near
+        log(f"baseline {mode}: {BASELINE_N} x {BASELINE_VARIANTS} variants, HashTextEncoder({BASELINE_DIM}) on the "
+            f"card in {card_s:.3f} s: R@1 {card['T2T_R@1']:.3f}, MRR {card['T2T_MRR']:.3f}; ranks equal the CPU's "
+            f"({near} near-tie queries within {NEAR_TIE_F32:.3g} excepted)")
+    queries, targets = [t[0] for t in texts], [t[1] for t in texts]
+    card = TT.evaluate_lm_query_target(enc, queries, targets, device=dev)
+    cpu = TT.evaluate_lm_query_target(enc, queries, targets, device="cpu")
+    q, t = (torch.as_tensor(enc.encode(x)) for x in (queries, targets))
+    sim = q.to(dev).double() @ t.to(dev).double().T
+    other = ~torch.eye(BASELINE_N, dtype=torch.bool, device=dev)
+    window = (((sim - torch.diagonal(sim)[:, None]).abs() < NEAR_TIE_F32) & other).sum(1).cpu()
+    is_near = window > 0
+    got, want = MET.diagonal_ranks(q.to(dev) @ t.to(dev).T).cpu(), MET.diagonal_ranks(q @ t.T)
+    assert torch.equal(got[~is_near], want[~is_near]) and ((got - want).abs() <= window).all()
+    if not bool(is_near.any()):
+        for key, v in cpu.items():
+            assert abs(card[key] - v) <= TOL_BASELINE * max(1.0, abs(v)), ("lm", key, card[key], v)
+    out["lm_query_target"] = card
+    near_by_mode["lm_query_target"] = int(is_near.sum())
+    results["baseline"] = dict(out, near=near_by_mode, phase_s=time.perf_counter() - t_phase)
+    log(f"baseline lm_query_target: R@1 {card['T2T_R@1']:.3f} ({int(is_near.sum())} near ties); "
+        f"baseline phase {results['baseline']['phase_s']:.1f} s (no kernel of the port: plain products on the card)")
+
+
+SCRIPT_RUNS = {  # name: (argv, the module's scan functions tallied by name) -- repeats cut, widths kept
+    "profile_serving": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8")),
+    "profile_vision": (["--iters=5"], ()),
+    "vision_batch_sweep": (["--bf16", "--medians=2", "--iters=3"], ()),
+    "profile_pq": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8", "fused_similarity_topk_q4",
+                                    "fused_pq_topk")),
+    "profile_ivf": (["--repeats=5"], ("fused_similarity_topk_q8",)),
+    "scale_bench": ([f"--rows={SCALE_ROWS}", "--iters=5"], ("fused_similarity_topk_q8", "fused_similarity_topk_q4",
+                                                            "pq_similarity_topk")),
+}
+
+
+def profiling_scripts_phase(torch, dev, results):
+    """Each of the port's six profiling scripts once through its
+    ``main(argv)`` on the card at full width, repeats cut
+    (``SCRIPT_RUNS``); its JSON is logged and written under ``chiprun_out/``.
+    Returns {script: {"total": {wrapper: launches}, scan function: {...}}}."""
+    import importlib
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+
+    t_phase = time.perf_counter()
+    counts, wall, payloads = {}, {}, {}
+    for name, (argv, scans) in SCRIPT_RUNS.items():
+        mod = importlib.import_module(f"{PKG}.scripts.{name}")
+        with _Tally([(mod, s) for s in scans]) as tl:
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            payloads[name] = mod.main(argv + [f"--device={dev.type}"])
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            total = dispatch.launch_counts()
+            counts[name] = {"total": total, **{f: {k: tl.of(f, k) for k in total} for f in scans}}
+        log(f"script {name}: {wall[name]:.1f} s, launches {({k: n for k, n in counts[name]['total'].items() if n})}; "
+            f"JSON in {mod.DEFAULT_OUT}")
+    # what comes out is right: every timed line finite and positive, the
+    # scans' recall where the exact answer is known
+    ps, pv, vs = payloads["profile_serving"], payloads["profile_vision"], payloads["vision_batch_sweep"]
+    pq, ivf, sb = payloads["profile_pq"], payloads["profile_ivf"], payloads["scale_bench"]
+    lines = [*ps["lines"].values(), *pv["blocks"].values(), *pq["tiers"].values(), *ivf["lines"].values(),
+             *sb["tiers"].values(), *(t["full"] for t in pv["towers"].values()),
+             *(r["ms_per_batch"] for r in vs["results"].values())]
+    assert all(np.isfinite(x["event_ms"]) and x["event_ms"] > 0 and np.isfinite(x["device_ms"]) for x in lines)
+    assert sb["failed_tiers"] == {} and set(sb["tiers"]) == {"int8", "int4", "pq"} and sb["rows"] == SCALE_ROWS
+    assert sb["tiers"]["int8"]["recall@10"] >= 0.9 and pq["tiers"]["bf16 exact"]["recall@10"] >= 0.99
+    assert abs(pq["tiers"]["pq m=96 adc"]["recall@10"] - pq["tiers"]["pq m=96 decode"]["recall@10"]) <= 0.02
+    assert ivf["lines"]["brute int8"]["recall@10"] >= 0.9
+    results["scripts"] = dict(wall_s=wall, phase_s=time.perf_counter() - t_phase)
+    log(f"profiling scripts phase: {results['scripts']['phase_s']:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2465,6 +2814,12 @@ def main() -> int:
         ev = eval_phase(torch, dev, tmp, results)
         fu = fusion_phase(torch, dev, tmp, store_path, results)
         qu = quality_phase(torch, dev, tmp, results)
+        ckpt_dir = tempfile.mkdtemp(dir=tmp)  # ~5 GB of ViT-L/14 checkpoints, gone with tmp
+        ck, pt_path = checkpoint_layouts_phase(torch, dev, ckpt_dir, store_path, model, results)
+        pa = parity_phase(torch, dev, ckpt_dir, pt_path, model, results)
+        shutil.rmtree(ckpt_dir)
+        baseline_phase(torch, dev, results)
+        sc = profiling_scripts_phase(torch, dev, results)
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -2531,6 +2886,55 @@ def main() -> int:
                                                  "autotune int4 rows": qu["autotune"]["int4"]},
         f"B5 pq_adc_topk [{CORPUS}]": {"quality sweep pq rows": qu["pq"], "autotune pq rows": qu["autotune"]["pq"]},
     }
+    # this slice's paths (checkpoint layouts, the parity runbook, the profiling scripts)
+    ps, pv, vs, pq, ivf, sb = (sc[n] for n in ("profile_serving", "profile_vision", "vision_batch_sweep",
+                                                "profile_pq", "profile_ivf", "scale_bench"))
+    sim = "similarity_topk_kernel"
+    slice_paths = {
+        "B3a fused_attention_block": {
+            "checkpoint layouts fast batch (3 models)": ck["fast"]["fused_attention_block"],
+            "parity fast eval text tower": pa["fast"]["text"]["fused_attention_block"],
+            "profile_serving": ps["total"]["fused_attention_block"]},
+        "B3b fused_mlp_block": {
+            "checkpoint layouts fast batch (3 models)": ck["fast"]["fused_mlp_block"],
+            "parity fast eval text tower": pa["fast"]["text"]["fused_mlp_block"],
+            "profile_serving": ps["total"]["fused_mlp_block"]},
+        "B1 fused_layer_q8": {
+            "checkpoint layouts int8 batch (3 models)": ck["int8"]["fused_layer_q8"],
+            "parity int8 eval text tower": pa["int8"]["text"]["fused_layer_q8"],
+            "profile_serving": ps["total"]["fused_layer_q8"]},
+        "B2 similarity_topk exact": {
+            "checkpoint layouts fast batch (3 models)": ck["fast"][sim],
+            "profile_serving": ps["fused_similarity_topk"][sim], "profile_pq": pq["fused_similarity_topk"][sim]},
+        "B2 similarity_topk q8": {
+            "checkpoint layouts int8 batch (3 models)": ck["int8"][sim],
+            "profile_serving": ps["fused_similarity_topk_q8"][sim], "profile_pq": pq["fused_similarity_topk_q8"][sim],
+            "profile_ivf brute scan (262,144 rows)": ivf["fused_similarity_topk_q8"][sim],
+            f"scale_bench int8 ({SCALE_ROWS} rows)": sb["fused_similarity_topk_q8"][sim]},
+        f"B3a fused_attention_block{vis}": {
+            "parity fast eval image tower": pa["fast"]["image"]["fused_attention_block"],
+            "profile_vision": pv["total"]["fused_attention_block"],
+            "vision_batch_sweep --bf16": vs["total"]["fused_attention_block"]},
+        f"B3b fused_mlp_block{vis}": {
+            "parity fast eval image tower": pa["fast"]["image"]["fused_mlp_block"],
+            "profile_vision": pv["total"]["fused_mlp_block"],
+            "vision_batch_sweep --bf16": vs["total"]["fused_mlp_block"]},
+        f"B1 fused_layer_q8{vis}": {
+            "parity int8 eval image tower": pa["int8"]["image"]["fused_layer_q8"],
+            "profile_vision": pv["total"]["fused_layer_q8"],
+            "vision_batch_sweep": vs["total"]["fused_layer_q8"]},
+        f"B4a fused_attention_block_q8{vis}": {"profile_vision": pv["total"]["fused_attention_block_q8"]},
+        f"B4b fused_mlp_block_q8{vis}": {"profile_vision": pv["total"]["fused_mlp_block_q8"]},
+        "B6 flash_attention s=257": {
+            "parity runs' image tower (flax eval + the converter forward)":
+                sum(pa[e]["image"]["flash_attention_kernel"] for e in pa)},
+        f"B2-q4 similarity_topk q4 [{CORPUS}]": {"profile_pq": pq["fused_similarity_topk_q4"][sim]},
+        f"B2-q4 similarity_topk q4 [{SCALE_ROWS}]": {"scale_bench int4": sb["fused_similarity_topk_q4"][sim]},
+        f"B5 pq_adc_topk [{CORPUS}]": {"profile_pq": pq["fused_pq_topk"]["pq_adc_topk_kernel"]},
+        f"B5 pq_adc_topk [{SCALE_ROWS}]": {"scale_bench pq": sb["pq_similarity_topk"]["pq_adc_topk_kernel"]},
+    }
+    for name, paths in slice_paths.items():
+        by_path.setdefault(name, {}).update(paths)
     for name in results:
         if name.startswith("S1 "):
             launches[name] = prof["attn_q8_variant"]
@@ -2571,6 +2975,9 @@ def main() -> int:
         f"ms; phase {fu_r['phase_s']:.1f} s ({smi})")
     log(f"quality: sweep {results['quality']['sweep_s']:.1f} s, autotune {results['quality']['autotune_s']:.1f} s, "
         f"recall against the served tiers {results['quality']['recall_diff']}; phase {results['quality']['phase_s']:.1f} s")
+    log("items 18-21 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
+                                         ("checkpoints", "parity", "baseline", "scripts"))
+        + "; scripts " + ", ".join(f"{n} {t:.1f}" for n, t in results["scripts"]["wall_s"].items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..utils.config import Config
@@ -19,7 +18,7 @@ from ..utils.config import Config
 from ..data.datasets import DataPipeline, load_hf_source, make_synthetic_source
 from ..data.tokenizer import CLIPTokenizer
 from ..models import clip as clip_mod
-from ..models.convert import load_openai_state_dict
+from ..models.convert import load_clip_state_dict, load_openai_state_dict
 from ..ops.dispatch import has_cuda
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -51,38 +50,15 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _load_state_dict(path: str):
-    """OpenAI-layout state dict (``.pt`` or ``.npz``) as numpy arrays."""
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            sd = {k: data[k] for k in data.files}
-        if any("/" in k for k in sd):
-            raise ValueError(
-                f"{path} holds a flax parameter tree; export it to the OpenAI layout "
-                "(models.convert.save_openai_pt in the JAX package) to load it here"
-            )
-        return sd
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(obj, torch.jit.ScriptModule):
-        obj = obj.state_dict()
-    for key in ("model_state_dict", "state_dict", "model"):
-        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
-            obj = obj[key]
-            break
-    return {
-        (k[len("module."):] if k.startswith("module.") else k): v.detach().float().numpy()
-        for k, v in obj.items()
-        if hasattr(v, "detach")
-    }
-
-
 def build_model(cfg: Config, device) -> clip_mod.CLIP:
-    """CLIP from ``model.checkpoint`` or, without one, seeded weights."""
+    """CLIP from ``model.checkpoint`` (an OpenAI ``.pt``, an HF ``CLIPModel``
+    state dict, a flax ``.npz`` tree or an ``.npz`` of OpenAI keys:
+    ``models.convert.load_clip_state_dict``) or, without one, seeded weights."""
     if cfg.model.adapters:
         raise NotImplementedError("--model.adapters (LoRA merge) is not ported yet: ROADMAP A4 (training)")
     dtype = _DTYPES[cfg.model.dtype]
     if cfg.model.checkpoint:
-        return load_openai_state_dict(_load_state_dict(cfg.model.checkpoint), device=device, dtype=dtype)
+        return load_openai_state_dict(load_clip_state_dict(cfg.model.checkpoint), device=device, dtype=dtype)
     return clip_mod.build_model(cfg.model.name, dtype=dtype, seed=0, device=device)
 
 

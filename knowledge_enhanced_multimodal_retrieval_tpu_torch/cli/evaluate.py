@@ -1,8 +1,8 @@
 """Evaluation entry point.
 
 The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/evaluate.py``:
-zero-shot when no checkpoint is given (seeded weights here), an OpenAI-layout
-checkpoint (``.pt`` / ``.npz``) otherwise; the optional Text2SPARQL fusion
+zero-shot when no checkpoint is given (seeded weights here), a checkpoint
+in any layout ``models.convert.load_clip_state_dict`` reads otherwise; the optional Text2SPARQL fusion
 sweep reads a results JSON (``{query uuid: [artefact URI, ...]}``):
 
     python -m knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.evaluate \

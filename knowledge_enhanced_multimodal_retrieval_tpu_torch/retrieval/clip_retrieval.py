@@ -92,6 +92,7 @@ class _CorpusState:
     ivf: Optional[IVFIndex]  # the packed IVF index in ann mode, else None
     top_k: int  # requested k clamped to the real row count
     nprobe: int  # ann probe width clamped to the (possibly rebuilt) nlist
+    ann_spill_fraction: float = 0.0  # IVF rows packed outside their best cluster; 0.0 without an index
 
 
 class CLIPRetrieval:
@@ -285,6 +286,7 @@ class CLIPRetrieval:
                 store=store, n_real=n_real, corpus_img=None, corpus_txt=None,
                 corpus_img_scale=None, corpus_txt_scale=None, ivf=index,
                 top_k=top_k, nprobe=min(self.ann_nprobe, index.nlist),
+                ann_spill_fraction=index.spill_fraction,
             )
             return
         # pad rows (zero vectors, score 0, sentinel uuids) round the device
@@ -389,6 +391,29 @@ class CLIPRetrieval:
     @property
     def top_k(self) -> int:
         return self._corpus.top_k
+
+    @property
+    def corpus_img(self):
+        """The image tower's device corpus as the scan reads it (None under IVF)."""
+        return self._corpus.corpus_img
+
+    @property
+    def corpus_txt(self):
+        return self._corpus.corpus_txt
+
+    @property
+    def corpus_img_scale(self) -> Optional[torch.Tensor]:
+        """Per-row scales [N, 1] of an int8 / int4 / pq corpus, else None."""
+        return self._corpus.corpus_img_scale
+
+    @property
+    def corpus_txt_scale(self) -> Optional[torch.Tensor]:
+        return self._corpus.corpus_txt_scale
+
+    @property
+    def ann_spill_fraction(self) -> float:
+        """Share of rows the IVF index packed outside their best cluster."""
+        return self._corpus.ann_spill_fraction
 
     def set_store(self, store: EmbeddingStore) -> None:
         """Replace the corpus wholesale (rebuilds the device state, then swaps)."""
@@ -966,3 +991,7 @@ class CLIPRetrieval:
         return self.retrieval_embeddings_batch(
             self.encode_images(self.preprocess_images(images)), alpha=alpha, top_k=top_k
         )
+
+    def retrieval_image(self, image, alpha: float = 0.5, top_k: Optional[int] = None) -> List[Dict]:
+        """Single-image visual search -> ``[{"uuid", "score"}]`` descending."""
+        return self.retrieval_image_batch([image], alpha=alpha, top_k=top_k)[0]

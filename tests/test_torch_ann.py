@@ -159,3 +159,34 @@ def test_calibrate_nprobe_same_report(corpus, jax_indexes):
     got = T.calibrate_nprobe(T.load_ivf_index(path), q, img, txt, k=5, target_recall=0.9)
     assert got == want
     assert T.probed_fraction(T.load_ivf_index(path), 3) == J.probed_fraction(index, 3)
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+def test_retriever_spill_fraction_matches_jax(corpus, jax_indexes, mode):
+    """JAX ``tests/test_ann.py:457``: the retriever reports its index's
+    spill fraction; both retrievers serving one JAX-built cache report the
+    same one, and a partial probe still returns sorted results."""
+    from knowledge_enhanced_multimodal_retrieval_tpu.data.tokenizer import CLIPTokenizer as JTok
+    from knowledge_enhanced_multimodal_retrieval_tpu.models import clip as JM
+    from knowledge_enhanced_multimodal_retrieval_tpu.retrieval import CLIPRetrieval as JRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu.retrieval import EmbeddingStore as JStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer as TTok
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as TM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval as TRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore as TStore
+
+    img, txt, q = corpus
+    index, path = jax_indexes[mode]
+    uuids = [f"u{i}" for i in range(N)]
+    merges = [("c", "a"), ("ca", "t</w>")]
+    kw = dict(top_k=10, quantize_corpus=mode, ann="ivf", ann_nlist=NLIST, ann_nprobe=2, ann_index_path=path,
+              pq_m=4 if mode == "pq" else 0)
+    jmodel = JM.CLIP(JM.CLIPArch(D, 32, 1, 64, 16, 16, 600, 64, 1, 1), dtype=jnp.float32)
+    j = JRetrieval(jmodel, JM.init_params(jmodel, jax.random.PRNGKey(0)), JTok(merges), JStore(img, txt, uuids), **kw)
+    tmodel = TM.build_model("", dtype=torch.float32, arch=TM.CLIPArch(D, 32, 1, 64, 16, 16, 600, 64, 1, 1))
+    t = TRetrieval(tmodel, TTok(merges), TStore(img, txt, uuids), device="cpu", **kw)
+    assert t.ann_spill_fraction == pytest.approx(index.spill_fraction) == pytest.approx(float(j.ann_spill_fraction))
+    assert 0.0 <= t.ann_spill_fraction <= 1.0
+    for res in t.retrieval_embeddings_batch(q[:3]):
+        scores = [r["score"] for r in res]
+        assert scores == sorted(scores, reverse=True) and len(res) > 0

@@ -268,3 +268,57 @@ def test_index_cli_output_loads_in_jax(world, tmp_path):
     assert jindex.nlist == int(np.sqrt(N_DOCS))
     with pytest.raises(ValueError, match="int8, int4, or pq"):
         index_cli.main(["--store", path, "--out", out, "--eval.quantize_corpus=binary", "--device=cpu"])
+
+
+def _host(x):
+    """A corpus property as host numpy (tuples element-wise; None kept)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_host(y) for y in x)
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _assert_same_array(got, want, name):
+    if want is None or isinstance(want, tuple):
+        assert type(got) is type(want), name
+        for g, w in zip(got or (), want or ()):
+            _assert_same_array(g, w, name)
+        return
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    if got.dtype != want.dtype and got.dtype.itemsize == want.dtype.itemsize and got.dtype.kind in "iu":
+        got = got.view(want.dtype)  # sign words: int32 here, uint32 there
+    np.testing.assert_array_equal(got.astype(np.float32) if got.dtype != want.dtype else got,
+                                  want.astype(np.float32) if got.dtype != want.dtype else want, err_msg=name)
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_corpus_properties_match_jax(world, tier):
+    """``corpus_img`` / ``corpus_txt`` / their scales (JAX
+    ``clip_retrieval.py:827-845``) hold the rows the scan reads, equal to
+    the JAX retriever's; ``ann_spill_fraction`` equals it too."""
+    j, t = _pair(world, tier)
+    for name in ("corpus_img", "corpus_txt", "corpus_img_scale", "corpus_txt_scale"):
+        _assert_same_array(_host(getattr(t, name)), _host(getattr(j, name)), f"{tier} {name}")
+    assert t.ann_spill_fraction == pytest.approx(float(j.ann_spill_fraction), abs=1e-7)
+    if TIERS[tier].get("ann"):
+        assert t.corpus_img is None and t.ann_spill_fraction == pytest.approx(t._corpus.ivf.spill_fraction)
+    else:
+        assert t.ann_spill_fraction == 0.0
+
+
+def test_rerank_image_path_matches_jax(world):
+    """JAX ``tests/test_rerank.py:114``: rerank serves image queries too."""
+    model, params, path, _ = world
+    kw = dict(top_k=5, quantize_corpus="int4", rerank=True, rerank_factor=10)
+    j = JRetrieval(model, params, JTok(MERGES), JStore.load(path), use_fused_encoder=True, **kw)
+    t = TRetrieval(from_flax_params(params, dtype=torch.float32, arch=ARCH), TTok(MERGES), TStore.load(path),
+                   device="cpu", **kw)
+    store = t.store
+    out = t.retrieval_embeddings_batch(store.image[:3], alpha=1.0)
+    for i, results in enumerate(out):
+        assert results[0]["uuid"] == store.uuids[i] and results[0]["score"] == pytest.approx(1.0, abs=1e-5)
+    img = np.random.default_rng(5).integers(0, 255, size=(32, 32, 3), dtype=np.uint8)
+    got = t.retrieval_image(img)
+    assert len(got) == 5
+    _assert_same([j.retrieval_image(img)], [got], 1e-4, exact_order=False)

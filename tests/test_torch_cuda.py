@@ -930,3 +930,86 @@ def test_retrieval_fused_batch_launches_b2(rng, dev, quantize_corpus):
             want = fm.scores(head, q[qi : qi + 1], torch.tensor(store.image[rows], device=dev),
                              torch.tensor(store.text[rows], device=dev))[0].cpu().numpy()
         np.testing.assert_allclose([x["score"] for x in res], want, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("encoder", ["flax", "fast", "int8"])
+def test_checkpoint_layouts_load_alike_on_card(rng, dev, tmp_path, encoder):
+    """An OpenAI ``.pt``, an HF-layout ``.pt`` and a flax ``.npz`` written by
+    the port's writers from one seeded model load (``cli.common.build_model``)
+    to bit-identical parameters on the card, and serve alike: equal tower
+    outputs, and the card's embeddings agree with the same model on the CPU."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.common import build_model as cli_build
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import convert as TC
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import config_from_argv
+
+    arch = CLIPArch(64, 224, 2, 128, 14, 77, 600, 128, 2, 2)
+    base = build_model("", dtype=torch.float32, seed=4, arch=arch)
+    paths = {"openai": str(tmp_path / "o.pt"), "hf": str(tmp_path / "h.pt"), "flax": str(tmp_path / "f.npz")}
+    TC.save_openai_pt(base, paths["openai"])
+    TC.save_hf_pt(base, paths["hf"])
+    TC.save_params_npz(base, paths["flax"])
+    models = {k: cli_build(config_from_argv([f"--model.checkpoint={p}", "--model.dtype=bfloat16"]), dev)
+              for k, p in paths.items()}
+    want = TC.openai_state_dict(base)
+    for m in models.values():
+        got = TC.openai_state_dict(m)
+        assert got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+    images = torch.tensor(rng.standard_normal((4, 224, 224, 3)).astype(np.float32), device=dev)
+    ids = torch.zeros((4, 16), dtype=torch.long, device=dev)
+    ids[:, 0], ids[:, 1:5], ids[:, 5] = 598, torch.arange(1, 5, device=dev), 599
+    outs = {}
+    for k, m in models.items():
+        if encoder == "flax":
+            outs[k] = (m.encode_image(images), m.encode_text(ids))
+        else:
+            q = "int8" if encoder == "int8" else None
+            outs[k] = (encode_image_fast(arch, make_vision_plan(m, quantize=q), images),
+                       encode_text_fast(arch, make_text_plan(m, quantize=q), ids))
+    for k in ("hf", "flax"):
+        for a, b in zip(outs[k], outs["openai"]):
+            assert torch.equal(a, b), (encoder, k)
+    cpu = cli_build(config_from_argv([f"--model.checkpoint={paths['openai']}", "--model.dtype=bfloat16"]),
+                    torch.device("cpu"))
+    if encoder == "flax":
+        ref = (cpu.encode_image(images.cpu()), cpu.encode_text(ids.cpu()))
+    else:
+        q = "int8" if encoder == "int8" else None
+        ref = (encode_image_fast(arch, make_vision_plan(cpu, quantize=q), images.cpu()),
+               encode_text_fast(arch, make_text_plan(cpu, quantize=q), ids.cpu()))
+    for a, b in zip(outs["openai"], ref):
+        cos = torch.nn.functional.cosine_similarity(a.float().cpu(), b.float(), dim=1)
+        assert float(cos.min()) > 0.999, (encoder, cos)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+def test_text_baseline_ranks_on_card_match_cpu(dev, mode):
+    """``HashTextEncoder`` variants at 768 dims: the grouped ranks on the card
+    equal the CPU's except queries with other artefacts' candidates within
+    twice the f32 rounding bound of a 768-d dot product (9.2e-5) of their
+    best (f64 products, equal ones included): those may move by as many
+    ranks as there are such candidates."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.baselines import text_models as TT
+
+    rng = np.random.default_rng(9)
+    words = [f"w{i}" for i in range(60)]
+    texts = [[f"artifact {i} " + " ".join(rng.choice(words, rng.integers(2, 8))) for _ in range(5)]
+             if i % 7 else [f"artifact {i} same"] * 5 for i in range(500)]
+    enc = TT.HashTextEncoder(768)
+    emb = [torch.as_tensor(enc.encode([t[v] for t in texts])) for v in range(5)]
+    roles = [0] if mode == "single" else range(5)
+    for qv in roles:
+        pool, groups = TT._pool(emb, qv)
+        got = TT.grouped_ranks(emb[qv].to(dev) @ pool.to(dev).T, groups.to(dev)).cpu()
+        want = TT.grouped_ranks(emb[qv] @ pool.T, groups)
+        sim = emb[qv].double() @ pool.double().T
+        own = groups[None, :] == torch.arange(len(texts))[:, None]
+        best = torch.where(own, sim, -torch.inf).amax(1)
+        # other artefacts' candidates within twice the f32 rounding bound of a 768-d dot product
+        # (2 x 768 x 2^-24) of the best, f64 ties included, may order either way
+        window = (((sim - best[:, None]).abs() < 2 * 768 * 2.0 ** -24) & ~own).sum(1)
+        near = window > 0
+        assert torch.equal(got[~near], want[~near]), qv
+        assert ((got - want).abs() <= window).all()
+    card = TT.evaluate_text_model(enc, texts, mode=mode, device=dev)
+    cpu = TT.evaluate_text_model(enc, texts, mode=mode, device="cpu")
+    assert card.keys() == cpu.keys()

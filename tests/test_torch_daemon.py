@@ -2,7 +2,8 @@
 
 Both CLIs run their ``main`` with ``--http=0`` (an ephemeral port) on a
 thread, over copies of one ``.npz`` store and the same seeded weights (a
-flax ``.npz`` for the JAX CLI, its OpenAI-layout export for the port's),
+flax ``.npz`` for the JAX CLI, its OpenAI-layout export for the port's;
+the port's CLI also takes the flax ``.npz`` itself),
 the port with ``--device=cpu``. The same ``/search`` (per-request alpha),
 filtered, candidate and ``/search_image`` requests go to both: the same
 uuids and scores within 1e-4 (the encoders sum in another order, so a near
@@ -118,7 +119,7 @@ def daemons(tmp_path_factory):
     t = _run_daemon(tserve, tserve,
                     [f"--store={paths['port']}", f"--model.checkpoint={openai_ckpt}", "--device=cpu",
                      "--warmup=1,2", "--bucket-queries", "--max-pending=64", "--eval.mmap_store=true"] + common, mp)
-    yield {"jax": j[0], "port": t[0], "paths": paths}
+    yield {"jax": j[0], "port": t[0], "paths": paths, "flax_ckpt": flax_ckpt}
     for srv, thread, errors in (j, t):
         srv.request_shutdown()
         thread.join(60)
@@ -295,3 +296,21 @@ def test_daemon_bench_quick_on_cpu(tmp_path):
     assert sum(n * c for n, c in d["text_batcher"]["batch_size_hist"].items()) == d["text"]["n"]
     with pytest.raises(ValueError, match="DAEMON_BENCH.json"):
         daemon_bench.main(["--quick", "--device=cpu", f"--out={daemon_bench.REPO}/DAEMON_BENCH.json"])
+
+
+def test_port_cli_takes_the_jax_clis_flax_npz(daemons, tmp_path):
+    """The one flax ``.npz`` the JAX daemon loaded also serves the port's
+    CLI (``--model.checkpoint``): its answers equal the JAX daemon's."""
+    import contextlib
+
+    store = str(tmp_path / "store.npz")
+    TStore.load(daemons["paths"]["jax"]).save(store)
+    for q in QUERIES[:2]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tserve.main([f"--store={store}", f"--model.checkpoint={daemons['flax_ckpt']}", "--model.dtype=float32",
+                         "--eval.encoder=fast", "--fusion.alpha_clip=0.5", "--device=cpu", f"--query={q}"])
+        got = json.loads(buf.getvalue())["results"]
+        code, want = _call(daemons["jax"], "GET", f"/search?q={q.replace(' ', '+')}&n={len(got)}")
+        assert code == 200 and len(got) > 0
+        _same(want["results"], got)

@@ -352,3 +352,155 @@ def test_profiling_counterparts(tmp_path):
             torch.ones(8).sum()
     body = (tmp_path / "prof" / "trace.json").read_text()
     assert "kemr-region" in body
+
+
+# ---------------------------------------------------------------------------
+# datagen (JAX tests/test_datagen.py's cases, over both packages)
+# ---------------------------------------------------------------------------
+
+from knowledge_enhanced_multimodal_retrieval_tpu.datagen import captioning as JCap  # noqa: E402
+from knowledge_enhanced_multimodal_retrieval_tpu.datagen import metadata as JMeta  # noqa: E402
+from knowledge_enhanced_multimodal_retrieval_tpu.datagen import texts as JTexts  # noqa: E402
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.datagen import captioning as TCap  # noqa: E402
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.datagen import metadata as TMeta  # noqa: E402
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.datagen import texts as TTexts  # noqa: E402
+
+_DATAGEN = {"jax": (JCap, JMeta, JTexts), "port": (TCap, TMeta, TTexts)}
+_COMBINE_CASES = [
+    ("This is a painting, oil on canvas", "a painting of a dog"),
+    ("Portrait of a lady", "a sculpture of a horse"),
+    ("meta only", ""), ("", "content only"), ("", ""),
+    ("This is a church, gothic style", "a church with a tall spire"),
+    ("A Temples, carved", "temples by the sea"), ("A vase, red figure", "a vase with dancers"),
+]
+
+
+@pytest.mark.parametrize("metadata,content", _COMBINE_CASES)
+def test_combine_descriptions_equals_the_original(metadata, content):
+    assert TTexts.combine_descriptions(metadata, content) == JTexts.combine_descriptions(metadata, content)
+
+
+@pytest.mark.parametrize("pkg", sorted(_DATAGEN))
+def test_combine_lead_in_and_replacements(pkg):
+    texts = _DATAGEN[pkg][2]
+    out = texts.combine_descriptions("This is a painting, oil on canvas", "a painting of a dog")
+    assert out.startswith("A painting of a dog") and "This is a painting" not in out and ", oil on canvas" in out
+    assert texts.combine_descriptions("Portrait of a lady", "a sculpture of a horse") == (
+        "A sculpture of a horse. Portrait of a lady")
+    assert texts.combine_descriptions("meta only", "") == "Meta only"
+    assert texts.combine_descriptions("", "content only") == "Content only"
+    assert texts.combine_descriptions("", "") == ""
+    assert "This is a church" not in texts.combine_descriptions("This is a church, gothic style",
+                                                                "a church with a tall spire")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_random_select_content_equals_the_original(seed):
+    import random
+
+    descs = ["the church of the person x", "short", "a long valid caption one", "another valid caption two",
+             "a third valid caption", "tiny"]
+    want = JTexts.random_select_content(list(descs), random.Random(seed))
+    got = TTexts.random_select_content(list(descs), random.Random(seed))
+    assert got == want
+    c1, c2 = got
+    assert c1 != c2 and all("the church of the person" not in c and len(c) >= 10 for c in (c1, c2))
+    assert TTexts.random_select_content(["bad"], random.Random(seed)) == ("", "")
+
+
+def _hybrid_dirs(root):
+    meta, content, images = root / "meta", root / "content", root / "img"
+    for d in (meta, content, images):
+        d.mkdir()
+    for i in range(5):
+        (meta / f"u{i}.json").write_text(json.dumps(
+            {"metadata_descriptions": [f"This is a painting, from {1800 + i}", f"A painting, dated {1800 + i}"]}))
+        (content / f"u{i}.json").write_text(json.dumps(
+            {"content_descriptions": [f"a painting of scene {i}", "" if i == 3 else f"a view {i}"]}))
+        (images / f"u{i}.jpg").write_bytes(b"x")
+    (meta / "no-image.json").write_text(json.dumps({"metadata_descriptions": ["m"]}))
+    return str(meta), str(content), str(images)
+
+
+def test_build_hybrid_texts_equals_the_original(tmp_path):
+    outs = {}
+    for pkg in sorted(_DATAGEN):
+        root = tmp_path / pkg
+        root.mkdir()
+        result = _DATAGEN[pkg][2].build_hybrid_texts(*_hybrid_dirs(root), str(root / "final"), seed=1)
+        files = {f: json.load(open(root / "final" / f)) for f in sorted(os.listdir(root / "final"))}
+        outs[pkg] = (result, files)
+    assert outs["port"] == outs["jax"]
+    assert sorted(outs["port"][0]["written"]) == [f"u{i}" for i in range(5)]
+
+
+@pytest.mark.parametrize("pkg", sorted(_DATAGEN))
+def test_captioning_pipeline_resume(tmp_path, pkg):
+    cap_mod = _DATAGEN[pkg][0]
+    cap = cap_mod.FakeCaptioner(num_captions=5)
+    pipe = cap_mod.CaptioningPipeline(cap, str(tmp_path / "caps"), batch_size=2)
+    uuids = [f"u{i}" for i in range(5)]
+    r1 = pipe.run(uuids, [object()] * 5)
+    assert sorted(r1["written"]) == sorted(uuids)
+    assert len(json.load(open(tmp_path / "caps" / "u3.json"))["content_descriptions"]) == 5
+    calls = cap.calls
+    r2 = pipe.run(uuids, [object()] * 5)
+    assert r2["written"] == [] and sorted(r2["skipped"]) == sorted(uuids) and cap.calls == calls
+    with pytest.raises(ValueError):
+        pipe.run(["a"], [])
+
+
+def test_captioning_files_equal_the_original(tmp_path):
+    files = {}
+    for pkg in sorted(_DATAGEN):
+        cap_mod = _DATAGEN[pkg][0]
+        out = tmp_path / pkg
+        cap_mod.CaptioningPipeline(cap_mod.FakeCaptioner(3), str(out), batch_size=3).run(
+            [f"u{i}" for i in range(7)], [object()] * 7)
+        files[pkg] = {f: (out / f).read_text() for f in sorted(os.listdir(out))}
+    assert files["port"] == files["jax"]
+
+
+def test_mesh_sharded_captioner_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="A5"):
+        TCap.MeshShardedCaptioner(lambda p, x: x, {}, str, None)
+
+
+def test_blip2_captioner_defaults_to_the_card():
+    import inspect
+
+    assert inspect.signature(TCap.Blip2Captioner).parameters["device"].default == "cuda"
+
+
+_METADATA_CASES = [
+    {"object_type": "Painting", "title": "Madonna and Child", "creator": "Unknown Master", "date": "1480",
+     "material": "tempera on wood", "location": "Benaki Museum"},
+    {"object_type": "vase"},
+    {"title": "Untitled", "date": 1901},
+    {},
+]
+
+
+@pytest.mark.parametrize("meta", _METADATA_CASES)
+@pytest.mark.parametrize("num_variants", [3, 5, 7])
+def test_metadata_descriptions_equal_the_original(meta, num_variants):
+    got = TMeta.generate_metadata_descriptions(meta, num_variants=num_variants)
+    assert got == JMeta.generate_metadata_descriptions(meta, num_variants=num_variants)
+    assert len(got) == num_variants and all(v and "None" not in v for v in got)
+
+
+def test_metadata_generation_cases():
+    variants = TMeta.generate_metadata_descriptions(_METADATA_CASES[0], num_variants=5)
+    assert len(set(variants)) > 1 and variants[0].startswith("This is a painting")
+    assert any("1480" in v for v in variants) and any("Benaki Museum" in v for v in variants)
+    assert variants == TMeta.generate_metadata_descriptions(_METADATA_CASES[0], num_variants=5)
+
+
+def test_build_metadata_texts_equals_the_original(tmp_path):
+    records = [{"uuid": "m1", "object_type": "icon", "creator": "A"}, {"uuid": "m2", "title": "T", "date": "1700"}]
+    files = {}
+    for pkg in sorted(_DATAGEN):
+        out = tmp_path / pkg
+        assert _DATAGEN[pkg][1].build_metadata_texts(records, str(out)) == ["m1", "m2"]
+        files[pkg] = {f: json.load(open(out / f)) for f in sorted(os.listdir(out))}
+    assert files["port"] == files["jax"] and len(files["port"]["m1.json"]["metadata_descriptions"]) == 5

@@ -77,6 +77,21 @@ SLICE_MODULES = [
     f"{PKG}.scripts.profile_vision_interior",
     f"{PKG}.scripts.time_topk",
     f"{PKG}.scripts.daemon_bench",
+    f"{PKG}.scripts.timing",
+    f"{PKG}.scripts.profile_serving",
+    f"{PKG}.scripts.profile_vision",
+    f"{PKG}.scripts.vision_batch_sweep",
+    f"{PKG}.scripts.profile_pq",
+    f"{PKG}.scripts.profile_ivf",
+    f"{PKG}.scripts.scale_bench",
+    f"{PKG}.cli.parity",
+    f"{PKG}.cli.baseline_text",
+    f"{PKG}.baselines",
+    f"{PKG}.baselines.text_models",
+    f"{PKG}.datagen",
+    f"{PKG}.datagen.captioning",
+    f"{PKG}.datagen.metadata",
+    f"{PKG}.datagen.texts",
 ]
 
 

@@ -237,3 +237,34 @@ def test_serve_cli_refuses_silent_fallbacks(world):
             serve.main([f"--store={path}", "--query=x"])  # default --device=cuda
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         serve.main([f"--store={path}", "--multihost", "--device=cpu"])
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_corpus_properties_match_jax(world, mode):
+    """JAX ``tests/test_retrieval_engine.py:137,153``: the device corpus and
+    its scales as properties, equal to the JAX retriever's rows; no IVF
+    index, so no spill."""
+    m = _MODES[mode]
+    j, t = _pair(world, quantize=m["quantize"], quantize_corpus=m["quantize_corpus"])
+    for name in ("corpus_img", "corpus_txt", "corpus_img_scale", "corpus_txt_scale"):
+        got, want = getattr(t, name), getattr(j, name)
+        if want is None:
+            assert got is None, name
+            continue
+        assert torch.is_tensor(got) and str(got.dtype).split(".")[-1] == str(want.dtype), (name, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32), err_msg=name)
+    if m["quantize_corpus"]:
+        assert t.corpus_img.dtype == torch.int8 and t.corpus_img_scale is not None
+    assert t.ann_spill_fraction == j.ann_spill_fraction == 0.0
+
+
+def test_retrieval_image_matches_jax(world):
+    """JAX ``tests/test_retrieval_engine.py:236``: one image through
+    ``retrieval_image`` equals preprocess + encode + embedding search, and
+    the JAX retriever's answer."""
+    j, t = _pair(world, top_k=8)
+    raw = np.random.default_rng(7).integers(0, 255, size=(32, 32, 3), dtype=np.uint8)
+    got = t.retrieval_image(raw, alpha=0.6)
+    want = t.retrieval_embeddings_batch(t.encode_images(t.preprocess_images([raw])), alpha=0.6)[0]
+    assert got == want and len(got) == 8
+    _assert_same([j.retrieval_image(raw, alpha=0.6)], [got], 1e-4)
