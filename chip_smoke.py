@@ -152,8 +152,25 @@ just after; every kernel must have launched in the path it belongs to.
    scale_bench}.main`` once each at full width with repeats cut
    (``SCRIPT_RUNS``; ``scale_bench`` at 1,000,000 rows), their JSON under
    ``chiprun_out/``; every line finite, the scans' recall checked.
+22. Training (``train_phase``): ``cli.train`` at ViT-L/14 (bf16 compute, f32
+   parameters, batch 64, ``synthetic:256``): the reference-parity run
+   (InfoNCE, t2i 0.7 / t2t 0.3, 2 epochs, validation, latest / best
+   checkpoints, metrics files) and its resume to 3 epochs, which must start
+   at epoch 2; a variant (accumulation 2, EMA 0.999, remat, FLIP 0.5: the
+   vision tower at s = 129) whose ``load_params_only`` must return the EMA
+   shadow, and a second one (SigLIP, Matryoshka 256 / 768, frozen image
+   encoder), 1 epoch each, both at ViT-L/14 widths cut to 6 vision and 3
+   text layers; ``cli.export --format openai`` of the best checkpoint,
+   loaded through ``load_clip_state_dict``, its module towers against the
+   ``fast`` ones (cosine > 0.999), one 256-query ``fast`` batch over the
+   43,000-row store; 8 steps of a seeded ViT-L/14 on one batch at a raised
+   lr (the loss must fall, every loss finite); one bf16 and two f32 steps of ViT-L/14
+   widths at 2 layers a tower, batch 8, on the card against the CPU; and
+   ``scripts/train_bench.py``'s ViT-L/14 batch-64 point with and without
+   remat (step ms, device ms, MFU). B6 must launch on the training forward
+   of both towers, in validation and in the FLIP run.
 The kernel line's entries carry ``launches_by_path`` for the launches of
-items 15-21 beside the earlier paths', and ``launches`` is their sum.
+items 15-22 beside the earlier paths', and ``launches`` is their sum.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -2756,6 +2773,367 @@ def profiling_scripts_phase(torch, dev, results):
     return counts
 
 
+TRAIN_N, TRAIN_BATCH = 256, 64  # synthetic:256 at TrainConfig.batch_size: 4 steps an epoch
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_BATCH = 2, 8  # the card-vs-CPU step: ViT-L/14 widths, 2 layers a tower
+TRAIN_VARIANT_LAYERS = (6, 3)  # the variant runs: ViT-L/14 widths, depth cut (vision, text) to keep the phase short
+OVERFIT_STEPS, OVERFIT_LR = 8, 2e-5
+TOL_GRAD_COS, TOL_LOSS_BF16, TOL_F32 = 0.99, 1e-2, 1e-4
+
+
+class _LaunchTally:
+    """B6 launches by path during the training runs: the towers' forward
+    (class-level wrappers, so validation's ``functional_call`` counts too),
+    each train step (the remat recompute in the backward is the step's
+    launches outside the towers) and validation; and CUDA events around
+    every step. ``run`` names the cli.train run in progress."""
+
+    def __init__(self, torch, CM, TT, dispatch):
+        self.torch, self.CM, self.TT, self.dispatch = torch, CM, TT, dispatch
+        self.run, self.part = "", "train"
+        self.by = {}
+        self.events = {}
+        self._saved = []
+
+    def _b6(self):
+        return self.dispatch.launch_counts()["flash_attention_kernel"]
+
+    def _add(self, key, n):
+        self.by[key] = self.by.get(key, 0) + n
+
+    def __enter__(self):
+        tally, torch = self, self.torch
+
+        def tower(fn, label):
+            def wrapper(module, *args, **kw):
+                before = tally._b6()
+                out = fn(module, *args, **kw)
+                tally._add((tally.run, tally.part, label), tally._b6() - before)
+                return out
+            return wrapper
+
+        def make_step(fn):
+            def wrapped_make(model, cfg):
+                step = fn(model, cfg)
+
+                def timed(state, batch):
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    before = tally._b6()
+                    start.record()
+                    out = step(state, batch)
+                    end.record()
+                    tally.events.setdefault(tally.run, []).append((start, end))
+                    tally._add((tally.run, "train", "step"), tally._b6() - before)
+                    return out
+                return timed
+            return wrapped_make
+
+        def validate(fn):
+            def wrapper(trainer):
+                tally.part = "validation"
+                try:
+                    return fn(trainer)
+                finally:
+                    tally.part = "train"
+            return wrapper
+
+        for owner, attr, wrap in ((self.CM.VisionTransformer, "forward", lambda f: tower(f, "image")),
+                                  (self.CM.TextTransformer, "forward", lambda f: tower(f, "text")),
+                                  (self.TT, "make_train_step", make_step),
+                                  (self.TT.CLIPTrainer, "validate", validate)):
+            orig = getattr(owner, attr)
+            self._saved.append((owner, attr, orig))
+            setattr(owner, attr, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+
+    def step_ms(self, run):
+        """Event ms of the run's steps 2..n (the first builds the optimizer state)."""
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events.get(run, [])[1:]]
+
+    def count(self, runs, part, label):
+        return sum(self.by.get((r, part, label), 0) for r in runs)
+
+
+def _card_vs_cpu_steps(torch, dev, results):
+    """ViT-L/14 widths at 2 layers a tower, batch 8: one bf16 train step on
+    the card against the CPU (plain versions) -- per-tensor gradient cosine
+    over the tensors with a nonzero gradient, the loss to 1e-2 -- and two f32
+    steps: losses and parameters to 1e-4."""
+    import dataclasses
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import DataPipeline, make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import TrainConfig
+
+    arch = dataclasses.replace(CM.ARCHS["ViT-L/14"], vision_layers=TRAIN_SMALL_LAYERS, text_layers=TRAIN_SMALL_LAYERS)
+    pipe = DataPipeline(make_synthetic_source(TRAIN_SMALL_BATCH, image_size=arch.image_resolution, seed=5),
+                        CLIPTokenizer([]), image_size=arch.image_resolution, context_length=arch.context_length)
+    host = pipe.make_batch(list(range(TRAIN_SMALL_BATCH)))
+    cfg = TrainConfig(batch_size=TRAIN_SMALL_BATCH)
+    out = {}
+    for dtype, steps in ((torch.bfloat16, 1), (torch.float32, 2)):
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            model = CM.build_model("", arch=arch, dtype=dtype, seed=3, device=where)
+            state = TT.TrainState(model, TT.make_optimizer(cfg, 4, model))
+            step = TT.make_train_step(model, cfg)
+            grads, losses = {}, []
+            orig = state.optimizer.step
+            state.optimizer.step = lambda g, orig=orig: (
+                grads.update({k: v.detach().float().cpu().clone() for k, v in g.items()}), orig(g))
+            batch = {k: torch.from_numpy(getattr(host, k)).to(where) for k in ("images", "query_ids", "target_ids")}
+            for _ in range(steps):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            runs[where.type] = (grads, losses, {n: p.detach().float().cpu() for n, p in model.named_parameters()})
+            del model, state, step
+        (g_card, l_card, p_card), (g_cpu, l_cpu, p_cpu) = runs[dev.type], runs["cpu"]
+        assert all(np.isfinite(l_card)), l_card
+        if dtype == torch.bfloat16:
+            cos = {n: float(torch.nn.functional.cosine_similarity(g_card[n].flatten(), g_cpu[n].flatten(), dim=0))
+                   for n in g_cpu if g_cpu[n].abs().max() > 0 or g_card[n].abs().max() > 0}
+            worst = min(cos, key=cos.get)
+            log(f"train card vs CPU, bf16, ViT-L/14 widths x {TRAIN_SMALL_LAYERS} layers, batch {TRAIN_SMALL_BATCH}: "
+                f"loss {l_card[0]:.6f} / {l_cpu[0]:.6f}; gradient cosine min {cos[worst]:.6f} ({worst}) over "
+                f"{len(cos)} of {len(g_cpu)} tensors")
+            assert abs(l_card[0] - l_cpu[0]) <= TOL_LOSS_BF16 * abs(l_cpu[0]), (l_card, l_cpu)
+            assert cos[worst] >= TOL_GRAD_COS, (worst, cos[worst])
+            out["bf16"] = dict(loss=(l_card[0], l_cpu[0]), grad_cos_min=cos[worst], worst=worst, n=len(cos))
+        else:
+            np.testing.assert_allclose(l_card, l_cpu, rtol=TOL_F32, err_msg="f32 losses card vs CPU")
+            worst = max((float((p_card[n] - p_cpu[n]).abs().max()), n) for n in p_cpu)
+            for n in p_cpu:
+                np.testing.assert_allclose(p_card[n].numpy(), p_cpu[n].numpy(), rtol=TOL_F32, atol=TOL_F32, err_msg=n)
+            log(f"train card vs CPU, f32, {steps} steps: losses {l_card} / {l_cpu}; parameters within {TOL_F32:g} "
+                f"(max abs difference {worst[0]:.3g}, {worst[1]})")
+            out["f32"] = dict(losses=(l_card, l_cpu), max_param_diff=worst[0])
+    results["train"]["card_vs_cpu"] = out
+
+
+def train_phase(torch, dev, tmp, store_path, results):
+    """The core training loop (``cli.train``) at ViT-L/14, bf16 compute, f32
+    parameters, batch 64 on ``synthetic:256``: the reference-parity run
+    (InfoNCE, t2i 0.7 / t2t 0.3, 2 epochs with validation, latest / best
+    checkpoints, metrics files) and its resume to 3 epochs (starts at epoch
+    2); a variant (accumulation 2, EMA 0.999, remat, FLIP 0.5: s = 129) and a
+    second one (SigLIP, Matryoshka 256 / 768, frozen image encoder), 1 epoch
+    each;
+    ``cli.export --format openai`` of the best checkpoint loaded through
+    ``load_clip_state_dict`` and served (``fast``: B3a, B3b, B2) with the
+    module towers against the fast ones; 8 steps of a seeded model on one
+    batch at a raised lr (the loss must fall); the card-vs-CPU steps; and
+    ``scripts/train_bench.py``'s ViT-L/14 batch-64 point with and without
+    remat. The two variants run ViT-L/14's widths at a cut depth
+    (``TRAIN_VARIANT_LAYERS``). Returns {path: B6 launches}."""
+    import dataclasses
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import export as EX
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import train as CT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import DataPipeline, make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as FE
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import load_clip_state_dict, load_openai_state_dict
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import train_bench as TB
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import checkpoint as TC
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    res = results["train"] = {}
+    root = tempfile.mkdtemp(dir=tmp)  # checkpoints of 5-7 GB each, deleted run by run
+    dev_flag = f"--device={dev.type}"
+
+    # the variant runs keep ViT-L/14's widths and token counts at a cut depth
+    variant_arch = "ViT-L/14 ({} + {} layers)".format(*TRAIN_VARIANT_LAYERS)
+    CM.ARCHS[variant_arch] = dataclasses.replace(CM.ARCHS["ViT-L/14"], vision_layers=TRAIN_VARIANT_LAYERS[0],
+                                                 text_layers=TRAIN_VARIANT_LAYERS[1])
+
+    def argv(run, *extra):
+        name = "ViT-L/14" if run == "parity" else variant_arch
+        return [dev_flag, f"--model.name={name}", f"--data.dataset=synthetic:{TRAIN_N}",
+                f"--train.batch_size={TRAIN_BATCH}", f"--eval.output_dir={root}/{run}",
+                f"--train.checkpoint_dir={root}/{run}/ckpt", *extra]
+
+    timing = {"snapshot_s": [], "write_s": [], "load_s": []}
+    real = {"to_host": TC.to_host, "_write": TC._write, "load_checkpoint": TC.load_checkpoint}
+
+    depth = [0]  # to_host recurses into the state's dicts: time the outermost call
+
+    def timed(name, key):
+        def wrapper(*a, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    timing[key].append(time.perf_counter() - t0)
+        return wrapper
+
+    runs = {}
+    torch.cuda.synchronize(dev)  # initializes the device before its memory statistics are read
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _LaunchTally(torch, CM, TT, dispatch) as tally:
+        TC.to_host, TC._write = timed("to_host", "snapshot_s"), timed("_write", "write_s")
+        TC.load_checkpoint = timed("load_checkpoint", "load_s")
+        try:
+            for run, extra in (
+                ("parity", ["--train.loss=infonce", "--train.t2i_weight=0.7", "--train.t2t_weight=0.3",
+                            "--train.epochs=2"]),
+                ("resume", ["--train.loss=infonce", "--train.t2i_weight=0.7", "--train.t2t_weight=0.3",
+                            "--train.epochs=3", "--train.resume=true"]),
+                ("variant", ["--train.grad_accum_steps=2", "--train.ema_decay=0.999", "--model.remat=true",
+                             "--train.image_mask_ratio=0.5", "--train.epochs=1"]),
+                ("variant2", ["--train.loss=siglip", "--train.matryoshka_dims=256,768",
+                              "--train.freeze_image_encoder=true", "--train.epochs=1"]),
+            ):
+                tally.run = run
+                out_dir = "parity" if run == "resume" else run
+                t0 = time.perf_counter()
+                runs[run] = CT.main(argv(out_dir, *extra))
+                runs[run]["wall_s"] = time.perf_counter() - t0
+                if run == "parity":
+                    ck = f"{root}/parity/ckpt"
+                    res["ckpt_bytes"] = os.path.getsize(f"{ck}/checkpoint_latest.pt")
+                if run == "variant":
+                    state, _ = TC.load_checkpoint(f"{root}/variant/ckpt", "best")
+                    shadow = TC.load_params_only(f"{root}/variant/ckpt", "best")
+                    assert all(torch.equal(shadow[n], state["ema_params"][n]) for n in shadow)
+                    assert any(not torch.equal(shadow[n], state["params"][n]) for n in shadow), "EMA equals params"
+                    res["ema_ckpt_bytes"] = os.path.getsize(f"{root}/variant/ckpt/checkpoint_best.pt")
+                    del state, shadow
+                if out_dir != "parity":  # the parity run's checkpoint feeds the resume and the export
+                    shutil.rmtree(f"{root}/{out_dir}/ckpt")
+                torch.cuda.empty_cache()
+        finally:
+            TC.to_host, TC._write, TC.load_checkpoint = real["to_host"], real["_write"], real["load_checkpoint"]
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    del CM.ARCHS[variant_arch]
+
+    parity, resume = runs["parity"], runs["resume"]
+    assert parity["epochs_run"] == 2 and [h["epoch"] for h in parity["history"]] == [0, 1]
+    assert [h["epoch"] for h in resume["history"]] == [2], "the resumed run must start at epoch 2"
+    for run, r in runs.items():
+        for h in r["history"]:
+            assert h["steps"] == TRAIN_N // TRAIN_BATCH and all(np.isfinite(v) for v in h["train"].values()), (run, h)
+            assert {"T2I_MRR", "T2T_MRR"} <= set(h["val"]), (run, h["val"])
+    assert "loss_d256" in runs["variant2"]["history"][0]["train"]
+    lines = open(f"{root}/parity/train_metrics.jsonl").read().splitlines()
+    assert [json.loads(x)["epoch"] for x in lines] == [0, 1, 2], lines  # parity's two epochs, then the resume's
+    step_ms = {run: tally.step_ms(run) for run in runs}
+    paths = {
+        "training forward, image tower (s=257)": tally.count(("parity", "resume", "variant2"), "train", "image"),
+        "training forward, text towers (s=77)": tally.count(runs, "train", "text"),
+        "validation, both towers": sum(tally.count(runs, "validation", t) for t in ("image", "text")),
+        "FLIP run (ratio 0.5), image tower (s=129)": tally.count(("variant",), "train", "image"),
+        "remat recompute in the backward": tally.count(("variant",), "train", "step")
+        - sum(tally.count(("variant",), "train", t) for t in ("image", "text")),
+    }
+    for path, n in paths.items():
+        assert n > 0, f"B6 never launched on {path}"
+    res.update(
+        runs={r: dict(wall_s=v["wall_s"], epoch_s=[h["epoch_time_s"] for h in v["history"]],
+                      loss=[h["train"]["loss"] for h in v["history"]], best=v["best_metric"]) for r, v in runs.items()},
+        step_ms={r: float(np.median(v)) for r, v in step_ms.items() if v}, ckpt_timing=timing)
+    log(f"train runs (cli.train, ViT-L/14, batch {TRAIN_BATCH}, synthetic:{TRAIN_N}): " + "; ".join(
+        f"{r} {v['wall_s']:.1f} s, epochs {', '.join(f'{e:.1f}' for e in v['epoch_s'])} s, loss "
+        f"{', '.join(f'{x:.4f}' for x in v['loss'])}, step ms (events, median of steps 2..n) "
+        f"{res['step_ms'].get(r, float('nan')):.1f}" for r, v in res["runs"].items()))
+    log(f"train checkpoints: {res['ckpt_bytes'] / 1e9:.2f} GB (EMA run {res['ema_ckpt_bytes'] / 1e9:.2f} GB); "
+        f"snapshot s {[round(x, 2) for x in timing['snapshot_s']]}; write s {[round(x, 2) for x in timing['write_s']]}; "
+        f"load s {[round(x, 2) for x in timing['load_s']]}; max_memory_allocated "
+        f"{res['max_memory_allocated'] / 2**30:.2f} GiB; B6 launches {paths}")
+
+    # export the best checkpoint, load it back, serve it
+    t0 = time.perf_counter()
+    pt = EX.main(["--model.name=ViT-L/14", "--train-dir", f"{root}/parity/ckpt", "--role=best", "--format=openai",
+                  "--out", f"{root}/trained.pt"])
+    export_s = time.perf_counter() - t0
+    sd = load_clip_state_dict(pt)
+    want = EX.module_to_openai(TC.load_params_only(f"{root}/parity/ckpt", "best"))
+    assert set(sd) == set(want) and all(np.array_equal(sd[k], want[k].reshape(sd[k].shape)) for k in want)
+    del want
+    shutil.rmtree(f"{root}/parity/ckpt")
+    model = load_openai_state_dict(sd, device=dev, dtype=torch.bfloat16)
+    del sd
+    tok = CLIPTokenizer(MERGES)
+    rng = np.random.default_rng(23)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    queries = [" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)]
+    ids = torch.from_numpy(tok(queries, context_length=77)).to(dev)
+    images = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        cos_t = torch.nn.functional.cosine_similarity(
+            model.encode_text(ids), FE.encode_text_fast(model.arch, FE.make_text_plan(model), ids), dim=-1).min().item()
+        cos_i = torch.nn.functional.cosine_similarity(
+            model.encode_image(images), FE.encode_image_fast(model.arch, FE.make_vision_plan(model), images),
+            dim=-1).min().item()
+    log(f"trained model exported ({export_s:.1f} s) and loaded: module towers vs fast, min cosine text {cos_t:.6f}, "
+        f"image {cos_i:.6f}")
+    assert cos_t > STORE_COS and cos_i > STORE_COS, (cos_t, cos_i)
+    retriever = CLIPRetrieval(model, tok, EmbeddingStore.load(store_path), device=dev, top_k=K,
+                              use_fused_encoder=True, corpus_dtype=torch.bfloat16)
+    retriever.search_batch(queries[:8])
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    vals, idx = retriever.search_batch(queries)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    served = dispatch.launch_counts()
+    assert vals.shape == (QUERIES, K) and bool(torch.isfinite(vals.float()).all())
+    for name in ("fused_attention_block", "fused_mlp_block", "similarity_topk_kernel"):
+        assert served[name] > 0, f"{name} never launched serving the trained model"
+    log(f"trained model served (fast, {QUERIES} queries over {CORPUS} rows): {serve_ms:.2f} ms, launches "
+        f"{ {k: v for k, v in served.items() if v} }")
+    res.update(export_s=export_s, cos_text=cos_t, cos_image=cos_i, serve_ms=serve_ms)
+    del retriever, model
+    torch.cuda.empty_cache()
+
+    # a seeded ViT-L/14 on one fixed batch, 8 steps at a raised lr: the loss must fall
+    model = CM.build_model("ViT-L/14", dtype=torch.bfloat16, seed=0, device=dev)
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, lr=OVERFIT_LR, epochs=1)
+    pipe = DataPipeline(make_synthetic_source(TRAIN_BATCH, image_size=224), CLIPTokenizer([]), context_length=77)
+    state = TT.TrainState(model, TT.make_optimizer(cfg, 1, model))
+    step = TT.make_train_step(model, cfg)
+    host = pipe.make_batch(list(range(TRAIN_BATCH)))
+    batch = {k: torch.from_numpy(getattr(host, k)).to(dev) for k in ("images", "query_ids", "target_ids")}
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(OVERFIT_STEPS)]
+    log(f"train overfit check (one batch, lr {OVERFIT_LR:g}, {OVERFIT_STEPS} steps): losses {[round(x, 4) for x in losses]}")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    res["overfit_losses"] = losses
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+    _card_vs_cpu_steps(torch, dev, results)
+    bench = {}
+    for remat in (False, True):
+        e = TB.run_entry("ViT-L/14", TRAIN_BATCH, remat, 15, dev)
+        bench[f"remat={remat}"] = {k: e[k] for k in ("step_ms", "device_ms", "samples_per_s", "mfu", "mfu_device",
+                                                    "max_memory_allocated", "flops_per_step")}
+    res["train_bench"] = bench
+    log("train_bench ViT-L/14 batch 64: " + "; ".join(
+        f"{k} step {v['step_ms']:.1f} ms (device {v['device_ms']:.1f}), {v['samples_per_s']:.1f} samples/s, MFU "
+        f"{v['mfu']:.3f} (device {v['mfu_device']:.3f}), {v['flops_per_step'] / 1e12:.1f} TFLOP a step, peak "
+        f"{v['max_memory_allocated'] / 2**30:.1f} GiB" for k, v in bench.items()))
+    shutil.rmtree(root)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"train phase: {res['phase_s']:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2820,6 +3198,7 @@ def main() -> int:
         shutil.rmtree(ckpt_dir)
         baseline_phase(torch, dev, results)
         sc = profiling_scripts_phase(torch, dev, results)
+        tr = train_phase(torch, dev, tmp, store_path, results)
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -2935,6 +3314,8 @@ def main() -> int:
     }
     for name, paths in slice_paths.items():
         by_path.setdefault(name, {}).update(paths)
+    # this slice's path: training (item 22)
+    by_path["B6 flash_attention s=257"].update({f"train: {path}": n for path, n in tr.items()})
     for name in results:
         if name.startswith("S1 "):
             launches[name] = prof["attn_q8_variant"]
@@ -2975,8 +3356,8 @@ def main() -> int:
         f"ms; phase {fu_r['phase_s']:.1f} s ({smi})")
     log(f"quality: sweep {results['quality']['sweep_s']:.1f} s, autotune {results['quality']['autotune_s']:.1f} s, "
         f"recall against the served tiers {results['quality']['recall_diff']}; phase {results['quality']['phase_s']:.1f} s")
-    log("items 18-21 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
-                                         ("checkpoints", "parity", "baseline", "scripts"))
+    log("items 18-22 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
+                                         ("checkpoints", "parity", "baseline", "scripts", "train"))
         + "; scripts " + ", ".join(f"{n} {t:.1f}" for n, t in results["scripts"]["wall_s"].items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

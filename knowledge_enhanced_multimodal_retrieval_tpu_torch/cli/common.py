@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from ..utils.config import Config
+from ..utils.config import Config, MeshConfig
 
 from ..data.datasets import DataPipeline, load_hf_source, make_synthetic_source
 from ..data.tokenizer import CLIPTokenizer
@@ -22,6 +22,7 @@ from ..models.convert import load_clip_state_dict, load_openai_state_dict
 from ..ops.dispatch import has_cuda
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ADAPTERS_NOT_PORTED = "--model.adapters (LoRA merge) is not ported yet: ROADMAP A4 (b) (training variants)"
 
 
 def pop_flag(args, flag: str, default=None):
@@ -50,16 +51,28 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(cfg: Config, device) -> clip_mod.CLIP:
+def build_model(cfg: Config, device, seed: int = 0) -> clip_mod.CLIP:
     """CLIP from ``model.checkpoint`` (an OpenAI ``.pt``, an HF ``CLIPModel``
     state dict, a flax ``.npz`` tree or an ``.npz`` of OpenAI keys:
-    ``models.convert.load_clip_state_dict``) or, without one, seeded weights."""
+    ``models.convert.load_clip_state_dict``) or, without one, weights seeded
+    by ``seed``; ``model.remat`` passes on."""
     if cfg.model.adapters:
-        raise NotImplementedError("--model.adapters (LoRA merge) is not ported yet: ROADMAP A4 (training)")
+        raise NotImplementedError(ADAPTERS_NOT_PORTED)
     dtype = _DTYPES[cfg.model.dtype]
     if cfg.model.checkpoint:
-        return load_openai_state_dict(load_clip_state_dict(cfg.model.checkpoint), device=device, dtype=dtype)
-    return clip_mod.build_model(cfg.model.name, dtype=dtype, seed=0, device=device)
+        return load_openai_state_dict(load_clip_state_dict(cfg.model.checkpoint), device=device, dtype=dtype,
+                                      remat=cfg.model.remat)
+    return clip_mod.build_model(cfg.model.name, dtype=dtype, seed=seed, device=device, remat=cfg.model.remat)
+
+
+def check_one_device(mesh: MeshConfig) -> None:
+    """Refuse a ``--mesh.*`` layout of more than one device (the port runs
+    on one card; the parallel modes are ROADMAP A5)."""
+    if mesh.data_parallel > 1 or mesh.model_parallel > 1 or mesh.dcn_parallel > 1 or mesh.fsdp:
+        raise NotImplementedError(
+            f"--mesh.* asks for more than one device (data {mesh.data_parallel}, model {mesh.model_parallel}, "
+            f"dcn {mesh.dcn_parallel}, fsdp {mesh.fsdp}): ROADMAP A5 (parallel modes)"
+        )
 
 
 def build_pipeline(cfg: Config, split: str, tokenizer: Optional[CLIPTokenizer] = None) -> DataPipeline:

@@ -1,0 +1,52 @@
+"""Fine-tuning entry point.
+
+The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/train.py``:
+
+    python -m knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.train \
+        --model.name=ViT-L/14 --train.epochs=20 --train.lr=5e-6 \
+        [--config base.json] [--data.dataset=synthetic:256] [--device=cuda]
+
+Weights come from ``--model.checkpoint`` or are seeded by ``train.seed``.
+``--device`` defaults to ``cuda`` and never falls back; f32 products run
+with TF32 off. A ``synthetic:N`` dataset validates on its training split.
+Checkpoints go to ``train.checkpoint_dir``, metrics to ``eval.output_dir``.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+
+import torch
+
+from ..train.trainer import CLIPTrainer
+from ..utils.config import config_from_argv
+from .common import build_model, build_pipeline, check_one_device, pop_flag, resolve_device
+
+logger = logging.getLogger("kemr_torch.cli.train")
+
+
+def main(argv=None) -> dict:
+    args = list(sys.argv[1:] if argv is None else argv)
+    device = resolve_device(pop_flag(args, "--device", "cuda"))
+    cfg = config_from_argv(args)
+    if cfg.eval.compile_cache:
+        raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
+    check_one_device(cfg.mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logger.info("training %s on %s (%s)", cfg.model.name, cfg.data.dataset, device)
+
+    model = build_model(cfg, device, seed=cfg.train.seed)
+    train_pipe = build_pipeline(cfg, cfg.data.split_train)
+    synthetic = cfg.data.dataset.startswith("synthetic:")
+    val_pipe = train_pipe if synthetic else build_pipeline(cfg, cfg.data.split_val)
+    trainer = CLIPTrainer(model, train_pipe, val_pipe, cfg.train, mesh=cfg.mesh, out_dir=cfg.eval.output_dir)
+    result = trainer.train()
+    logger.info("done: best %.4f @ epoch %d", result["best_metric"], result["best_epoch"])
+    return result
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -11,8 +11,11 @@ state-dict names and layouts (the vision tower's under ``visual.``), so
 The towers are the port's ``encoder=flax`` mode and the f32 oracle for the
 serving encoders. Parameters stay f32; ``dtype`` is the compute dtype,
 with LayerNorm and softmax in f32. Attention goes through ``ops.attention.mha``:
-the hand-written kernel on CUDA above 128 tokens (the vision tower), the
-plain version otherwise.
+the hand-written kernel (B6/B7) for every CUDA tensor whatever its length
+(both towers), the plain version for a CPU tensor; its gradient recomputes
+through the plain version. Training adds FLIP patch subsets (``keep_idx``)
+and ``remat``, which recomputes each residual block in the backward pass
+(``torch.utils.checkpoint``, as ``nn.remat`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
 
@@ -121,13 +125,17 @@ class ResidualBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(ResidualBlock(width, heads) for _ in range(layers))
 
     def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
         for blk in self.resblocks:
-            x = blk(x, causal)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, causal, use_reentrant=False)
+            else:
+                x = blk(x, causal)
         return x
 
 
@@ -135,7 +143,7 @@ class VisionTransformer(nn.Module):
     """CLIP's class-token ViT: images [B, H, W, 3] (NHWC, preprocessed) ->
     [B, embed_dim] f32 (unnormalized)."""
 
-    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
@@ -144,19 +152,25 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(w))
         self.positional_embedding = nn.Parameter(torch.empty(arch.grid_size**2 + 1, w))
         self.ln_pre = nn.LayerNorm(w)
-        self.transformer = Transformer(w, arch.vision_layers, arch.heads_vision)
+        self.transformer = Transformer(w, arch.vision_layers, arch.heads_vision, remat)
         self.ln_post = nn.LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, arch.embed_dim))
 
     def forward(self, images: torch.Tensor, keep_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if keep_idx is not None:
-            raise NotImplementedError("keep_idx (FLIP patch masking) is training: ROADMAP A4")
+        """``keep_idx`` ([B, P_keep] patch indices) keeps only those patch
+        tokens and the class token (FLIP masked training): they are gathered
+        after the positions are added, so each kept patch carries its own."""
         dt = self.dtype
         x = nn.functional.conv2d(images.to(dt).permute(0, 3, 1, 2), self.conv1.weight.to(dt),
                                  stride=self.arch.vision_patch_size)
         x = x.flatten(2).transpose(1, 2)  # [B, grid*grid, width], row-major patches
         cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+        if keep_idx is not None:
+            # the class token (slot 0) always stays; patch i is slot 1 + i
+            zero = torch.zeros(x.shape[0], 1, dtype=torch.long, device=x.device)
+            slots = torch.cat([zero, keep_idx.long() + 1], dim=1)
+            x = torch.gather(x, 1, slots[..., None].expand(-1, -1, x.shape[-1]))
         x = _ln_f32(self.ln_pre, x)
         x = self.transformer(x, causal=False)
         x = _ln_f32(self.ln_post, x[:, 0, :])
@@ -166,14 +180,14 @@ class VisionTransformer(nn.Module):
 class TextTransformer(nn.Module):
     """CLIP's causal text tower: ids [B, S] -> [B, embed_dim] f32 (unnormalized)."""
 
-    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         w = arch.text_width
         self.token_embedding = nn.Embedding(arch.vocab_size, w)
         self.positional_embedding = nn.Parameter(torch.empty(arch.context_length, w))
-        self.transformer = Transformer(w, arch.text_layers, arch.text_heads)
+        self.transformer = Transformer(w, arch.text_layers, arch.text_heads, remat)
         self.ln_final = nn.LayerNorm(w)
         self.text_projection = nn.Parameter(torch.empty(w, arch.embed_dim))
 
@@ -191,12 +205,12 @@ class CLIP(nn.Module):
     """Both towers and ``logit_scale``; embeddings are unnormalized, as in
     the JAX package (callers L2-normalize)."""
 
-    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, arch: CLIPArch, dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
-        self.visual = VisionTransformer(arch, dtype)
-        self.text = TextTransformer(arch, dtype)
+        self.visual = VisionTransformer(arch, dtype, remat)
+        self.text = TextTransformer(arch, dtype, remat)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def encode_image(self, images: torch.Tensor, keep_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -258,12 +272,13 @@ def init_weights(model: CLIP, seed: int = 0) -> CLIP:
 
 def build_model(
     name: str, dtype: torch.dtype = torch.bfloat16, seed: int = 0, device=None,
-    arch: Optional[CLIPArch] = None,
+    arch: Optional[CLIPArch] = None, remat: bool = False,
 ) -> CLIP:
-    """A CLIP for ``ARCHS[name]`` (or ``arch``) with seeded weights."""
+    """A CLIP for ``ARCHS[name]`` (or ``arch``) with seeded weights;
+    ``remat`` recomputes each residual block in the backward pass."""
     if arch is None:
         if name not in ARCHS:
             raise ValueError(f"unknown CLIP variant {name!r}; available: {sorted(ARCHS)}")
         arch = ARCHS[name]
-    model = init_weights(CLIP(arch, dtype), seed)
+    model = init_weights(CLIP(arch, dtype, remat), seed)
     return model.to(device) if device is not None else model

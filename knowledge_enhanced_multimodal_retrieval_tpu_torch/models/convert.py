@@ -329,11 +329,13 @@ def load_openai_state_dict(
     device=None,
     dtype: torch.dtype = torch.bfloat16,
     arch: Optional[CLIPArch] = None,
+    remat: bool = False,
 ) -> CLIP:
     """The port's CLIP from an OpenAI ``clip`` state dict of numpy arrays.
-    ``dtype`` is the compute dtype; parameters load as f32."""
+    ``dtype`` is the compute dtype; parameters load as f32; ``remat``
+    recomputes each residual block in the backward pass."""
     arch = arch or arch_from_state_dict(sd)
-    model = CLIP(arch, dtype)
+    model = CLIP(arch, dtype, remat)
     t = lambda v: torch.from_numpy(np.array(v, np.float32))  # noqa: E731
     vision = {k[len(_VISION_PREFIX):]: t(v) for k, v in sd.items() if k.startswith(_VISION_PREFIX)}
     text = {

@@ -1,4 +1,4 @@
-"""Tiled online-softmax attention: the kernel behind the vision tower's ``mha``.
+"""Tiled online-softmax attention: the kernel behind ``mha`` on every CUDA tensor (both towers).
 
 Counterpart of two Pallas TPU kernels of the JAX package that compute one
 function on ``[B, H, S, D]``:

@@ -40,9 +40,12 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 20, warmup: int = 3) -> Dict[str, float]:
+def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 20, warmup: int = 3,
+            spin_cycles: int = 1_000_000) -> Dict[str, float]:
     """Medians of ``iters`` calls of ``fn`` after ``warmup`` calls:
-    ``{"event_ms", "device_ms"}`` on CUDA, ``{"host_ms"}`` on the CPU."""
+    ``{"event_ms", "device_ms"}`` on CUDA, ``{"host_ms"}`` on the CPU. The
+    spin before each device-only call (``spin_cycles`` clock cycles, ~0.5 ms
+    by default) must outlast the host's enqueue of one call."""
     for _ in range(warmup):
         fn()
     sync(device)
@@ -59,7 +62,7 @@ def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 20, war
         for _ in range(iters):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             if spin:
-                torch.cuda._sleep(1_000_000)  # ~0.5 ms of spinning on the card
+                torch.cuda._sleep(spin_cycles)
             start.record()
             fn()
             end.record()

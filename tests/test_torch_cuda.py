@@ -1013,3 +1013,80 @@ def test_text_baseline_ranks_on_card_match_cpu(dev, mode):
     card = TT.evaluate_text_model(enc, texts, mode=mode, device=dev)
     cpu = TT.evaluate_text_model(enc, texts, mode=mode, device="cpu")
     assert card.keys() == cpu.keys()
+
+
+@pytest.mark.parametrize("shape, causal", [((4, 12, 77, 64), True), ((4, 16, 257, 64), False),
+                                           ((4, 16, 129, 64), False)])
+def test_flash_attention_gradient_on_card_matches_cpu(rng, dev, shape, causal):
+    """The training path's attention (text s = 77 causal, vision s = 257,
+    FLIP s = 129): the kernel forward and the gradient recomputed through
+    ``mha_plain`` on the card against the CPU's plain forward and gradient.
+    Both run bf16 products with f32 accumulation in another order, so the
+    gradients agree to about one bf16 step of their scale."""
+    q, k, v = (0.5 * torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16) for _ in range(3))
+    g = torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+    grads = {}
+    for where in ("cpu", dev):
+        qkv = [t.to(where).requires_grad_() for t in (q, k, v)]
+        before = FA.flash_attention_kernel.launches
+        out = FA.flash_attention(*qkv, causal=causal)
+        assert FA.flash_attention_kernel.launches == before + (where != "cpu")
+        grads[str(where)] = [x.float().cpu() for x in torch.autograd.grad(out, qkv, g.to(where))]
+    for name, got, want in zip("qkv", grads[str(dev)], grads["cpu"]):
+        assert bool(torch.isfinite(got).all()), name
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2 ** -7, atol=2 ** -7 * scale, err_msg=name)
+
+
+def _tiny_train(dev, remat=False, steps=2):
+    """Two f32 train steps of a small arch (257 vision tokens) from seed 4."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import TrainConfig
+
+    arch = CLIPArch(32, 64, 2, W, 4, 16, 600, W, H, 2, vision_heads=H)
+    model = build_model("", arch=arch, seed=4, dtype=torch.float32, device=dev, remat=remat)
+    cfg = TrainConfig(batch_size=4, lr=1e-3)
+    state = TT.TrainState(model, TT.make_optimizer(cfg, 4, model))
+    step = TT.make_train_step(model, cfg)
+    rng = np.random.default_rng(6)
+    ids = np.zeros((4, 16), np.int32)
+    ids[:, :6] = rng.integers(1, 598, (4, 6))
+    ids[:, 6] = 599
+    batch = {"images": torch.tensor(rng.standard_normal((4, 64, 64, 3)).astype(np.float32)).to(dev),
+             "query_ids": torch.tensor(ids).to(dev), "target_ids": torch.tensor(np.roll(ids, 1, 0)).to(dev)}
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
+    return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def test_train_step_on_card_matches_cpu_f32(dev):
+    before = FA.flash_attention_kernel.launches
+    l_card, p_card = _tiny_train(dev)
+    assert FA.flash_attention_kernel.launches - before == 2 * (2 + 2 * 2)  # 2 steps x (vision + 2 text) x 2 layers
+    l_cpu, p_cpu = _tiny_train("cpu")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    for n in p_cpu:
+        np.testing.assert_allclose(p_card[n].numpy(), p_cpu[n].numpy(), rtol=1e-4, atol=1e-4, err_msg=n)
+
+
+def test_remat_and_flip_forward_on_card(rng, dev):
+    """remat recomputes each block (the kernel launches again in the
+    backward) and changes nothing else; a FLIP forward on the card equals
+    the CPU's with the same ``keep_idx``."""
+    l_plain, p_plain = _tiny_train(dev, steps=1)
+    before = FA.flash_attention_kernel.launches
+    l_remat, p_remat = _tiny_train(dev, remat=True, steps=1)
+    assert FA.flash_attention_kernel.launches - before == 2 * (2 + 2 * 2)  # forward + the recompute
+    np.testing.assert_allclose(l_remat, l_plain, rtol=1e-6)
+    for n in p_plain:
+        np.testing.assert_allclose(p_remat[n].numpy(), p_plain[n].numpy(), rtol=1e-5, atol=1e-6, err_msg=n)
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+
+    arch = CLIPArch(32, 64, 2, W, 4, 16, 600, W, H, 2, vision_heads=H)
+    model = build_model("", arch=arch, seed=4, dtype=torch.float32)
+    images = torch.tensor(rng.standard_normal((3, 64, 64, 3)).astype(np.float32))
+    keep = TT.sample_keep_idx(TT.step_generator(1, 2, dev), 3, arch.grid_size**2, 0.5)
+    assert keep.is_cuda and keep.shape == (3, 128)
+    with torch.no_grad():
+        want = model.encode_image(images, keep.cpu())
+        got = model.to(dev).encode_image(images.to(dev), keep)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)

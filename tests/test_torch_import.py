@@ -92,6 +92,13 @@ SLICE_MODULES = [
     f"{PKG}.datagen.captioning",
     f"{PKG}.datagen.metadata",
     f"{PKG}.datagen.texts",
+    f"{PKG}.train.losses",
+    f"{PKG}.train.schedule",
+    f"{PKG}.train.checkpoint",
+    f"{PKG}.train.trainer",
+    f"{PKG}.cli.train",
+    f"{PKG}.cli.export",
+    f"{PKG}.scripts.train_bench",
 ]
 
 

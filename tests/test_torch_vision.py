@@ -78,12 +78,21 @@ def test_vision_tower_matches_flax_f32(world, rng):
     np.testing.assert_array_equal(got, direct)
 
 
-def test_keep_idx_is_training_only(world):
-    arch, _, params = world
+def test_keep_idx_is_training_only(world, rng):
+    """FLIP patch subsets (a training forward): one ``keep_idx`` gives the
+    flax tower's result; inference passes none and sees every patch."""
+    arch, model, params = world
     tower = from_flax_params(params, dtype=torch.float32)
-    imgs = torch.zeros(1, arch.image_resolution, arch.image_resolution, 3)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tower.encode_image(imgs, keep_idx=torch.zeros(1, 2, dtype=torch.long))
+    imgs = _images(rng, arch, b=2)
+    n_patches = arch.grid_size**2
+    keep = np.stack([rng.permutation(n_patches)[: n_patches // 2] for _ in range(2)]).astype(np.int32)
+    want = np.asarray(model.apply({"params": params}, jnp.asarray(imgs), jnp.asarray(keep), method=JM.CLIP.encode_image))
+    with torch.no_grad():
+        got = tower.encode_image(torch.tensor(imgs), keep_idx=torch.tensor(keep)).numpy()
+        every = tower.encode_image(torch.tensor(imgs), keep_idx=torch.arange(n_patches).expand(2, -1)).numpy()
+        full = tower.encode_image(torch.tensor(imgs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(every, full, atol=1e-5, rtol=1e-5)
 
 
 def test_vision_plan_matches_jax_layout(world):
