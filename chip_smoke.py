@@ -124,10 +124,11 @@ just after; every kernel must have launched in the path it belongs to.
    directly, requests/s and p50 / p99; the head's scores at top_k 20 and
    100 against the CPU head over the same candidates.
 17. The quality sweep (``quality_phase``): the port's
-   ``scripts/quality_sweep.py`` (``--rotate --nprobes 8``) and
+   ``scripts/quality_sweep.py`` (``--nprobes 8``; its rotated and OPQ rows,
+   ~65 s of host training, are left to the CPU tests) and
    ``scripts/autotune.py`` (``--no-rotate``) on the capacity tiers'
    clustered store, 256 corpus rows as queries, k = 10: B2 q8, B2-q4 and B5
-   launch once a row and fetch; the int4 / pq / pq + OPQ recall against the
+   launch once a row and fetch; the int4 / pq recall against the
    served tiers' recall@10 on the same 256 rows (within 0.002); then
    ``scripts/consistency_check.py`` (the f32 ``flax`` path on the card
    against the CPU: cosine > 0.9999, the same metrics).
@@ -150,7 +151,7 @@ just after; every kernel must have launched in the path it belongs to.
 21. The profiling scripts (``profiling_scripts_phase``): ``scripts.{profile_serving,
    profile_vision, vision_batch_sweep, profile_pq, profile_ivf,
    scale_bench}.main`` once each at full width with repeats cut
-   (``SCRIPT_RUNS``; ``scale_bench`` at 1,000,000 rows), their JSON under
+   (``SCRIPT_RUNS``; ``profile_ivf`` at 65,536 rows, ``scale_bench`` at 262,144), their JSON under
    ``chiprun_out/``; every line finite, the scans' recall checked.
 22. Training (``train_phase``): ``cli.train`` at ViT-L/14 (bf16 compute, f32
    parameters, batch 64, ``synthetic:256``): the reference-parity run
@@ -169,8 +170,23 @@ just after; every kernel must have launched in the path it belongs to.
    ``scripts/train_bench.py``'s ViT-L/14 batch-64 point with and without
    remat (step ms, device ms, MFU). B6 must launch on the training forward
    of both towers, in validation and in the FLIP run.
+23. The training variants (``train_variants_phase``): LoRA (rank 8, all four
+   block projections) through ``cli.train`` at ViT-L/14, batch 64,
+   ``synthetic:256``, 2 epochs with validation, from a seeded OpenAI ``.pt``;
+   ``cli.export --model.adapters`` of its adapters into that base (equal to
+   the host merge; the card's merge within half a bf16 step of it), the
+   merged model served (one 256-query ``int8`` batch: B1, B2 q8) against the
+   plain top-k; GradCache (4 chunks) at ViT-L/14, 1 epoch; QAT at ViT-L/14
+   widths cut to 6 + 3 layers, 1 epoch; ``cli.mine_negatives
+   --eval.encoder=int8 --k=16`` at ViT-L/14 (B1 on both towers; the card's
+   table against a CPU mining of the same embeddings, near ties excepted) and
+   ``cli.train`` with the table (k 4) at 6 + 3 layers; ``cli.distill``
+   (ViT-B/32 student, ViT-L/14 ``int8`` teacher, cosine term off), 1 epoch;
+   ``scripts/qat_payoff.py`` at its defaults; one LoRA, QAT, GradCache and
+   distill step of ViT-L/14 widths at 2 layers, batch 8, f32, on the card
+   against the CPU. Step ms (events, steps 2..n) and peak memory per run.
 The kernel line's entries carry ``launches_by_path`` for the launches of
-items 15-22 beside the earlier paths', and ``launches`` is their sum.
+items 15-23 beside the earlier paths', and ``launches`` is their sum.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -1726,15 +1742,19 @@ def _png_blobs(rng, n, size):
 
 
 def _http(base, method, path, body=None):
-    """One request; a status other than 200 raises."""
+    """One request; a status other than 200 raises, with the server's answer."""
+    from urllib.error import HTTPError
     from urllib.request import Request, urlopen
 
     data = None if body is None else json.dumps(body).encode()
     req = Request(base + path, data=data, method=method, headers={"Content-Type": "application/json"})
-    with urlopen(req, timeout=300) as r:
-        if r.status != 200:
-            raise AssertionError(f"{method} {path}: HTTP {r.status}")
-        raw = r.read()
+    try:
+        with urlopen(req, timeout=300) as r:
+            if r.status != 200:
+                raise AssertionError(f"{method} {path}: HTTP {r.status}")
+            raw = r.read()
+    except HTTPError as e:
+        raise AssertionError(f"{method} {path}: HTTP {e.code} {e.read()[:300]!r}") from None
     return raw.decode() if path == "/metrics" else json.loads(raw)
 
 
@@ -2401,22 +2421,22 @@ def quality_phase(torch, dev, tmp, results):
     with _Spy(torch, [(Q, n) for n in wrapped]) as spy:
         dispatch.reset_launch_counts()
         t0 = time.perf_counter()
-        out = sweep_script.main(common + ["--nprobes", str(NPROBE), "--rotate"])
+        out = sweep_script.main(common + ["--nprobes", str(NPROBE)])
         sweep_s = time.perf_counter() - t0
         total = dispatch.launch_counts()
         counts = {"int8": sum(spy.launches("fused_similarity_topk_q8", "similarity_topk_kernel")),
                   "int4": sum(spy.launches("fused_similarity_topk_q4", "similarity_topk_kernel")),
                   "pq": sum(spy.launches("pq_similarity_topk", "pq_adc_topk_kernel"))}
-    # one launch a row and a fetch: 2 spaces x (k, rerank fetch); pq adds pq+opq
-    assert counts == {"int8": 4, "int4": 4, "pq": 6}, counts
-    assert (total["similarity_topk_kernel"], total["pq_adc_topk_kernel"]) == (8, 6), total
+    # one launch a row and a fetch (k, the rerank fetch)
+    assert counts == {"int8": 2, "int4": 2, "pq": 2}, counts
+    assert (total["similarity_topk_kernel"], total["pq_adc_topk_kernel"]) == (4, 2), total
     rows = {r["config"]: r for r in out["rows"]}
     cap = results["capacity_tiers"]
     diffs = {}
-    for tier in ("int4", "pq", "pq+opq"):
+    for tier in ("int4", "pq"):
         diffs[tier] = rows[tier]["recall_at_k"] - cap[tier]["recall_at_10_corpus_rows"]
     log(f"quality: quality_sweep on the clustered store ({CORPUS} rows, {QUERIES} corpus rows as queries, k 10, "
-        f"--nprobes {NPROBE} --rotate) in {sweep_s:.1f} s (host clock; codebook and OPQ training included); "
+        f"--nprobes {NPROBE}) in {sweep_s:.1f} s (host clock; codebook training included); "
         f"{len(rows)} rows; launches B2 q8 {counts['int8']}, B2-q4 {counts['int4']}, B5 {counts['pq']}; recall@10 "
         + "; ".join(f"{r} {rows[r]['recall_at_k']:.4f}" for r in rows if r != "exact")
         + f"; against the served tiers' recall@10 on the same rows: {diffs}")
@@ -2720,14 +2740,16 @@ def baseline_phase(torch, dev, results):
         f"baseline phase {results['baseline']['phase_s']:.1f} s (no kernel of the port: plain products on the card)")
 
 
-SCRIPT_RUNS = {  # name: (argv, the module's scan functions tallied by name) -- repeats cut, widths kept
+IVF_ROWS = 65_536  # profile_ivf's corpus (its default 262,144 spends ~70 s in the host IVF-PQ build)
+SCALE_BENCH_ROWS = 262_144  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
+SCRIPT_RUNS = {  # name: (argv, the module's scan functions tallied by name) -- repeats and profile_ivf's rows cut, widths kept
     "profile_serving": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8")),
     "profile_vision": (["--iters=5"], ()),
     "vision_batch_sweep": (["--bf16", "--medians=2", "--iters=3"], ()),
     "profile_pq": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8", "fused_similarity_topk_q4",
                                     "fused_pq_topk")),
-    "profile_ivf": (["--repeats=5"], ("fused_similarity_topk_q8",)),
-    "scale_bench": ([f"--rows={SCALE_ROWS}", "--iters=5"], ("fused_similarity_topk_q8", "fused_similarity_topk_q4",
+    "profile_ivf": (["--repeats=5", f"--n={IVF_ROWS}"], ("fused_similarity_topk_q8",)),
+    "scale_bench": ([f"--rows={SCALE_BENCH_ROWS}", "--iters=5"], ("fused_similarity_topk_q8", "fused_similarity_topk_q4",
                                                             "pq_similarity_topk")),
 }
 
@@ -2764,7 +2786,7 @@ def profiling_scripts_phase(torch, dev, results):
              *sb["tiers"].values(), *(t["full"] for t in pv["towers"].values()),
              *(r["ms_per_batch"] for r in vs["results"].values())]
     assert all(np.isfinite(x["event_ms"]) and x["event_ms"] > 0 and np.isfinite(x["device_ms"]) for x in lines)
-    assert sb["failed_tiers"] == {} and set(sb["tiers"]) == {"int8", "int4", "pq"} and sb["rows"] == SCALE_ROWS
+    assert sb["failed_tiers"] == {} and set(sb["tiers"]) == {"int8", "int4", "pq"} and sb["rows"] == SCALE_BENCH_ROWS
     assert sb["tiers"]["int8"]["recall@10"] >= 0.9 and pq["tiers"]["bf16 exact"]["recall@10"] >= 0.99
     assert abs(pq["tiers"]["pq m=96 adc"]["recall@10"] - pq["tiers"]["pq m=96 decode"]["recall@10"]) <= 0.02
     assert ivf["lines"]["brute int8"]["recall@10"] >= 0.9
@@ -2783,9 +2805,9 @@ TOL_GRAD_COS, TOL_LOSS_BF16, TOL_F32 = 0.99, 1e-2, 1e-4
 class _LaunchTally:
     """B6 launches by path during the training runs: the towers' forward
     (class-level wrappers, so validation's ``functional_call`` counts too),
-    each train step (the remat recompute in the backward is the step's
-    launches outside the towers) and validation; and CUDA events around
-    every step. ``run`` names the cli.train run in progress."""
+    each train or distill step (the remat recompute in the backward is the
+    step's launches outside the towers) and validation; and CUDA events
+    around every step. ``run`` names the cli.train run in progress."""
 
     def __init__(self, torch, CM, TT, dispatch):
         self.torch, self.CM, self.TT, self.dispatch = torch, CM, TT, dispatch
@@ -2812,8 +2834,8 @@ class _LaunchTally:
             return wrapper
 
         def make_step(fn):
-            def wrapped_make(model, cfg):
-                step = fn(model, cfg)
+            def wrapped_make(*a, **kw):
+                step = fn(*a, **kw)
 
                 def timed(state, batch):
                     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2839,6 +2861,7 @@ class _LaunchTally:
         for owner, attr, wrap in ((self.CM.VisionTransformer, "forward", lambda f: tower(f, "image")),
                                   (self.CM.TextTransformer, "forward", lambda f: tower(f, "text")),
                                   (self.TT, "make_train_step", make_step),
+                                  (self.TT, "make_distill_step", make_step),
                                   (self.TT.CLIPTrainer, "validate", validate)):
             orig = getattr(owner, attr)
             self._saved.append((owner, attr, orig))
@@ -3134,6 +3157,332 @@ def train_phase(torch, dev, tmp, store_path, results):
     return paths
 
 
+# -- item 23: the training variants (ROADMAP A4 b) --
+
+LORA_RANK, MINE_K, NEG_K, GC_CHUNKS = 8, 16, 4, 4
+# QAT's loss, card against CPU: its forward rounds ~5e7 activations to int8 steps, and the products feeding them
+# sum in another order on each device, so the few that sit within f32 noise of a rounding boundary round either
+# way; each such flip moves an activation by a whole step (measured on an H100: 2.8e-4 relative at ViT-L/14 widths
+# x 2 layers, batch 8). The updated tensors and the gradients' cosine keep their f32 bounds.
+TOL_QAT_LOSS = 1e-3
+# card merge against the host merge: half a bf16 step, relative, and f32 noise where W + s (a @ b)ᵀ nearly cancels
+TOL_MERGE, TOL_MERGE_ABS = 2.0 ** -9, 1e-7
+
+
+def _variant_card_vs_cpu_steps(torch, dev, res):
+    """ViT-L/14 widths at 2 layers a tower, batch 8, f32: one LoRA (all
+    targets), one QAT, one GradCache (2 chunks) and one distill (768-d teacher
+    rows, cosine term on) step on the card against the CPU (plain versions):
+    losses (QAT's to ``TOL_QAT_LOSS``) and the updated tensors to 1e-4, the
+    gradient cosine per tensor.
+    Returns {variant: B6 launches on the card}."""
+    import dataclasses
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import DataPipeline, make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import lora as TL
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train.distill import make_distill_step
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import TrainConfig
+
+    arch = dataclasses.replace(CM.ARCHS["ViT-L/14"], vision_layers=TRAIN_SMALL_LAYERS, text_layers=TRAIN_SMALL_LAYERS)
+    pipe = DataPipeline(make_synthetic_source(TRAIN_SMALL_BATCH, image_size=arch.image_resolution, seed=5),
+                        CLIPTokenizer([]), image_size=arch.image_resolution, context_length=arch.context_length)
+    host = pipe.make_batch(list(range(TRAIN_SMALL_BATCH)))
+    rng = np.random.default_rng(9)
+    teacher = [rng.standard_normal((TRAIN_SMALL_BATCH, arch.embed_dim)).astype(np.float32) for _ in range(3)]
+    teacher = [t / np.linalg.norm(t, axis=1, keepdims=True) for t in teacher]
+    variants = {"lora": dict(lora_rank=LORA_RANK, lora_targets="all"), "qat": dict(qat=True),
+                "gradcache": dict(grad_cache_chunks=2), "distill": dict(distill_embed_weight=0.5)}
+    out, launches = {}, {}
+    for name, kw in variants.items():
+        cfg = TrainConfig(batch_size=TRAIN_SMALL_BATCH, **kw)
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            model = CM.build_model("", arch=arch, dtype=torch.float32, seed=3, device=where)
+            adapters = None
+            if name == "lora":
+                base = dict(model.named_parameters())
+                for p in base.values():
+                    p.requires_grad_(False)
+                adapters = {n: torch.nn.Parameter(a) for n, a in
+                            TL.lora_init(base, LORA_RANK, "all", torch.Generator().manual_seed(0)).items()}
+                state = TT.TrainState(model, TT.Optimizer(adapters, cfg, 4), adapters=adapters)
+                step = TT.make_train_step(model, cfg, adapters, cfg.lora_alpha / cfg.lora_rank)
+            else:
+                state = TT.TrainState(model, TT.make_optimizer(cfg, 4, model))
+                step = (make_distill_step(model, cfg, arch.embed_dim, arch.embed_dim) if name == "distill"
+                        else TT.make_train_step(model, cfg))
+            grads = {}
+            orig = state.optimizer.step
+            state.optimizer.step = lambda g, orig=orig: (
+                grads.update({k: v.detach().float().cpu().clone() for k, v in g.items()}), orig(g))
+            batch = {k: torch.from_numpy(getattr(host, k)).to(where) for k in ("images", "query_ids", "target_ids")}
+            if name == "distill":
+                batch.update({k: torch.from_numpy(t).to(where) for k, t in zip(("t_img", "t_q", "t_t"), teacher)})
+            if where == dev:
+                torch.cuda.synchronize()
+                dispatch.reset_launch_counts()
+            _, m = step(state, batch)
+            if where == dev:
+                torch.cuda.synchronize()
+                launches[name] = dispatch.launch_counts()["flash_attention_kernel"]
+            trained = adapters if adapters is not None else dict(model.named_parameters())
+            runs[where.type] = (float(m["loss"]), grads, {n: p.detach().float().cpu() for n, p in trained.items()})
+            del model, state, step, adapters
+        (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = runs[dev.type], runs["cpu"]
+        tol_loss = TOL_QAT_LOSS if name == "qat" else TOL_F32
+        assert np.isfinite(l_card) and abs(l_card - l_cpu) <= tol_loss * abs(l_cpu), (name, l_card, l_cpu)
+        worst = max((float((p_card[n] - p_cpu[n]).abs().max()), n) for n in p_cpu)
+        for n in p_cpu:
+            np.testing.assert_allclose(p_card[n].numpy(), p_cpu[n].numpy(), rtol=TOL_F32, atol=TOL_F32,
+                                       err_msg=f"{name} {n}")
+        cos = {n: float(torch.nn.functional.cosine_similarity(g_card[n].flatten(), g_cpu[n].flatten(), dim=0))
+               for n in g_cpu if g_cpu[n].abs().max() > 0}
+        low = min(cos, key=cos.get)
+        assert cos[low] >= TOL_GRAD_COS, (name, low, cos[low])
+        out[name] = dict(loss=(l_card, l_cpu), max_tensor_diff=worst[0], grad_cos_min=cos[low], tensors=len(p_cpu))
+        log(f"variant card vs CPU, {name}, f32, ViT-L/14 widths x {TRAIN_SMALL_LAYERS} layers, batch "
+            f"{TRAIN_SMALL_BATCH}: loss {l_card:.6f} / {l_cpu:.6f}; {len(p_cpu)} updated tensors within {TOL_F32:g} "
+            f"(max abs difference {worst[0]:.3g}, {worst[1]}); gradient cosine min {cos[low]:.6f} ({low}); B6 "
+            f"launches {launches[name]}")
+    res["card_vs_cpu"] = out
+    return launches
+
+
+def train_variants_phase(torch, dev, tmp, store_path, results):
+    """The training variants through the port's entry points (item 23):
+    LoRA (rank 8, all four block projections) at full ViT-L/14, batch 64,
+    ``synthetic:256``, 2 epochs with validation, from a seeded ``.pt``; its
+    adapters exported into the base (``cli.export --model.adapters``), the
+    card's merge against the host's, the merged model served (one 256-query
+    ``int8`` batch: B1, B2 q8) against the plain top-k; GradCache (4 chunks)
+    at full ViT-L/14, 1 epoch; QAT at ``TRAIN_VARIANT_LAYERS``; mined
+    negatives (``cli.mine_negatives --eval.encoder=int8 --k=16`` at ViT-L/14:
+    B1 on both towers; the card's table against a CPU mining of the same
+    embeddings) and ``cli.train`` with them at ``TRAIN_VARIANT_LAYERS``;
+    ``cli.distill`` (ViT-B/32 student at full depth, ViT-L/14 ``int8``
+    teacher); ``scripts/qat_payoff.py`` at its defaults (B1 in its int8
+    deploy); and the card-vs-CPU variant steps. Returns {kernel line: {path:
+    launches}}."""
+    import dataclasses
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import distill as CD
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import export as EX
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import mine_negatives as MN
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import train as CT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval import evaluator as EV
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import load_clip_state_dict, save_openai_pt
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import load_openai_state_dict
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import qat_payoff as QP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import lora as TL
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import negatives as TN
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+
+    t_phase = time.perf_counter()
+    res = results["train_variants"] = {}
+    root = tempfile.mkdtemp(dir=tmp)
+    dev_flag = f"--device={dev.type}"
+    variant_arch = "ViT-L/14 ({} + {} layers)".format(*TRAIN_VARIANT_LAYERS)
+    CM.ARCHS[variant_arch] = dataclasses.replace(CM.ARCHS["ViT-L/14"], vision_layers=TRAIN_VARIANT_LAYERS[0],
+                                                 text_layers=TRAIN_VARIANT_LAYERS[1])
+    wall, counts, peak = {}, {}, {}
+
+    def counted(path, fn):
+        """Run one path with the launch counts set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[path], counts[path] = time.perf_counter() - t0, dispatch.launch_counts()
+        peak[path] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        return out
+
+    def train_argv(run, name, *extra):
+        return [dev_flag, f"--model.name={name}", f"--data.dataset=synthetic:{TRAIN_N}",
+                f"--train.batch_size={TRAIN_BATCH}", f"--eval.output_dir={root}/{run}",
+                f"--train.checkpoint_dir={root}/{run}/ckpt", *extra]
+
+    runs = {}
+    base_pt = f"{root}/base.pt"
+    t0 = time.perf_counter()
+    save_openai_pt(CM.build_model("ViT-L/14", dtype=torch.float32, seed=0), base_pt)  # the seeded base, on the host
+    res["base_pt_s"] = time.perf_counter() - t0
+    with _LaunchTally(torch, CM, TT, dispatch) as tally:
+        for run, name, extra in (
+            ("lora", "ViT-L/14", [f"--model.checkpoint={base_pt}", f"--train.lora_rank={LORA_RANK}",
+                                  "--train.lora_targets=all", "--train.epochs=2"]),
+            ("gradcache", "ViT-L/14", [f"--train.grad_cache_chunks={GC_CHUNKS}", "--train.epochs=1"]),
+            ("qat", variant_arch, ["--train.qat=true", "--train.epochs=1"]),
+        ):
+            tally.run = run
+            runs[run] = counted(run, lambda: CT.main(train_argv(run, name, *extra)))
+            if run != "lora":
+                shutil.rmtree(f"{root}/{run}/ckpt")
+
+        # mined negatives: the int8 towers encode the split, the card mines, the CPU mines the same embeddings
+        mined = {}
+
+        def mine(anchors, candidates, k, **kw):
+            mined.update(anchors=np.asarray(anchors), candidates=np.asarray(candidates))
+            mined["table"] = real_mine(anchors, candidates, k, **kw)
+            return mined["table"]
+
+        real_mine, MN.mine_hard_negatives = MN.mine_hard_negatives, mine
+        try:
+            with _Tally([(EV, "encode_image_fast"), (EV, "encode_text_fast")]) as mine_tally:
+                neg_path = counted("mine", lambda: MN.main([
+                    dev_flag, "--model.name=ViT-L/14", f"--data.dataset=synthetic:{TRAIN_N}", "--eval.encoder=int8",
+                    f"--k={MINE_K}", f"--out={root}/negatives.npz"]))
+        finally:
+            MN.mine_hard_negatives = real_mine
+        table, uuids = TN.load_negatives(neg_path)
+        assert table.shape == (TRAIN_N, MINE_K) and np.array_equal(table, mined["table"]) and len(uuids) == TRAIN_N
+        # the CPU mines the same embeddings; the two products sum in another order, so two candidates within
+        # NEAR_TIE of each other (equal texts give equal rows: ties) may order either way on the card
+        cpu_table = TN.mine_hard_negatives(mined["anchors"], mined["candidates"], MINE_K, device="cpu")
+        scores = torch.from_numpy(mined["anchors"]) @ torch.from_numpy(mined["candidates"]).T
+        scores.fill_diagonal_(float("-inf"))
+        top = torch.sort(scores, dim=1, descending=True).values[:, : MINE_K + 1]
+        near = ((top[:, :-1] - top[:, 1:]) < NEAR_TIE).any(dim=1).numpy()
+        differ = (table != cpu_table).any(axis=1)
+        assert not (differ & ~near).any(), f"card mining differs from the CPU's on rows {np.flatnonzero(differ & ~near)[:5]}"
+        picked = torch.take_along_dim(scores, torch.from_numpy(table).long(), dim=1)
+        topk_agree((picked, torch.from_numpy(table)), scores, MINE_K, NEAR_TIE)  # every row a top-k, ties aside
+        res["mining"] = dict(rows=TRAIN_N, k=MINE_K, near_tie_rows=int(near.sum()), differing_rows=int(differ.sum()))
+        log(f"variants: cli.mine_negatives (ViT-L/14 int8, synthetic:{TRAIN_N}, k {MINE_K}) {wall['mine']:.1f} s; "
+            f"the card's table equals the CPU's on the {int((~near).sum())} rows without a near tie and is a top-{MINE_K} "
+            f"of the CPU's scores within {NEAR_TIE:g} on all {TRAIN_N} ({int(differ.sum())} of the {int(near.sum())} "
+            f"near-tie rows order otherwise)")
+        tally.run = "negatives"
+        runs["negatives"] = counted("negatives", lambda: CT.main(train_argv(
+            "negatives", variant_arch, f"--train.hard_negatives={neg_path}", f"--train.hard_negatives_k={NEG_K}",
+            "--train.epochs=1")))
+        shutil.rmtree(f"{root}/negatives/ckpt")
+
+        # distillation: the ViT-L/14 int8 teacher encodes the split, a ViT-B/32 student trains
+        tally.run = "distill"
+        with _Tally([(EV, "encode_image_fast"), (EV, "encode_text_fast")]) as teacher_tally:
+            runs["distill"] = counted("distill", lambda: CD.main([
+                dev_flag, "--model.name=ViT-B/32", "--teacher-name=ViT-L/14", "--teacher-encoder=int8",
+                "--train.distill_embed_weight=0", f"--data.dataset=synthetic:{TRAIN_N}",
+                f"--train.batch_size={TRAIN_BATCH}", "--train.epochs=1", f"--eval.output_dir={root}/distill",
+                f"--train.checkpoint_dir={root}/distill/ckpt"]))
+        shutil.rmtree(f"{root}/distill/ckpt")
+        step_ms = {run: tally.step_ms(run) for run in runs}
+        b6_train = {run: tally.count((run,), "train", "step") for run in runs}
+        b6_val = {run: sum(tally.count((run,), "validation", t) for t in ("image", "text")) for run in runs}
+    del CM.ARCHS[variant_arch]
+    for run, r in runs.items():
+        for h in r["history"]:
+            assert h["steps"] == TRAIN_N // TRAIN_BATCH and all(np.isfinite(v) for v in h["train"].values()), (run, h)
+            assert {"T2I_MRR", "T2T_MRR"} <= set(h["val"]), (run, h["val"])
+    assert runs["lora"]["epochs_run"] == 2 and set(runs["distill"]["history"][0]["train"]) >= {"loss_kd", "loss_embed"}
+
+    # the LoRA artifact: exported into the base, merged on the card against the host, served
+    ad_path = runs["lora"]["adapters_path"]
+    adapters, meta = TL.load_adapters(ad_path, device=dev)
+    assert meta == {"rank": LORA_RANK, "alpha": 16.0, "targets": "all", "model": "ViT-L/14"}
+    res["lora"] = dict(adapter_params=TL.lora_param_count(adapters), adapter_file_bytes=os.path.getsize(ad_path))
+    t0 = time.perf_counter()
+    merged_pt = EX.main(["--model.name=ViT-L/14", f"--model.checkpoint={base_pt}", f"--model.adapters={ad_path}",
+                         "--format=openai", "--out", f"{root}/merged.pt"])
+    res["lora"]["export_s"] = time.perf_counter() - t0
+    base_sd, merged_sd = load_clip_state_dict(base_pt), load_clip_state_dict(merged_pt)
+    host = TL.lora_merge_host(base_sd, {k: v.cpu().numpy() for k, v in adapters.items()}, TL.adapter_scale(meta))
+    assert set(merged_sd) == set(host) and all(np.array_equal(merged_sd[k], host[k]) for k in host)
+    worst = 0.0
+    for name in TL.adapted_names(adapters):
+        key = TL.openai_key(name)
+        card = (torch.from_numpy(base_sd[key]).to(dev) + TL.lora_delta(adapters, name, TL.adapter_scale(meta))).cpu()
+        want = torch.from_numpy(host[key])
+        rel = float(((card - want).abs() / want.abs().clamp_min(1e-30)).max())
+        assert bool(((card - want).abs() <= TOL_MERGE * want.abs() + TOL_MERGE_ABS).all()), (name, rel)
+        worst = max(worst, float((card - want).abs().max()))
+    moved = max(float(np.abs(host[k] - base_sd[k]).max()) for k in host)
+    assert moved > 0, "the adapters left the base unchanged"
+    res["lora"].update(merge_max_abs_diff=worst, merged_max_change=moved)
+    del base_sd, host
+    model = load_openai_state_dict(merged_sd, device=dev, dtype=torch.bfloat16)
+    del merged_sd
+    tok = CLIPTokenizer(MERGES)
+    rng = np.random.default_rng(29)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    queries = [" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)]
+    retriever = CLIPRetrieval(model, tok, EmbeddingStore.load(store_path), device=dev, top_k=K, use_fused_encoder=True,
+                              quantize="int8", quantize_corpus="int8")
+    retriever.search_batch(queries[:8])
+    got = counted("lora serve", lambda: retriever.search_batch(queries))
+    c = retriever._corpus
+    q = retriever.encode_queries(queries)
+    topk_agree(retriever._score(c, q, 0.5, K), SIM.blended_scores_q8(
+        q.to(torch.bfloat16), c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, 0.5), K, TOL_TOPK)
+    assert got[0].shape == (QUERIES, K) and bool(torch.isfinite(got[0].float()).all())
+    log(f"variants: LoRA (rank {LORA_RANK}, all) adapters {res['lora']['adapter_params']} parameters, "
+        f"{res['lora']['adapter_file_bytes']} bytes; cli.export --model.adapters {res['lora']['export_s']:.1f} s; "
+        f"card merge within {TOL_MERGE:g} relative of the host merge (max abs difference {worst:.3g}; the adapters "
+        f"moved a weight by up to {moved:.3g}); the merged model served int8 ({QUERIES} queries over {CORPUS} rows) "
+        f"in {wall['lora serve'] * 1e3:.2f} ms, top-k == plain top-k")
+    del retriever, model
+    torch.cuda.empty_cache()
+
+    payoff = counted("qat_payoff", lambda: QP.main([dev_flag]))
+    for run in ("ptq", "qat"):
+        assert all(np.isfinite(v) for v in payoff["runs"][run].values()), payoff["runs"][run]
+    res["qat_payoff"] = dict(payoff["runs"], delta=payoff["delta_qat_minus_ptq"], wall_s=wall["qat_payoff"])
+    log(f"variants: scripts/qat_payoff.py (defaults) {wall['qat_payoff']:.1f} s: {payoff['runs']}; "
+        f"delta {payoff['delta_qat_minus_ptq']}")
+
+    card_vs_cpu = _variant_card_vs_cpu_steps(torch, dev, res)
+    shutil.rmtree(root)
+
+    res.update(
+        runs={r: dict(wall_s=wall[r], epoch_s=[h["epoch_time_s"] for h in v["history"]],
+                      loss=[h["train"]["loss"] for h in v["history"]], best=v["best_metric"],
+                      max_memory_allocated=peak[r]) for r, v in runs.items()},
+        step_ms={r: float(np.median(v)) for r, v in step_ms.items() if v}, wall_s=wall)
+    log("variants runs (batch {}, synthetic:{}): ".format(TRAIN_BATCH, TRAIN_N) + "; ".join(
+        f"{r} {v['wall_s']:.1f} s, step ms (events, median of steps 2..n) {res['step_ms'].get(r, float('nan')):.1f}, "
+        f"peak {v['max_memory_allocated'] / 2**30:.2f} GiB, loss {', '.join(f'{x:.4f}' for x in v['loss'])}"
+        for r, v in res["runs"].items()))
+    what = {"lora": "LoRA, ViT-L/14", "gradcache": "GradCache, ViT-L/14, both passes", "qat": "QAT, 6 + 3 layers",
+            "negatives": "mined negatives, 6 + 3 layers", "distill": "distill, ViT-B/32 student (s = 50)"}
+    paths = {
+        "B6 flash_attention s=257": {
+            **{f"variants: {what[r]}: train steps": n for r, n in b6_train.items()},
+            **{f"variants: {what[r]}: validation": n for r, n in b6_val.items()},
+            "variants: qat_payoff training (width 64)": counts["qat_payoff"]["flash_attention_kernel"],
+            **{f"variants: card-vs-CPU {v} step": n for v, n in card_vs_cpu.items()}},
+        "B1 fused_layer_q8": {
+            "variants: LoRA-merged int8 served batch": counts["lora serve"]["fused_layer_q8"],
+            "variants: cli.mine_negatives int8 text tower": mine_tally.of("encode_text_fast", "fused_layer_q8"),
+            "variants: cli.distill int8 teacher text tower": teacher_tally.of("encode_text_fast", "fused_layer_q8"),
+            "variants: qat_payoff int8 deploy (width 64, both towers)": counts["qat_payoff"]["fused_layer_q8"]},
+        f"B1 fused_layer_q8 vision [{V_BATCH}x{V_SEQ}]": {
+            "variants: cli.mine_negatives int8 image tower": mine_tally.of("encode_image_fast", "fused_layer_q8"),
+            "variants: cli.distill int8 teacher image tower": teacher_tally.of("encode_image_fast", "fused_layer_q8")},
+        "B2 similarity_topk q8": {"variants: LoRA-merged int8 served batch": counts["lora serve"]["similarity_topk_kernel"]},
+    }
+    for line, by in paths.items():
+        for path, n in by.items():
+            assert n > 0, f"{line} never launched on {path}"
+    res["launches_by_path"] = paths
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"train variants phase: {res['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in wall.items())})")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3199,6 +3548,7 @@ def main() -> int:
         baseline_phase(torch, dev, results)
         sc = profiling_scripts_phase(torch, dev, results)
         tr = train_phase(torch, dev, tmp, store_path, results)
+        tv = train_variants_phase(torch, dev, tmp, store_path, results)
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -3288,8 +3638,8 @@ def main() -> int:
         "B2 similarity_topk q8": {
             "checkpoint layouts int8 batch (3 models)": ck["int8"][sim],
             "profile_serving": ps["fused_similarity_topk_q8"][sim], "profile_pq": pq["fused_similarity_topk_q8"][sim],
-            "profile_ivf brute scan (262,144 rows)": ivf["fused_similarity_topk_q8"][sim],
-            f"scale_bench int8 ({SCALE_ROWS} rows)": sb["fused_similarity_topk_q8"][sim]},
+            f"profile_ivf brute scan ({IVF_ROWS:,} rows)": ivf["fused_similarity_topk_q8"][sim],
+            f"scale_bench int8 ({SCALE_BENCH_ROWS:,} rows)": sb["fused_similarity_topk_q8"][sim]},
         f"B3a fused_attention_block{vis}": {
             "parity fast eval image tower": pa["fast"]["image"]["fused_attention_block"],
             "profile_vision": pv["total"]["fused_attention_block"],
@@ -3308,14 +3658,19 @@ def main() -> int:
             "parity runs' image tower (flax eval + the converter forward)":
                 sum(pa[e]["image"]["flash_attention_kernel"] for e in pa)},
         f"B2-q4 similarity_topk q4 [{CORPUS}]": {"profile_pq": pq["fused_similarity_topk_q4"][sim]},
-        f"B2-q4 similarity_topk q4 [{SCALE_ROWS}]": {"scale_bench int4": sb["fused_similarity_topk_q4"][sim]},
+        f"B2-q4 similarity_topk q4 [{SCALE_ROWS}]": {
+            f"scale_bench int4 ({SCALE_BENCH_ROWS:,} rows)": sb["fused_similarity_topk_q4"][sim]},
         f"B5 pq_adc_topk [{CORPUS}]": {"profile_pq": pq["fused_pq_topk"]["pq_adc_topk_kernel"]},
-        f"B5 pq_adc_topk [{SCALE_ROWS}]": {"scale_bench pq": sb["pq_similarity_topk"]["pq_adc_topk_kernel"]},
+        f"B5 pq_adc_topk [{SCALE_ROWS}]": {
+            f"scale_bench pq ({SCALE_BENCH_ROWS:,} rows)": sb["pq_similarity_topk"]["pq_adc_topk_kernel"]},
     }
     for name, paths in slice_paths.items():
         by_path.setdefault(name, {}).update(paths)
     # this slice's path: training (item 22)
     by_path["B6 flash_attention s=257"].update({f"train: {path}": n for path, n in tr.items()})
+    # this slice's paths: the training variants (item 23)
+    for name, paths in tv.items():
+        by_path.setdefault(name, {}).update(paths)
     for name in results:
         if name.startswith("S1 "):
             launches[name] = prof["attn_q8_variant"]
@@ -3356,8 +3711,8 @@ def main() -> int:
         f"ms; phase {fu_r['phase_s']:.1f} s ({smi})")
     log(f"quality: sweep {results['quality']['sweep_s']:.1f} s, autotune {results['quality']['autotune_s']:.1f} s, "
         f"recall against the served tiers {results['quality']['recall_diff']}; phase {results['quality']['phase_s']:.1f} s")
-    log("items 18-22 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
-                                         ("checkpoints", "parity", "baseline", "scripts", "train"))
+    log("items 18-23 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
+                                         ("checkpoints", "parity", "baseline", "scripts", "train", "train_variants"))
         + "; scripts " + ", ".join(f"{n} {t:.1f}" for n, t in results["scripts"]["wall_s"].items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

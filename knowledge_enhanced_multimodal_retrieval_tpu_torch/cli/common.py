@@ -9,8 +9,10 @@ takes ``--device=cpu``.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..utils.config import Config, MeshConfig
@@ -18,11 +20,10 @@ from ..utils.config import Config, MeshConfig
 from ..data.datasets import DataPipeline, load_hf_source, make_synthetic_source
 from ..data.tokenizer import CLIPTokenizer
 from ..models import clip as clip_mod
-from ..models.convert import load_clip_state_dict, load_openai_state_dict
+from ..models.convert import arch_from_state_dict, load_clip_state_dict, load_openai_state_dict, openai_state_dict
 from ..ops.dispatch import has_cuda
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-ADAPTERS_NOT_PORTED = "--model.adapters (LoRA merge) is not ported yet: ROADMAP A4 (b) (training variants)"
 
 
 def pop_flag(args, flag: str, default=None):
@@ -51,18 +52,47 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def merge_adapters(adapters_path: str, sd: Mapping[str, np.ndarray]) -> dict:
+    """A LoRA adapter file (``train.lora.save_adapters``, of either package)
+    merged into an OpenAI-layout state dict on the host, in f32: the one
+    load-time merge every entry point (serve, evaluate, precompute, export)
+    shares."""
+    from ..train.lora import adapter_scale, load_adapters, lora_merge_host
+
+    adapters, meta = load_adapters(adapters_path)
+    return lora_merge_host(sd, {k: v.numpy() for k, v in adapters.items()}, adapter_scale(meta))
+
+
+def checkpoint_arch(cfg: Config, sd: Mapping[str, np.ndarray]) -> clip_mod.CLIPArch:
+    """A checkpoint's arch from its shapes, with the head counts of
+    ``model.name``'s arch where that arch has the checkpoint's widths: heads
+    are not in the weights, and the JAX package builds the named arch."""
+    arch = arch_from_state_dict(sd)
+    named = clip_mod.ARCHS.get(cfg.model.name)
+    if named is not None and (named.text_width, named.vision_width) == (arch.text_width, arch.vision_width):
+        arch = dataclasses.replace(arch, text_heads=named.text_heads, vision_heads=named.heads_vision)
+    return arch
+
+
 def build_model(cfg: Config, device, seed: int = 0) -> clip_mod.CLIP:
     """CLIP from ``model.checkpoint`` (an OpenAI ``.pt``, an HF ``CLIPModel``
     state dict, a flax ``.npz`` tree or an ``.npz`` of OpenAI keys:
     ``models.convert.load_clip_state_dict``) or, without one, weights seeded
-    by ``seed``; ``model.remat`` passes on."""
-    if cfg.model.adapters:
-        raise NotImplementedError(ADAPTERS_NOT_PORTED)
+    by ``seed``, with ``model.adapters`` (LoRA) merged on the host;
+    ``model.remat`` passes on."""
     dtype = _DTYPES[cfg.model.dtype]
     if cfg.model.checkpoint:
-        return load_openai_state_dict(load_clip_state_dict(cfg.model.checkpoint), device=device, dtype=dtype,
-                                      remat=cfg.model.remat)
-    return clip_mod.build_model(cfg.model.name, dtype=dtype, seed=seed, device=device, remat=cfg.model.remat)
+        sd = load_clip_state_dict(cfg.model.checkpoint)
+        arch = checkpoint_arch(cfg, sd)
+    elif not cfg.model.adapters:
+        return clip_mod.build_model(cfg.model.name, dtype=dtype, seed=seed, device=device, remat=cfg.model.remat)
+    else:
+        seeded = clip_mod.build_model(cfg.model.name, dtype=dtype, seed=seed)
+        sd, arch = openai_state_dict(seeded), seeded.arch
+        del seeded
+    if cfg.model.adapters:
+        sd = merge_adapters(cfg.model.adapters, sd)
+    return load_openai_state_dict(sd, device=device, dtype=dtype, arch=arch, remat=cfg.model.remat)
 
 
 def check_one_device(mesh: MeshConfig) -> None:

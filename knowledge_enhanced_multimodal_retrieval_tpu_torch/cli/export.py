@@ -12,8 +12,9 @@ The port's counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/cli/expo
 
 ``hf`` writes a ``CLIPModel`` directory (needs ``transformers``), ``openai``
 an OpenAI-layout ``.pt`` state dict, ``npz`` the JAX package's flattened
-flax tree. A checkpoint of an EMA run exports the EMA shadow. The
-conversion runs on the host.
+flax tree. A checkpoint of an EMA run exports the EMA shadow;
+``--model.adapters`` (a LoRA adapter file) is merged before the re-layout,
+so the adapted model is what is written. The conversion runs on the host.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ..models.convert import (
 )
 from ..train.checkpoint import load_params_only
 from ..utils.config import config_from_argv
-from .common import ADAPTERS_NOT_PORTED, pop_flag
+from .common import merge_adapters, pop_flag
 
 FORMATS = ("hf", "openai", "npz")
 logger = logging.getLogger("kemr_torch.cli.export")
@@ -55,8 +56,6 @@ def main(argv=None) -> str:
     if not out:
         raise ValueError("--out is required")
     cfg = config_from_argv(args)
-    if cfg.model.adapters:
-        raise NotImplementedError(ADAPTERS_NOT_PORTED)
 
     if train_dir:
         sd = module_to_openai(load_params_only(train_dir, role))
@@ -64,6 +63,9 @@ def main(argv=None) -> str:
         sd = load_clip_state_dict(cfg.model.checkpoint)
     else:
         raise ValueError("provide --train-dir or --model.checkpoint")
+    if cfg.model.adapters:
+        sd = merge_adapters(cfg.model.adapters, sd)
+        logger.info("merged LoRA adapters from %s", cfg.model.adapters)
 
     if fmt == "hf":
         # named variants pin the head counts; otherwise the OpenAI width // 64

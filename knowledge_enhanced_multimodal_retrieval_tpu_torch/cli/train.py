@@ -10,15 +10,23 @@ Weights come from ``--model.checkpoint`` or are seeded by ``train.seed``.
 ``--device`` defaults to ``cuda`` and never falls back; f32 products run
 with TF32 off. A ``synthetic:N`` dataset validates on its training split.
 Checkpoints go to ``train.checkpoint_dir``, metrics to ``eval.output_dir``.
+A LoRA run (``--train.lora_rank=r``) also writes the best epoch's adapters
+(the last epoch's without a best checkpoint) to
+``eval.output_dir/lora_adapters.npz`` with ``rank`` / ``alpha`` /
+``targets`` / ``model`` meta: ``--model.adapters`` of every entry point
+merges them into the base.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 
 import torch
 
+from ..train import checkpoint as ckpt
+from ..train.lora import save_adapters
 from ..train.trainer import CLIPTrainer
 from ..utils.config import config_from_argv
 from .common import build_model, build_pipeline, check_one_device, pop_flag, resolve_device
@@ -44,6 +52,16 @@ def main(argv=None) -> dict:
     trainer = CLIPTrainer(model, train_pipe, val_pipe, cfg.train, mesh=cfg.mesh, out_dir=cfg.eval.output_dir)
     result = trainer.train()
     logger.info("done: best %.4f @ epoch %d", result["best_metric"], result["best_epoch"])
+    if trainer.lora:
+        # ship the best epoch's adapters (early stopping runs patience epochs past it)
+        adapters = trainer.state.adapters
+        if ckpt.checkpoint_exists(cfg.train.checkpoint_dir, "best"):
+            adapters = ckpt.load_checkpoint(cfg.train.checkpoint_dir, "best")[0]["params"]
+        path = os.path.join(cfg.eval.output_dir, "lora_adapters.npz")
+        save_adapters(path, adapters, {"rank": cfg.train.lora_rank, "alpha": cfg.train.lora_alpha,
+                                       "targets": cfg.train.lora_targets, "model": cfg.model.name})
+        logger.info("saved LoRA adapters to %s", path)
+        result = dict(result, adapters_path=path)
     return result
 
 

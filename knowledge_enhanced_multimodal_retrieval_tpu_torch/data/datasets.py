@@ -117,6 +117,16 @@ class DataPipeline:
             indices=np.asarray(list(indices), np.int64),
         )
 
+    def negative_target_ids(self, indices: np.ndarray, table: np.ndarray, k: int) -> np.ndarray:
+        """[B] batch rows + [N, M] mined table -> [B, k, L] token ids of each
+        example's top-k mined negatives' target texts (``train.negatives``),
+        each distinct text tokenized once a batch."""
+        sel = np.asarray(table)[np.asarray(indices)][:, :k]  # [B, k]
+        uniq, inv = np.unique(sel, return_inverse=True)
+        texts = [truncate_words(self.source[int(i)]["target_text"], self.max_text_words) for i in uniq]
+        toks = self.tokenizer(texts, context_length=self.context_length)
+        return np.asarray(toks)[inv].reshape(sel.shape[0], k, -1)
+
     def epoch_batches(
         self,
         batch_size: int,

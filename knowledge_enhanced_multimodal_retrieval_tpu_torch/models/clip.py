@@ -16,13 +16,17 @@ the hand-written kernel (B6/B7) for every CUDA tensor whatever its length
 through the plain version. Training adds FLIP patch subsets (``keep_idx``)
 and ``remat``, which recomputes each residual block in the backward pass
 (``torch.utils.checkpoint``, as ``nn.remat`` in the JAX package).
+The four block projections go through :func:`block_linear`, the seam of
+the training variants (LoRA's merge, QAT's fake quantization):
+:func:`projection_hooks` installs a hook on every attention and MLP module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -78,8 +82,26 @@ def _ln_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return nn.functional.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
 
 
+# (name, x, w) -> (x, w): rewrites a block projection's input rows and f32 weight
+ProjectionHook = Callable[[str, torch.Tensor, torch.Tensor], tuple]
+
+
+def block_linear(module: nn.Module, name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One of a block's four projections (``name``: ``in_proj_weight``,
+    ``out_proj.weight``, ``c_fc.weight`` or ``c_proj.weight``): ``x @ w.T +
+    b`` in ``x``'s dtype, the f32 weight cast per call. The module's
+    ``projection_hook``, when set, sees ``(name, x, w)`` before the cast."""
+    hook = module.projection_hook
+    if hook is not None:
+        x, w = hook(name, x, w)
+    dt = x.dtype
+    return nn.functional.linear(x, w.to(dt), b.to(dt))
+
+
 class MultiheadSelfAttention(nn.Module):
     """Fused-qkv self-attention in OpenAI's layout (``in_proj_weight`` [3W, W])."""
+
+    projection_hook: Optional[ProjectionHook] = None
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -90,23 +112,40 @@ class MultiheadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
         b, s, w = x.shape
-        dt = x.dtype
-        qkv = nn.functional.linear(x, self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
+        qkv = block_linear(self, "in_proj_weight", x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.view(b, s, 3, self.heads, w // self.heads).permute(2, 0, 3, 1, 4)
         out = mha(q, k, v, causal=causal).transpose(1, 2).reshape(b, s, w)
-        return nn.functional.linear(out, self.out_proj.weight.to(dt), self.out_proj.bias.to(dt))
+        return block_linear(self, "out_proj.weight", out, self.out_proj.weight, self.out_proj.bias)
 
 
 class MLP(nn.Module):
+    projection_hook: Optional[ProjectionHook] = None
+
     def __init__(self, width: int):
         super().__init__()
         self.c_fc = nn.Linear(width, 4 * width)
         self.c_proj = nn.Linear(4 * width, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        h = quick_gelu(nn.functional.linear(x, self.c_fc.weight.to(dt), self.c_fc.bias.to(dt)))
-        return nn.functional.linear(h, self.c_proj.weight.to(dt), self.c_proj.bias.to(dt))
+        h = quick_gelu(block_linear(self, "c_fc.weight", x, self.c_fc.weight, self.c_fc.bias))
+        return block_linear(self, "c_proj.weight", h, self.c_proj.weight, self.c_proj.bias)
+
+
+@contextlib.contextmanager
+def projection_hooks(model: nn.Module, make_hook: Callable[[str], Optional[ProjectionHook]]):
+    """Set ``make_hook(prefix)`` (a hook or None) as the ``projection_hook``
+    of every attention and MLP module of ``model`` for the block's duration;
+    ``prefix`` is the module's name (``text.transformer.resblocks.0.attn``).
+    A train step holds it over its forward and its backward, so a remat
+    recompute sees the same weights."""
+    mods = [(n, m) for n, m in model.named_modules() if isinstance(m, (MultiheadSelfAttention, MLP))]
+    for n, m in mods:
+        m.projection_hook = make_hook(n)
+    try:
+        yield
+    finally:
+        for _, m in mods:
+            m.projection_hook = None
 
 
 class ResidualBlock(nn.Module):

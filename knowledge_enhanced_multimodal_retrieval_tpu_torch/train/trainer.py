@@ -15,20 +15,26 @@ on one card (the JAX package's data-parallel step on a one-device mesh):
   ``grad_norm``) but no update and no decay;
 - an EMA shadow updated on every step (micro-steps included), FLIP patch
   subsets drawn from a ``torch.Generator`` seeded by (seed, step), ``remat``;
+- the training variants: QAT (``train.qat``) and LoRA (``train.lora``) at
+  the block projections' hook, held over each step's forward and backward;
+  GradCache (``train.gradcache``, ``grad_cache_chunks > 1``); mined hard
+  negatives (``train.negatives``: each example's mined target texts join
+  the loss denominators); distillation (``train.distill``, its own step);
 - ``CLIPTrainer``: epoch loop, validation (T2I + T2T MRR), latest / best
   checkpoints (``train.checkpoint``), early stopping, a SIGTERM drain that
-  saves a resumable checkpoint.
+  saves a resumable checkpoint; a LoRA run's state is the adapters and their
+  optimizer, the frozen base beside it.
 
 Compute runs in the model's dtype (bf16 on the card) with f32 parameters, as
 in the JAX package. Attention runs the B6/B7 kernel forward on a CUDA tensor
-and recomputes its gradient through the plain version. Training variants of
-ROADMAP A4 (b) (LoRA, distillation, mined negatives, GradCache, QAT) and the
-sharded steps of A5 raise ``NotImplementedError`` where the JAX trainer
-branches to them.
+and recomputes its gradient through the plain version. The sharded steps of
+ROADMAP A5 raise ``NotImplementedError`` where the JAX trainer branches to
+them; the JAX trainer's refusals of variant combinations raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue as queue_mod
 import signal
@@ -36,6 +42,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from ..data.datasets import Batch, DataPipeline
@@ -45,11 +52,15 @@ from ..utils.config import MeshConfig, TrainConfig
 from ..utils.logging_utils import MetricsWriter, is_coordinator, setup_logger
 from . import checkpoint as ckpt
 from .losses import joint_loss_for_config, require_one_process
+from .distill import TeacherBank, load_encoded_dataset, make_distill_step
+from .gradcache import gradcache_value_and_grad
+from .lora import lora_init, lora_merge, lora_param_count, lora_projections
+from .negatives import load_negatives
+from .qat import qat_hook, qat_projections
 from .schedule import cosine_annealing_lr
 
 # The reference validates on T2I + T2T only and early-stops on their mean MRR.
 VAL_TASKS = ("T2I", "T2T")
-A4B = "ROADMAP A4 (b) (training variants)"
 A5 = "ROADMAP A5 (parallel modes)"
 
 Params = Dict[str, torch.Tensor]
@@ -209,6 +220,23 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, model: CLIP) -> Optim
     return Optimizer(dict(model.named_parameters()), cfg, steps_per_epoch)
 
 
+def collect_grads(params: Params) -> Params:
+    """Each parameter's ``.grad`` (zeros where it got none), then cleared."""
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return grads
+
+
+def apply_gradients(state: "TrainState", grads: Params, metrics: Dict[str, torch.Tensor]):
+    """``grad_norm`` (over every gradient, frozen ones included) into
+    ``metrics``, the optimizer on this micro-step's gradients, the step count."""
+    metrics["grad_norm"] = global_norm(list(grads.values()))
+    state.optimizer.step(grads)
+    state.step += 1
+    return state, metrics
+
+
 def _ema_update(ema: Params, params: Params, decay: float) -> None:
     """``ema = decay * ema + (1 - decay) * params``, in place."""
     names = list(ema)
@@ -269,12 +297,25 @@ def device_prefetch(batches: Iterable, place_fn: Callable, depth: int = 1) -> It
 # ---------------------------------------------------------------------------
 
 
+def projections_for_config(model: CLIP, cfg: TrainConfig, adapters: Optional[Params] = None,
+                           lora_scale: float = 1.0) -> contextlib.AbstractContextManager:
+    """What a train step holds over its forward and backward: LoRA's merge
+    (given ``adapters``) and / or QAT's fake quantization (``cfg.qat``, on
+    the merged weights) at the block projections; nothing for neither."""
+    if adapters is not None:
+        return lora_projections(model, adapters, lora_scale, then=qat_hook if cfg.qat else None)
+    return qat_projections(model) if cfg.qat else contextlib.nullcontext()
+
+
 def forward_for_config(model: CLIP, cfg: TrainConfig) -> Callable:
-    """The train-step forward ``fwd(method, *args)``: the module's own (QAT's
-    fake-quantized forward is ROADMAP A4 (b))."""
-    if cfg.qat:
-        raise NotImplementedError(f"train.qat (quantization-aware training) is not ported yet: {A4B}")
-    return lambda method, *args: getattr(model, method)(*args)
+    """One train-step forward ``fwd(method, *args)``: the module's own, or
+    QAT's fake-quantized one (``cfg.qat``)."""
+
+    def fwd(method: str, *args):
+        with projections_for_config(model, cfg):
+            return getattr(model, method)(*args)
+
+    return fwd
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -293,22 +334,31 @@ def sample_keep_idx(generator: torch.Generator, batch: int, n_patches: int, rati
 
 @dataclasses.dataclass
 class TrainState:
-    """What a step updates: the module's parameters (in place), the
-    optimizer, the step count (micro-steps included) and the EMA shadow."""
+    """What a step updates: the module's parameters (in place) or, in a LoRA
+    run, the ``adapters`` (the module is the frozen base), the optimizer, the
+    step count (micro-steps included) and the EMA shadow. A checkpoint's
+    ``params`` are what the step trains."""
 
     model: CLIP
     optimizer: Optimizer
     step: int = 0
     ema_params: Optional[Params] = None
+    adapters: Optional[Params] = None
 
     def state_dict(self) -> Dict[str, Any]:
-        out = {"params": dict(self.model.state_dict()), "opt_state": self.optimizer.state_dict(), "step": self.step}
+        params = dict(self.model.state_dict()) if self.adapters is None else self.adapters
+        out = {"params": params, "opt_state": self.optimizer.state_dict(), "step": self.step}
         if self.ema_params is not None:
             out["ema_params"] = self.ema_params
         return out
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        self.model.load_state_dict(sd["params"])
+        if self.adapters is None:
+            self.model.load_state_dict(sd["params"])
+        else:
+            with torch.no_grad():
+                for n, a in self.adapters.items():
+                    a.copy_(sd["params"][n])
         self.optimizer.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
         if self.ema_params is not None:
@@ -316,41 +366,53 @@ class TrainState:
                 e.copy_(sd["ema_params"][n])
 
 
-def make_train_step(model: CLIP, cfg: TrainConfig) -> Callable:
+def make_train_step(model: CLIP, cfg: TrainConfig, adapters: Optional[Params] = None,
+                    lora_scale: float = 1.0) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: forward both towers
-    (the text tower once for queries, once for targets), the joint loss,
-    backward, the optimizer on this micro-step's gradients, then the EMA.
+    (the text tower once for queries, once for targets, and once for the
+    flattened ``batch["neg_ids"]`` ``[B, k, L]`` with mined negatives), the
+    joint loss, backward (GradCache's three passes with ``grad_cache_chunks
+    > 1``), the optimizer on this micro-step's gradients, then the EMA.
+    Given ``adapters`` the step trains them on the frozen module (LoRA).
     ``metrics`` are 0-dim device tensors (no host sync): the loss's keys
-    and ``grad_norm``, the global norm of every parameter's gradient."""
-    if cfg.grad_cache_chunks > 1:
-        raise NotImplementedError(f"train.grad_cache_chunks > 1 (GradCache) is not ported yet: {A4B}")
+    and ``grad_norm``, the global norm of every trained tensor's gradient."""
     joint_loss = joint_loss_for_config(cfg)
-    fwd = forward_for_config(model, cfg)
     loss_axis = "data" if cfg.global_negatives else None  # one process: gathers nothing
     n_patches = model.arch.grid_size**2
-    params = dict(model.named_parameters())
+    n_gc = int(cfg.grad_cache_chunks)
+    use_negs = bool(cfg.hard_negatives) and cfg.hard_negatives_k > 0
+    params = dict(model.named_parameters()) if adapters is None else adapters
+
+    def enc_img(*args):
+        return l2_normalize(model.encode_image(*args))
+
+    def enc_txt(ids):
+        return l2_normalize(model.encode_text(ids))
+
+    def emb_loss(img_e, q_e, t_e, neg_e=None):
+        kw = {} if neg_e is None else {"neg_text_features": neg_e}
+        return joint_loss(img_e, q_e, t_e, temperature=cfg.temperature, t2i_weight=cfg.t2i_weight,
+                          t2t_weight=cfg.t2t_weight, axis_name=loss_axis, **kw)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         images = batch["images"]
-        keep_idx = None
+        img_args = (images,)
         if cfg.image_mask_ratio > 0:
             gen = step_generator(cfg.seed, state.step, images.device)
-            keep_idx = sample_keep_idx(gen, images.shape[0], n_patches, cfg.image_mask_ratio)
-        img_e = l2_normalize(fwd("encode_image", images, keep_idx))
-        q_e = l2_normalize(fwd("encode_text", batch["query_ids"]))
-        t_e = l2_normalize(fwd("encode_text", batch["target_ids"]))
-        loss, metrics = joint_loss(img_e, q_e, t_e, temperature=cfg.temperature, t2i_weight=cfg.t2i_weight,
-                                   t2t_weight=cfg.t2t_weight, axis_name=loss_axis)
-        for p in params.values():
-            p.grad = None
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(list(grads.values()))
-        state.optimizer.step(grads)
-        state.step += 1
+            img_args = (images, sample_keep_idx(gen, images.shape[0], n_patches, cfg.image_mask_ratio))
+        towers = [(enc_img, img_args), (enc_txt, (batch["query_ids"],)), (enc_txt, (batch["target_ids"],))]
+        if use_negs:
+            towers.append((enc_txt, (batch["neg_ids"].reshape(-1, batch["neg_ids"].shape[-1]),)))
+        with projections_for_config(model, cfg, adapters, lora_scale):
+            if n_gc > 1:
+                (_, metrics), grads = gradcache_value_and_grad(emb_loss, towers, params, n_gc)
+            else:
+                for p in params.values():
+                    p.grad = None
+                loss, metrics = emb_loss(*(enc(*ins) for enc, ins in towers))
+                loss.backward()
+                grads = collect_grads(params)
+        state, metrics = apply_gradients(state, grads, {k: v.detach() for k, v in metrics.items()})
         if state.ema_params is not None:
             _ema_update(state.ema_params, params, cfg.ema_decay)
         return state, metrics
@@ -432,22 +494,60 @@ class CLIPTrainer:
             except Exception as e:  # noqa: BLE001 -- logging is optional
                 self.logger.warning("wandb unavailable: %s", e)
         self.steps_per_epoch = train_data.num_batches(cfg.batch_size)
+        self.lora = cfg.lora_rank > 0
+        self.distill_bank = None
+        self.neg_table = self.neg_uuids = None
         if cfg.hard_negatives and cfg.hard_negatives_k > 0:
-            raise NotImplementedError(f"train.hard_negatives (mined negatives) is not ported yet: {A4B}")
+            # each batch example's top-k mined examples' target texts join the loss denominators
+            if cfg.distill_teacher:
+                raise ValueError("hard_negatives does not apply to the distill step")
+            self.neg_table, self.neg_uuids = load_negatives(cfg.hard_negatives)
+            if self.neg_table.shape[0] != len(train_data):
+                raise ValueError(
+                    f"hard-negative table has {self.neg_table.shape[0]} rows but the training split has "
+                    f"{len(train_data)} examples — re-mine (cli.mine_negatives) on this split"
+                )
+            if self.neg_table.shape[1] < cfg.hard_negatives_k:
+                raise ValueError(
+                    f"hard_negatives_k={cfg.hard_negatives_k} exceeds the mined table width {self.neg_table.shape[1]}"
+                )
+            self.logger.info("hard negatives: %s ([%d, %d] table, using k=%d)", cfg.hard_negatives,
+                             *self.neg_table.shape, cfg.hard_negatives_k)
         self.ema = cfg.ema_decay > 0.0
         if self.ema and not (0.0 < cfg.ema_decay < 1.0):
             raise ValueError(f"ema_decay must be in (0, 1), got {cfg.ema_decay}")
-        if cfg.lora_rank > 0:
-            raise NotImplementedError(f"train.lora_rank > 0 (LoRA) is not ported yet: {A4B}")
-        if cfg.distill_teacher:
-            raise NotImplementedError(f"train.distill_teacher (distillation) is not ported yet: {A4B}")
+        if self.ema and (self.lora or cfg.distill_teacher):
+            raise ValueError("ema_decay rides the DP/GSPMD full-fine-tune steps only")
         mesh = mesh or MeshConfig()
         if mesh.model_parallel > 1 or mesh.fsdp:
             raise NotImplementedError(f"tensor-parallel and FSDP training are not ported yet: {A5}")
-        optimizer = make_optimizer(cfg, self.steps_per_epoch, model)
-        ema = {n: p.detach().clone() for n, p in model.named_parameters()} if self.ema else None
-        self.state = TrainState(model, optimizer, 0, ema)
-        self.train_step = make_train_step(model, cfg)
+        if self.lora:
+            if cfg.distill_teacher:
+                raise ValueError("distill_teacher and lora_rank are mutually exclusive")
+            # the frozen base stays in the module; the state trains rank-r adapters
+            base = dict(model.named_parameters())
+            for p in base.values():
+                p.requires_grad_(False)
+            adapters = lora_init(base, cfg.lora_rank, cfg.lora_targets, torch.Generator().manual_seed(cfg.seed))
+            adapters = {n: torch.nn.Parameter(a) for n, a in adapters.items()}
+            self.lora_scale = cfg.lora_alpha / cfg.lora_rank
+            optimizer = Optimizer(adapters, cfg, self.steps_per_epoch)
+            self.state = TrainState(model, optimizer, 0, None, adapters)
+            self.train_step = make_train_step(model, cfg, adapters, self.lora_scale)
+            self.logger.info("LoRA rank %d (%s): %d trainable adapter params", cfg.lora_rank, cfg.lora_targets,
+                             lora_param_count(adapters))
+        elif cfg.distill_teacher:
+            # teacher embeddings precomputed offline ride the batch; the step swaps InfoNCE for the KD loss
+            self.distill_bank = TeacherBank(load_encoded_dataset(cfg.distill_teacher))
+            self.state = TrainState(model, make_optimizer(cfg, self.steps_per_epoch, model))
+            self.train_step = make_distill_step(model, cfg, model.arch.embed_dim, self.distill_bank.dim)
+            self.logger.info("distilling from %s (%d teacher rows, dim %d -> student dim %d)", cfg.distill_teacher,
+                             len(self.distill_bank.enc.uuids), self.distill_bank.dim, model.arch.embed_dim)
+        else:
+            optimizer = make_optimizer(cfg, self.steps_per_epoch, model)
+            ema = {n: p.detach().clone() for n, p in model.named_parameters()} if self.ema else None
+            self.state = TrainState(model, optimizer, 0, ema)
+            self.train_step = make_train_step(model, cfg)
         self.stopper = EarlyStopper(cfg.early_stop_patience)
         self.start_epoch = 0
         if cfg.resume and ckpt.checkpoint_exists(cfg.checkpoint_dir, "latest"):
@@ -473,17 +573,30 @@ class CLIPTrainer:
     # -- data placement -----------------------------------------------------
 
     def _device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        return {
-            "images": torch.from_numpy(batch.images).to(self.device),
-            "query_ids": torch.from_numpy(batch.query_ids).to(self.device),
-            "target_ids": torch.from_numpy(batch.target_ids).to(self.device),
-        }
+        host = {"images": batch.images, "query_ids": batch.query_ids, "target_ids": batch.target_ids}
+        if self.distill_bank is not None:
+            host["t_img"], host["t_q"], host["t_t"] = self.distill_bank.rows(batch.uuids)
+        if self.neg_table is not None:
+            # the mined table must describe this dataset's rows
+            for row, uuid in zip(np.asarray(batch.indices), batch.uuids):
+                if self.neg_uuids[int(row)] != uuid:
+                    raise ValueError(
+                        f"hard-negative table row {row} is '{self.neg_uuids[int(row)]}' but the batch example is "
+                        f"'{uuid}' — the table was mined on a different/reordered dataset"
+                    )
+            host["neg_ids"] = self.train_data.negative_target_ids(batch.indices, self.neg_table,
+                                                                  self.cfg.hard_negatives_k)
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in host.items()}
 
     # -- validation ---------------------------------------------------------
 
     def eval_params(self) -> Params:
-        """The weights to evaluate and export: the EMA shadow when
+        """The weights to evaluate and export: in a LoRA run the base merged
+        with the current adapters (``W + s (a @ b)ᵀ``), the EMA shadow when
         ``ema_decay`` is set, else the trained parameters."""
+        if self.lora:
+            with torch.no_grad():
+                return lora_merge(dict(self.model.named_parameters()), self.state.adapters, self.lora_scale)
         if self.state.ema_params is not None:
             return self.state.ema_params
         return dict(self.model.named_parameters())
@@ -492,7 +605,8 @@ class CLIPTrainer:
         """MRR-only validation over the whole validation split (T2I, T2T)."""
         if self.val_data is None:
             return {}
-        params = self.state.ema_params  # None: the module's own weights
+        # merged once a pass; None: the module's own weights
+        params = self.eval_params() if (self.lora or self.state.ema_params is not None) else None
         embs = {"img": [], "q": [], "t": []}
         with torch.no_grad():
             for batch in self.val_data.epoch_batches(self.cfg.batch_size, shuffle=False, drop_last=False):

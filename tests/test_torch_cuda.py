@@ -1090,3 +1090,125 @@ def test_remat_and_flip_forward_on_card(rng, dev):
         want = model.encode_image(images, keep.cpu())
         got = model.to(dev).encode_image(images.to(dev), keep)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qat_fake_quant_on_card_matches_cpu(rng, dev, dtype):
+    """QAT's roundings (division by the scale, round half to even) on the
+    card equal the CPU's bit for bit, values and straight-through gradients."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import qat as Q
+
+    w = torch.tensor(rng.standard_normal((3 * W, W)).astype(np.float32) * 0.05)
+    x = torch.tensor(rng.standard_normal((4, 77, W)).astype(np.float32) * 3).to(dtype)
+    x[0, 0] = 0.0
+    for fn, t in ((Q.fake_quant_weight, w), (Q.fake_quant_rows, x)):
+        want = fn(t)
+        card = t.to(dev).requires_grad_(dtype == torch.float32)
+        got = fn(card)
+        assert torch.equal(got.cpu(), want), fn.__name__
+        if card.requires_grad:
+            got.sum().backward()
+            assert torch.equal(card.grad.cpu(), torch.ones_like(t))
+
+
+def _lora_model(where, adapters=None):
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import lora as L
+
+    arch = CLIPArch(32, 64, 2, W, 4, 16, 600, W, H, 2, vision_heads=H)
+    model = build_model("", arch=arch, seed=4, dtype=torch.float32, device=where)
+    if adapters is None:
+        adapters = L.lora_init(dict(model.named_parameters()), 4, "all", torch.Generator().manual_seed(1))
+        g = torch.Generator().manual_seed(2)
+        adapters = {n: a if n.endswith(".a") else 0.05 * torch.randn(a.shape, generator=g) for n, a in adapters.items()}
+    return model, {n: a.to(where) for n, a in adapters.items()}
+
+
+def test_lora_merged_forward_on_card_matches_cpu(rng, dev):
+    """The merge at the block projections' hook (``W + s (a @ b)ᵀ`` in f32)
+    on the card: the forward through B6 equals the CPU's, equals the
+    forward of the host-merged weights, and B6 launches every layer."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import lora as L
+
+    images = torch.tensor(rng.standard_normal((3, 64, 64, 3)).astype(np.float32))
+    ids = torch.tensor(rng.integers(1, 599, (3, 16)).astype(np.int64))
+    out = {}
+    for where in ("cpu", dev):
+        model, ad = _lora_model(where)
+        before = FA.flash_attention_kernel.launches
+        with torch.no_grad(), L.lora_projections(model, ad, 2.0):
+            out[str(where)] = [model.encode_image(images.to(where)).cpu(), model.encode_text(ids.to(where)).cpu()]
+        assert FA.flash_attention_kernel.launches - before == (4 if where != "cpu" else 0)
+        if where != "cpu":
+            merged = L.lora_merge(dict(model.named_parameters()), ad, 2.0)
+            visual = {k[len("visual."):]: v for k, v in merged.items() if k.startswith("visual.")}
+            with torch.no_grad():
+                again = torch.func.functional_call(model.visual, visual, (images.to(dev),))
+            np.testing.assert_allclose(again.cpu().numpy(), out[str(dev)][0].numpy(), rtol=1e-5, atol=1e-5)
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _gradcache_step(where, steps=1):
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import TrainConfig
+
+    model, _ = _lora_model(where)
+    cfg = TrainConfig(batch_size=4, lr=1e-3, grad_cache_chunks=2)
+    state = TT.TrainState(model, TT.make_optimizer(cfg, 4, model))
+    step = TT.make_train_step(model, cfg)
+    rng = np.random.default_rng(6)
+    ids = np.zeros((4, 16), np.int32)
+    ids[:, :6] = rng.integers(1, 598, (4, 6))
+    ids[:, 6] = 599
+    batch = {"images": torch.tensor(rng.standard_normal((4, 64, 64, 3)).astype(np.float32)).to(where),
+             "query_ids": torch.tensor(ids).to(where), "target_ids": torch.tensor(np.roll(ids, 1, 0)).to(where)}
+    metrics = [step(state, batch)[1] for _ in range(steps)]
+    return [{k: float(v) for k, v in m.items()} for m in metrics], {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def test_gradcache_step_on_card_matches_cpu(dev):
+    """A GradCache step (2 chunks: embeddings without autograd, the loss's
+    gradient at the tables, a re-forward with ``backward(g_chunk)``) in f32
+    on the card against the CPU; B6 launches in both passes."""
+    before = FA.flash_attention_kernel.launches
+    m_card, p_card = _gradcache_step(dev)
+    assert FA.flash_attention_kernel.launches - before == 2 * 2 * (2 + 2 * 2)  # 2 passes x 2 chunks x 3 towers x 2 layers
+    m_cpu, p_cpu = _gradcache_step("cpu")
+    for key in m_cpu[0]:
+        assert m_card[0][key] == pytest.approx(m_cpu[0][key], rel=1e-4, abs=1e-5), key
+    for n in p_cpu:
+        np.testing.assert_allclose(p_card[n].numpy(), p_cpu[n].numpy(), rtol=1e-4, atol=1e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("n, block", [(300, 64), (1000, 2048)])
+def test_mine_hard_negatives_on_card_matches_cpu(dev, n, block):
+    """Mining on the card: embeddings of small integers (exact products, so
+    ties) come back in ``lax.top_k``'s order, value descending then row
+    ascending, as on the CPU; ``torch.topk`` on the card promises no order."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train.negatives import mine_hard_negatives
+
+    g = np.random.default_rng(n)
+    a, c = (g.integers(-2, 3, (n, 8)).astype(np.float32) for _ in range(2))
+    for k in (1, 16, 100):
+        want = mine_hard_negatives(a, c, k, block=block)
+        got = mine_hard_negatives(torch.from_numpy(a).to(dev), torch.from_numpy(c).to(dev), k, block=block)
+        np.testing.assert_array_equal(got, want)
+    scores = a @ c.T
+    np.fill_diagonal(scores, -np.inf)
+    top = -np.sort(-scores, axis=1)[:, :17]
+    assert (top[:, :-1] == top[:, 1:]).mean() > 0.5  # the ties were there
+
+
+def test_qat_payoff_quick_on_card(dev, tmp_path):
+    """``scripts.qat_payoff --quick`` on the card: both runs train through B6
+    and deploy through B1 at width 64 (4 heads of 16), every metric finite."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import qat_payoff as QP
+
+    before = dispatch.launch_counts()
+    out = QP.main(["--quick", "--device=cuda", "--out", str(tmp_path / "qp.json")])
+    after = dispatch.launch_counts()
+    assert after["fused_layer_q8"] > before["fused_layer_q8"] and after["flash_attention_kernel"] > before[
+        "flash_attention_kernel"]
+    for run in ("ptq", "qat"):
+        assert all(np.isfinite(v) for v in out["runs"][run].values()), out["runs"][run]
+    assert out["backend"] == "cuda" and out["device"].startswith("NVIDIA")

@@ -99,6 +99,14 @@ SLICE_MODULES = [
     f"{PKG}.cli.train",
     f"{PKG}.cli.export",
     f"{PKG}.scripts.train_bench",
+    f"{PKG}.train.qat",
+    f"{PKG}.train.lora",
+    f"{PKG}.train.gradcache",
+    f"{PKG}.train.negatives",
+    f"{PKG}.train.distill",
+    f"{PKG}.cli.mine_negatives",
+    f"{PKG}.cli.distill",
+    f"{PKG}.scripts.qat_payoff",
 ]
 
 

@@ -218,20 +218,6 @@ def test_schedule_matches_jax():
     assert t(0) == t(9) == pytest.approx(1.0) and t(10) < 1.0 and t(40) == t(99) == pytest.approx(0.1)
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(lora_rank=4), "A4 \\(b\\)"),
-    (dict(distill_teacher="teacher.npz"), "A4 \\(b\\)"),
-    (dict(hard_negatives="negs.npz"), "A4 \\(b\\)"),
-    (dict(grad_cache_chunks=2), "A4 \\(b\\)"),
-    (dict(qat=True), "A4 \\(b\\)"),
-])
-def test_unported_options_raise(world, tmp_path, kw, item):
-    arch, params, _, tpipe, _ = world
-    _, tcfg = cfgs(str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        TT.CLIPTrainer(port_model(arch, params), tpipe, None, tcfg, out_dir=str(tmp_path))
-
-
 @pytest.mark.parametrize("mesh", [dict(model_parallel=2), dict(fsdp=True)])
 def test_sharded_training_raises(world, tmp_path, mesh):
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig

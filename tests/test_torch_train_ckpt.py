@@ -177,16 +177,12 @@ def test_cli_train_and_export_all_formats(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--model.adapters=a.npz"], "A4 \\(b\\)"),
     (["--mesh.data_parallel=2"], "A5"),
     (["--mesh.fsdp=true"], "A5"),
 ])
 def test_cli_refusals(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
         t_train.main(["--device=cpu", "--data.dataset=synthetic:8", *argv])
-    if "adapters" in argv[0]:
-        with pytest.raises(NotImplementedError, match=item):
-            t_export.main(["--model.checkpoint=x.pt", "--format=npz", f"--out={tmp_path / 'x.npz'}", *argv])
 
 
 def test_cli_train_refuses_a_missing_card(monkeypatch):
