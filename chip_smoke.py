@@ -151,7 +151,7 @@ just after; every kernel must have launched in the path it belongs to.
 21. The profiling scripts (``profiling_scripts_phase``): ``scripts.{profile_serving,
    profile_vision, vision_batch_sweep, profile_pq, profile_ivf,
    scale_bench}.main`` once each at full width with repeats cut
-   (``SCRIPT_RUNS``; ``profile_ivf`` at 65,536 rows, ``scale_bench`` at 262,144), their JSON under
+   (``SCRIPT_RUNS``; ``profile_ivf`` at 32,768 rows, ``scale_bench`` at 131,072), their JSON under
    ``chiprun_out/``; every line finite, the scans' recall checked.
 22. Training (``train_phase``): ``cli.train`` at ViT-L/14 (bf16 compute, f32
    parameters, batch 64, ``synthetic:256``): the reference-parity run
@@ -166,7 +166,7 @@ just after; every kernel must have launched in the path it belongs to.
    ``fast`` ones (cosine > 0.999), one 256-query ``fast`` batch over the
    43,000-row store; 8 steps of a seeded ViT-L/14 on one batch at a raised
    lr (the loss must fall, every loss finite); one bf16 and two f32 steps of ViT-L/14
-   widths at 2 layers a tower, batch 8, on the card against the CPU; and
+   widths at 1 layer a tower, batch 8, on the card against the CPU; and
    ``scripts/train_bench.py``'s ViT-L/14 batch-64 point with and without
    remat (step ms, device ms, MFU). B6 must launch on the training forward
    of both towers, in validation and in the FLIP run.
@@ -183,10 +183,29 @@ just after; every kernel must have launched in the path it belongs to.
    ``cli.train`` with the table (k 4) at 6 + 3 layers; ``cli.distill``
    (ViT-B/32 student, ViT-L/14 ``int8`` teacher, cosine term off), 1 epoch;
    ``scripts/qat_payoff.py`` at its defaults; one LoRA, QAT, GradCache and
-   distill step of ViT-L/14 widths at 2 layers, batch 8, f32, on the card
+   distill step of ViT-L/14 widths at 1 layer, batch 8, f32, on the card
    against the CPU. Step ms (events, steps 2..n) and peak memory per run.
+24. Sharded serving (``sharded_serving_phase``, ROADMAP A5 (a)) over a mesh of
+   ``[cuda:0] * 4`` at ViT-L/14 text width, 43,000 rows, 256-query batches,
+   k = 20: ``CLIPRetrieval(shard_corpus=True)`` in the exact bf16 (``fast``),
+   int8 (``int8``) and int4 tiers, each shard a row view of one staged copy
+   and B2 launched once a shard, served, filtered and candidate answers
+   against the same retriever unsharded (near ties excepted, scores to
+   1e-5); ``sharded_pq_similarity_topk`` (B5 once a shard) and
+   ``sharded_hamming_topk`` on the arrays the pq and binary tiers of item 8
+   packed, against the one-shard calls; sharded IVF int8 over the clustered
+   store at nlist 208 (207 snapped to the shards): at nprobe = nlist against
+   the exact int8 scan, at nprobe 8 against the plain sharded version on the
+   CPU; ``shard_queries`` with the ``int8`` and ``fast`` encoders (B1, or
+   B3a + B3b, once a layer for each of the four query slices, B2 once a
+   slice) against the whole batch under the int8 rules; B2 q8 at 1,000,000
+   rows in 4 shards against the one-shard scan, timed beside it; two
+   ``cli.serve --multihost`` processes over gloo on the one card (the corpus
+   sharded over the two; rank 0 answers 16 queries from standard input) and
+   a world-size-1 NCCL group driving ``MultiHostSearch`` in this process,
+   both against the single-process retriever.
 The kernel line's entries carry ``launches_by_path`` for the launches of
-items 15-23 beside the earlier paths', and ``launches`` is their sum.
+items 15-24 beside the earlier paths', and ``launches`` is their sum.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -1629,6 +1648,10 @@ def capacity_serve_phase(torch, dev, model, store_path, tier, kw, results):
         f"(corpus rows as queries {recall_rows:.4f}); {check}; launches {counts}; phase {secs:.1f} s")
     results.setdefault("capacity_tiers", {})[tier] = dict(
         batch_ms=med, recall_at_10=recall, recall_at_10_corpus_rows=recall_rows, build_s=build_s)
+    if tier in ("pq", "binary+rotate+rerank"):
+        # the packed arrays the sharded serving phase scans again (no second k-means)
+        results.setdefault("packed", {})[tier] = (c.corpus_img, c.corpus_txt, c.corpus_img_scale,
+                                                  c.corpus_txt_scale, retriever._rot, q)
     del engine, retriever, img, txt
     torch.cuda.empty_cache()
     return counts
@@ -1718,6 +1741,315 @@ def capacity_phases(torch, dev, model, tmp, results):
     for tier in ("pq", "pq+opq"):
         assert counts[tier]["pq_adc_topk_kernel"] > 0, f"B5 never launched while serving {tier}"
     return counts
+
+
+SHARDS = 4  # the sharded serving phase's mesh: [cuda:0] * 4
+SHARD_NLIST = 208  # sharded IVF: sqrt(43,000) = 207 snapped to a multiple of the shards
+TOL_QDP = 1e-3  # shard_queries against the whole batch: the int8 rules (ROADMAP "Hazards"), in score units
+
+
+def _served_agree(got, want, tol, tag):
+    """Served result lists agree: scores within ``tol`` (relative and
+    absolute), uuids equal wherever the two scores are no near tie (2 tol)."""
+    assert len(got) == len(want), tag
+    ties = 0
+    for a, b in zip(got, want):
+        assert len(a) == len(b), tag
+        np.testing.assert_allclose([x["score"] for x in a], [x["score"] for x in b], rtol=tol, atol=tol, err_msg=tag)
+        for x, y in zip(a, b):
+            if x["uuid"] != y["uuid"]:
+                assert abs(x["score"] - y["score"]) <= 2 * tol, (tag, x, y)
+                ties += 1
+    return ties
+
+
+def _multihost_cli_phase(torch, dev, tmp, store_path, model, queries):
+    """Two ``cli.serve --multihost`` processes over gloo, both on the card
+    (NCCL refuses two ranks on one device): the int8 corpus sharded over
+    the two, rank 0 answering the queries from standard input. Returns the
+    coordinator's answers, the processes' logs and the wall seconds."""
+    import gzip
+
+    bpe = os.path.join(tmp, "bpe.txt.gz")
+    with gzip.open(bpe, "wt", encoding="utf-8") as f:
+        f.write("#version\n" + "\n".join(" ".join(m) for m in MERGES) + "\n")
+    qfile = os.path.join(tmp, "mh_queries.txt")
+    with open(qfile, "w") as f:
+        f.write("\n".join(queries) + "\n")
+    port = free_port()
+    cmd = [sys.executable, "-m", f"{PKG}.cli.serve", "--store", store_path, "--model.name=ViT-L/14",
+           "--eval.encoder=int8", "--eval.quantize_corpus=int8", "--eval.shard_corpus=true", "--multihost",
+           "--multihost-batch=8", "--batch", f"--device={dev.type}"]
+    procs, logs, outs = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       CLIP_BPE_PATH=bpe, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            for var in ("SPARQL_ENDPOINT", "MISTRAL_API_KEY", "MISTRAL_AGENT_ID"):
+                env.pop(var, None)
+            # output to files, not pipes: the two are coupled by collectives
+            out, err = (open(os.path.join(tmp, f"mh{rank}.{x}"), "w+") for x in ("out", "err"))
+            logs.append((out, err))
+            with open(qfile) as stdin:
+                procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdin=stdin, stdout=out, stderr=err,
+                                              text=True))
+        for p in procs:
+            p.wait(timeout=240)
+    finally:
+        for p in procs:  # never leave a collective-blocked process behind
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            outs.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    wall = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, f"cli.serve --multihost exited {p.returncode}:\n{err[-3000:]}"
+    answers, dec, text, i = [], json.JSONDecoder(), outs[0][0], 0
+    while True:
+        i = text.find("{", i)
+        if i < 0:
+            break
+        obj, i = dec.raw_decode(text, i)
+        answers.append(obj)
+    assert [a["query"] for a in answers] == queries, "the coordinator did not answer every query"
+    assert "runtime_init: torch.distributed gloo" in outs[0][1] and "gloo" in outs[1][1], "gloo did not run"
+    return answers, wall
+
+
+def sharded_serving_phase(torch, dev, tmp, model, store_path, clustered_path, results):
+    """Sharded serving over ``[cuda:0] * 4`` (ROADMAP A5 (a)): returns
+    {path: {wrapper: launches}}. See item 24 of the module docstring."""
+    import torch.distributed as dist
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import binary_sketch as BS
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import pq as PQ
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import similarity as SIM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import MeshRuntime, RowShards
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval import ann as ANN
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.multihost import MultiHostSearch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig
+
+    t_phase = time.perf_counter()
+    costs, counts, report = {}, {}, {}
+    rt = MeshRuntime.create(MeshConfig(data_parallel=SHARDS), [dev] * SHARDS)
+    mesh = rt.mesh
+    tok = CLIPTokenizer(MERGES)
+    store = EmbeddingStore.load(store_path)
+    rng = np.random.default_rng(12)
+    words = ["cat", "hel", "hello", "ca", "he"]
+    batch = [" ".join(rng.choice(words, size=rng.integers(4, 12))) for _ in range(QUERIES)]
+    alphas = list(rng.uniform(0.2, 0.8, QUERIES))
+    allow = [store.uuids[i] for i in range(0, len(store), 5)]
+    sim, b1, b3a, b3b = "similarity_topk_kernel", "fused_layer_q8", "fused_attention_block", "fused_mlp_block"
+
+    # shard_corpus, the flat tiers: rows in 4 views of one staged copy, B2 once a shard
+    t0 = time.perf_counter()
+    tiers = {"exact": dict(corpus_dtype=torch.bfloat16), "int8": dict(quantize="int8", quantize_corpus="int8"),
+             "int4": dict(quantize_corpus="int4")}
+    for tier, kw in tiers.items():
+        plain = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, **kw)
+        sharded = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, rt=rt,
+                                shard_corpus=True, **kw)
+        assert isinstance(sharded.corpus_img, RowShards) and sharded.corpus_img.shard_n == CORPUS // SHARDS
+        base = sharded.corpus_img.shards[0][1]
+        assert all(t.data_ptr() == base.data_ptr() + g * base[0].numel() * base.element_size() * (CORPUS // SHARDS)
+                   for g, t in sharded.corpus_img.shards), f"{tier}: a shard is not a row view"
+        sharded.retrieval_batch(batch[:8])  # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = sharded.retrieval_batch(batch, alpha=alphas)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        c = dispatch.launch_counts()
+        counts[f"shard_corpus {tier}"] = c
+        assert c[sim] == SHARDS, f"{tier}: B2 launched {c[sim]} times for {SHARDS} shards"
+        q = plain.encode_queries(batch).float()
+        ties = _served_agree(sharded.retrieval_embeddings_batch(q, alpha=alphas),
+                             plain.retrieval_embeddings_batch(q, alpha=alphas), TOL_TOPK, f"shard_corpus {tier}")
+        _served_agree(got, plain.retrieval_batch(batch, alpha=alphas), TOL_TOPK, f"shard_corpus {tier} text")
+        f_got = sharded.retrieval_filtered_batch(batch[:64], allow_uuids=allow)
+        _served_agree(f_got, plain.retrieval_filtered_batch(batch[:64], allow_uuids=allow), TOL_TOPK,
+                      f"shard_corpus {tier} filtered")
+        assert all(x["uuid"] in set(allow) for r in f_got for x in r)
+        cands = [store.uuids[50 * i:50 * i + 50] for i in range(len(batch[:64]))]
+        _served_agree(sharded.retrieval_candidates_batch(batch[:64], cands),
+                      plain.retrieval_candidates_batch(batch[:64], cands), 1e-6, f"shard_corpus {tier} candidates")
+        report[f"shard_corpus {tier}"] = dict(batch_ms=ms, near_tie_swaps=ties)
+        log(f"sharded serving, shard_corpus {tier}: 256-query batch {ms:.2f} ms; launches {c}; served == unsharded "
+            f"({ties} near-tie swaps), filtered and candidate batches too")
+        del plain, sharded
+    costs["shard_corpus tiers"] = time.perf_counter() - t0
+
+    # pq and binary: the sharded functions on the arrays the capacity tiers packed
+    t0 = time.perf_counter()
+    packed = results.pop("packed")
+    (ci, cbi), (ct, cbt), si, st, _, q = packed["pq"]
+    qm = q.to(model.dtype).contiguous()
+    dispatch.reset_launch_counts()
+    got = PQ.sharded_pq_similarity_topk(qm, ci, si, ct, st, cbi, cbt, K, 0.5, mesh)
+    counts["sharded pq"] = dispatch.launch_counts()
+    assert counts["sharded pq"]["pq_adc_topk_kernel"] == SHARDS
+    want = PQ.pq_similarity_topk(qm, ci, si, ct, st, cbi, cbt, K, 0.5)
+    assert torch.equal(got[0], want[0]), "sharded pq values differ from the one-shard call"
+    _ids_agree(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].cpu().numpy(), want[1].cpu().numpy(), 0.0,
+               "sharded pq")
+    wi, wt, _, _, rot, qb = packed["binary+rotate+rerank"]
+    qr = qb.float() @ rot
+    got = BS.sharded_hamming_topk(qr, wi, wt, dim=WIDTH, k=4 * K, alpha=0.5, mesh=mesh)
+    want = BS.hamming_topk(qr, wi, wt, dim=WIDTH, k=4 * K, alpha=0.5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "sharded binary != one-shard binary"
+    costs["pq + binary"] = time.perf_counter() - t0
+    log("sharded serving: pq (B5 once a shard) and binary == the one-shard calls on the capacity tiers' arrays")
+
+    # sharded IVF int8 over the clustered store, nlist snapped to 208
+    t0 = time.perf_counter()
+    cstore = EmbeddingStore.load(clustered_path)
+    ivf = CLIPRetrieval(model, tok, cstore, device=dev, top_k=K, use_fused_encoder=True, quantize_corpus="int8",
+                        ann="ivf", ann_nlist=207, ann_nprobe=NPROBE, rt=rt, shard_corpus=True)
+    c = ivf._corpus
+    assert c.ivf.nlist == SHARD_NLIST and len(c.ivf_shards.shards) == SHARDS
+    qf = q[:64].float()
+    full = ANN.sharded_ivf_search(qf, c.ivf_shards, k=K, nprobe=SHARD_NLIST, mesh=mesh, alpha=0.5)
+    (iq, isc), (tq, tsc) = SIM.quantize_corpus_host(cstore.image), SIM.quantize_corpus_host(cstore.text)
+    exact = SIM.blended_scores_q8(qf, *(torch.from_numpy(a).to(dev) for a in (iq, isc, tq, tsc)), 0.5)
+    topk_agree(full, exact, K, TOL_IVF)
+    got = ANN.sharded_ivf_search(qf, c.ivf_shards, k=K, nprobe=NPROBE, mesh=mesh, alpha=0.5)
+    cpu_rt = MeshRuntime.create(MeshConfig(data_parallel=SHARDS), [torch.device("cpu")] * SHARDS)
+    want = ANN.sharded_ivf_search(qf.cpu(), c.ivf.to("cpu"), k=K, nprobe=NPROBE, mesh=cpu_rt.mesh, alpha=0.5)
+    swapped = _ids_agree(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].numpy(), want[1].numpy(), TOL_IVF,
+                         "sharded ivf")
+    res = ivf.retrieval_batch(batch[:64])
+    assert all(len(r) == K for r in res)
+    del ivf
+    costs["sharded ivf"] = time.perf_counter() - t0
+    log(f"sharded serving: IVF int8 nlist {SHARD_NLIST} in {SHARDS} shards: nprobe = nlist == the exact int8 scan; "
+        f"nprobe {NPROBE} on the card == on the CPU (rows swapped at near ties {swapped:.4f}); {costs['sharded ivf']:.1f} s")
+
+    # shard_queries: the batch splits four ways, each slice encoded and scanned on its device
+    t0 = time.perf_counter()
+    for enc, kw in (("int8", dict(quantize="int8", quantize_corpus="int8")), ("fast", dict(corpus_dtype=torch.bfloat16))):
+        plain = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, **kw)
+        qdp = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, rt=rt,
+                            shard_queries=True, **kw)
+        qdp.retrieval_batch(batch[:8])  # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = qdp.retrieval_batch(batch, alpha=alphas)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        c = dispatch.launch_counts()
+        counts[f"shard_queries {enc}"] = c
+        layers = model.arch.text_layers
+        if enc == "int8":
+            assert c[b1] == layers * SHARDS and c[sim] == SHARDS, f"shard_queries int8 launches {c}"
+        else:
+            assert c[b3a] == c[b3b] == layers * SHARDS and c[sim] == SHARDS, f"shard_queries fast launches {c}"
+        ties = _served_agree(got, plain.retrieval_batch(batch, alpha=alphas), TOL_QDP, f"shard_queries {enc}")
+        report[f"shard_queries {enc}"] = dict(batch_ms=ms, near_tie_swaps=ties)
+        log(f"sharded serving, shard_queries {enc}: 256-query batch in {SHARDS} slices {ms:.2f} ms; launches {c}; "
+            f"== the whole batch ({ties} near-tie swaps)")
+        del plain, qdp
+    costs["shard_queries"] = time.perf_counter() - t0
+
+    # B2 q8 at 1,000,000 rows in 4 shards against the one-shard scan
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rand8 = lambda: torch.randint(-127, 128, (SCALE_ROWS, WIDTH), dtype=torch.int8, device=dev, generator=gen)  # noqa: E731
+    rands = lambda: 0.005 + 0.01 * torch.rand((SCALE_ROWS, 1), device=dev, generator=gen)  # noqa: E731
+    c8 = (rand8(), rands(), rand8(), rands())
+    qs = _t(torch, dev, q.float().cpu().numpy(), torch.bfloat16)
+    alpha = _t(torch, dev, rng.uniform(0.2, 0.8, (QUERIES, 1)), torch.float32)
+    one = SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha)
+    dispatch.reset_launch_counts()
+    got = SIM.sharded_similarity_topk_q8(qs, *c8, K, alpha, mesh)
+    launches_1m = dispatch.launch_counts()[sim]
+    assert launches_1m == SHARDS
+    # both the sharded and the one-shard winners held to the plain top-k of the plain scores
+    scores = SIM.blended_scores_q8(qs, *c8, alpha)
+    want = topk_agree(got, scores, K, TOL_TOPK)
+    topk_agree(one, scores, K, TOL_TOPK)
+    del scores
+    _ids_agree(got[0].cpu().numpy(), got[1].cpu().numpy(), one[0].cpu().numpy(), one[1].cpu().numpy(), TOL_TOPK,
+               "B2 q8 1M in 4 shards")
+    name = f"B2 similarity_topk q8 [{SCALE_ROWS}] {SHARDS} shards"
+    record(torch, results, name, f"{PKG}/csrc/similarity.cu + {PKG}/ops/similarity.py (sharded_similarity_topk_q8)",
+           "knowledge_enhanced_multimodal_retrieval_tpu/ops/similarity.py:764", got[0], want[0], TOL_TOPK,
+           lambda: SIM.sharded_similarity_topk_q8(qs, *c8, K, alpha, mesh),
+           lambda: SIM.topk_plain(SIM.blended_scores_q8(qs, *c8, alpha), K), 5,
+           bound_of=topk_bound(QUERIES, SCALE_ROWS, WIDTH, K, WIDTH + 4),
+           library_fn=_matmul_topk_q8(torch, qs, c8, alpha, K))
+    one_ms = median_ms(lambda: SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha))
+    one_dev = device_ms(lambda: SIM.fused_similarity_topk_q8(qs, *c8, K, alpha=alpha))
+    report["b2_q8_1m"] = dict(sharded_ms=results[name]["ms"], sharded_device_ms=results[name]["device_ms"],
+                              one_shard_ms=one_ms, one_shard_device_ms=one_dev)
+    del c8
+    torch.cuda.empty_cache()
+    costs["B2 q8 1M"] = time.perf_counter() - t0
+    log(f"sharded serving: B2 q8 at {SCALE_ROWS:,} rows in {SHARDS} shards {results[name]['ms']:.3f} / "
+        f"{results[name]['device_ms']:.3f} ms (events / device), one shard {one_ms:.3f} / {one_dev:.3f} ms")
+
+    # multi-host: two cli.serve --multihost processes over gloo on the one card,
+    # then a world-size-1 NCCL group driving MultiHostSearch in this process
+    t0 = time.perf_counter()
+    mh_queries = batch[:16]
+    single = RetrievalEngine(CLIPRetrieval(model, tok, store, device=dev, use_fused_encoder=True, quantize="int8",
+                                           quantize_corpus="int8"))
+    want = single.retrieve_text_noknowledge_batch(mh_queries)
+    answers, mh_wall = _multihost_cli_phase(torch, dev, tmp, store_path, model, mh_queries)
+    mh_ties = _served_agree([a["results"] for a in answers], [w[:20] for w in want], TOL_TOPK, "multihost gloo")
+    costs["multihost gloo (2 processes)"] = mh_wall
+    t1 = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == backend
+        rt2 = MeshRuntime.create(MeshConfig(data_parallel=2), [dev] * 2)
+        sharded = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, quantize="int8",
+                                quantize_corpus="int8", rt=rt2, shard_corpus=True)
+        mh = MultiHostSearch(sharded, batch=64)
+        dispatch.reset_launch_counts()
+        got = mh.search_texts(batch[:128], alpha=0.5)
+        counts["multihost nccl"] = dispatch.launch_counts()
+        mh.stop()
+        assert counts["multihost nccl"][sim] == 2 * 2  # two work items, two shards each
+        ref = CLIPRetrieval(model, tok, store, device=dev, top_k=K, use_fused_encoder=True, quantize="int8",
+                            quantize_corpus="int8")
+        nccl_ties = _served_agree(got, ref.retrieval_batch(batch[:128], alpha=0.5), TOL_TOPK, "multihost nccl")
+        del sharded, ref
+    finally:
+        dist.destroy_process_group()
+    costs["multihost nccl (world 1)"] = time.perf_counter() - t1
+    log(f"sharded serving, multi-host: 2 cli.serve --multihost processes over gloo on one card == the single "
+        f"retriever ({len(answers)} queries, {mh_ties} near-tie swaps; {mh_wall:.1f} s); world-size-1 NCCL "
+        f"MultiHostSearch == the single retriever ({nccl_ties} near-tie swaps)")
+    costs["multihost"] = time.perf_counter() - t0
+    secs = time.perf_counter() - t_phase
+    results["sharded_serving"] = dict(report, costs_s=costs, phase_s=secs)
+    log(f"sharded serving phase {secs:.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in costs.items()))
+    counts["b2_q8_1m"] = {sim: launches_1m}
+    return counts
+
+
+def free_port() -> int:
+    """A free local TCP port for a rendezvous."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
 
 
 DAEMON_CLIENTS, DAEMON_REQUESTS, DAEMON_IMAGE_FRAC = 32, 20, 0.1  # scripts/daemon_bench.py's mix
@@ -2740,8 +3072,8 @@ def baseline_phase(torch, dev, results):
         f"baseline phase {results['baseline']['phase_s']:.1f} s (no kernel of the port: plain products on the card)")
 
 
-IVF_ROWS = 65_536  # profile_ivf's corpus (its default 262,144 spends ~70 s in the host IVF-PQ build)
-SCALE_BENCH_ROWS = 262_144  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
+IVF_ROWS = 32_768  # profile_ivf's corpus (its default 262,144 spends ~70 s in the host IVF-PQ build)
+SCALE_BENCH_ROWS = 131_072  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
 SCRIPT_RUNS = {  # name: (argv, the module's scan functions tallied by name) -- repeats and profile_ivf's rows cut, widths kept
     "profile_serving": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8")),
     "profile_vision": (["--iters=5"], ()),
@@ -2796,7 +3128,7 @@ def profiling_scripts_phase(torch, dev, results):
 
 
 TRAIN_N, TRAIN_BATCH = 256, 64  # synthetic:256 at TrainConfig.batch_size: 4 steps an epoch
-TRAIN_SMALL_LAYERS, TRAIN_SMALL_BATCH = 2, 8  # the card-vs-CPU step: ViT-L/14 widths, 2 layers a tower
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_BATCH = 1, 8  # the card-vs-CPU step: ViT-L/14 widths, 1 layer a tower
 TRAIN_VARIANT_LAYERS = (6, 3)  # the variant runs: ViT-L/14 widths, depth cut (vision, text) to keep the phase short
 OVERFIT_STEPS, OVERFIT_LR = 8, 2e-5
 TOL_GRAD_COS, TOL_LOSS_BF16, TOL_F32 = 0.99, 1e-2, 1e-4
@@ -2882,7 +3214,7 @@ class _LaunchTally:
 
 
 def _card_vs_cpu_steps(torch, dev, results):
-    """ViT-L/14 widths at 2 layers a tower, batch 8: one bf16 train step on
+    """ViT-L/14 widths at 1 layer a tower, batch 8: one bf16 train step on
     the card against the CPU (plain versions) -- per-tensor gradient cosine
     over the tensors with a nonzero gradient, the loss to 1e-2 -- and two f32
     steps: losses and parameters to 1e-4."""
@@ -3170,7 +3502,7 @@ TOL_MERGE, TOL_MERGE_ABS = 2.0 ** -9, 1e-7
 
 
 def _variant_card_vs_cpu_steps(torch, dev, res):
-    """ViT-L/14 widths at 2 layers a tower, batch 8, f32: one LoRA (all
+    """ViT-L/14 widths at 1 layer a tower, batch 8, f32: one LoRA (all
     targets), one QAT, one GradCache (2 chunks) and one distill (768-d teacher
     rows, cosine term on) step on the card against the CPU (plain versions):
     losses (QAT's to ``TOL_QAT_LOSS``) and the updated tensors to 1e-4, the
@@ -3537,6 +3869,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cap = capacity_phases(torch, dev, model, tmp, results)
         log(f"capacity serve phases: {time.perf_counter() - t0:.1f} s")
+        sh = sharded_serving_phase(torch, dev, tmp, model, store_path, os.path.join(tmp, "clustered.npz"), results)
         daemon = daemon_phase(torch, dev, tmp, store_path, results)
         ev = eval_phase(torch, dev, tmp, results)
         fu = fusion_phase(torch, dev, tmp, store_path, results)
@@ -3589,6 +3922,7 @@ def main() -> int:
         f"B5 pq_adc_topk [{CORPUS}] k=128": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
         f"B5 pq_adc_topk [{CORPUS}] k=400": cap["pq"]["pq_adc_topk_kernel"] + cap["pq+opq"]["pq_adc_topk_kernel"],
         "B2 similarity_topk q8 k=400": cap["rerank top_k=100"]["similarity_topk_kernel"],
+        f"B2 similarity_topk q8 [{SCALE_ROWS}] {SHARDS} shards": sh["b2_q8_1m"]["similarity_topk_kernel"],
         # the profiler's run (its shape is the vision one) plus the over-the-cap route
         f"B4a fused_attention_block_q8{vis}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],
         f"B4a fused_attention_block_q8{v336}": prof["fused_attention_block_q8"] + route["fused_attention_block_q8"],
@@ -3666,6 +4000,23 @@ def main() -> int:
     }
     for name, paths in slice_paths.items():
         by_path.setdefault(name, {}).update(paths)
+    # this PR's path: sharded serving (item 24), each kernel once a shard or a query slice
+    q8, b1, b3a, b3b = "B2 similarity_topk q8", "B1 fused_layer_q8", "B3a fused_attention_block", "B3b fused_mlp_block"
+    sharded_paths = {
+        "B2 similarity_topk exact": {"shard_corpus exact, 4 shards (256-query batch)": sh["shard_corpus exact"][sim],
+                                     "shard_queries fast, 4 slices": sh["shard_queries fast"][sim]},
+        q8: {"shard_corpus int8, 4 shards (256-query batch)": sh["shard_corpus int8"][sim],
+             "shard_queries int8, 4 slices": sh["shard_queries int8"][sim],
+             "multi-host NCCL world 1, 2 shards x 2 work items": sh["multihost nccl"][sim]},
+        f"B2-q4 similarity_topk q4 [{CORPUS}]": {"shard_corpus int4, 4 shards": sh["shard_corpus int4"][sim]},
+        f"B5 pq_adc_topk [{CORPUS}]": {"sharded pq, 4 shards": sh["sharded pq"]["pq_adc_topk_kernel"]},
+        b1: {"shard_queries int8, 4 slices": sh["shard_queries int8"]["fused_layer_q8"],
+             "shard_corpus int8 encoder": sh["shard_corpus int8"]["fused_layer_q8"]},
+        b3a: {"shard_queries fast, 4 slices": sh["shard_queries fast"]["fused_attention_block"]},
+        b3b: {"shard_queries fast, 4 slices": sh["shard_queries fast"]["fused_mlp_block"]},
+    }
+    for name, paths in sharded_paths.items():
+        by_path.setdefault(name, {}).update({f"sharded serving: {p}": n for p, n in paths.items()})
     # this slice's path: training (item 22)
     by_path["B6 flash_attention s=257"].update({f"train: {path}": n for path, n in tr.items()})
     # this slice's paths: the training variants (item 23)
@@ -3711,8 +4062,9 @@ def main() -> int:
         f"ms; phase {fu_r['phase_s']:.1f} s ({smi})")
     log(f"quality: sweep {results['quality']['sweep_s']:.1f} s, autotune {results['quality']['autotune_s']:.1f} s, "
         f"recall against the served tiers {results['quality']['recall_diff']}; phase {results['quality']['phase_s']:.1f} s")
-    log("items 18-23 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
-                                         ("checkpoints", "parity", "baseline", "scripts", "train", "train_variants"))
+    log("items 18-24 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
+                                         ("checkpoints", "parity", "baseline", "scripts", "train", "train_variants",
+                                          "sharded_serving"))
         + "; scripts " + ", ".join(f"{n} {t:.1f}" for n, t in results["scripts"]["wall_s"].items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -22,6 +22,7 @@ from ..data.tokenizer import CLIPTokenizer
 from ..models import clip as clip_mod
 from ..models.convert import arch_from_state_dict, load_clip_state_dict, load_openai_state_dict, openai_state_dict
 from ..ops.dispatch import has_cuda
+from ..parallel.mesh import MeshRuntime, default_devices
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -95,13 +96,21 @@ def build_model(cfg: Config, device, seed: int = 0) -> clip_mod.CLIP:
     return load_openai_state_dict(sd, device=device, dtype=dtype, arch=arch, remat=cfg.model.remat)
 
 
+def build_runtime(cfg: Config, device=None) -> MeshRuntime:
+    """The serving mesh of ``--mesh.*`` (``parallel.mesh.default_devices``):
+    over the visible cards, or over ``cpu`` when ``device`` is the CPU."""
+    kind = None if device is None else torch.device(device).type
+    return MeshRuntime.create(cfg.mesh, default_devices(cfg.mesh, kind))
+
+
 def check_one_device(mesh: MeshConfig) -> None:
-    """Refuse a ``--mesh.*`` layout of more than one device (the port runs
-    on one card; the parallel modes are ROADMAP A5)."""
+    """Refuse a ``--mesh.*`` layout of more than one device in the training
+    CLIs (the sharded training steps are ROADMAP A5 (b); serving takes a
+    mesh through :func:`build_runtime`)."""
     if mesh.data_parallel > 1 or mesh.model_parallel > 1 or mesh.dcn_parallel > 1 or mesh.fsdp:
         raise NotImplementedError(
             f"--mesh.* asks for more than one device (data {mesh.data_parallel}, model {mesh.model_parallel}, "
-            f"dcn {mesh.dcn_parallel}, fsdp {mesh.fsdp}): ROADMAP A5 (parallel modes)"
+            f"dcn {mesh.dcn_parallel}, fsdp {mesh.fsdp}): ROADMAP A5 (b) (parallel training)"
         )
 
 

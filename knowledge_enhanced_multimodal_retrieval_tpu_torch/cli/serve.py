@@ -36,6 +36,19 @@ artifact of either package) serves a trained fusion head: the one-shot and
 ``--batch`` answers and HTTP ``{"fused": true}`` rescore the blended
 top-(``--fusion.factor`` x k) candidates with it.
 
+Over a device mesh (``--mesh.data_parallel`` etc.; the cards by default, a
+card repeating when the layout asks for a multiple of them, ``cpu`` with
+``--device=cpu``): ``--eval.shard_corpus=true`` shards the corpus rows over
+the mesh (capacity), ``--eval.shard_queries=true`` the query batches
+(throughput). ``--multihost`` serves one sharded corpus from several
+processes: every process runs the same command under ``torchrun`` (or with
+``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``;
+``KEMR_NUM_PROCESSES`` may stand for ``WORLD_SIZE``); ``parallel.mesh.runtime_init`` starts
+``torch.distributed`` (NCCL where each rank owns a card, gloo otherwise),
+rank 0 answers queries or HTTP and the followers execute each broadcast work
+item of ``--multihost-batch`` queries in lockstep (``retrieval.multihost``).
+``/healthz`` answers 503 once a work item stalls.
+
 ``--device`` defaults to ``cuda`` and never falls back: serving on the CPU
 (the kernels' plain versions) takes ``--device=cpu``.
 """
@@ -49,6 +62,8 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
 from ..utils.config import (
     Endpoints,
     config_from_argv,
@@ -61,15 +76,9 @@ from ..retrieval.clip_retrieval import CLIPRetrieval
 from ..retrieval.embedding_store import EmbeddingStore
 from ..retrieval.engine import RetrievalEngine
 from ..retrieval.http_server import RetrievalHTTPServer
-from .common import build_model, pop_flag, resolve_device
+from .common import build_model, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.serve")  # standard error: standard output carries the answers
-
-# entry-point flags of the JAX CLI that this port does not serve yet
-_NOT_PORTED_FLAGS = {
-    "--multihost": "A5 (parallel modes)",
-    "--multihost-batch": "A5 (parallel modes)",
-}
 
 
 def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEngine:
@@ -80,6 +89,12 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
     store = EmbeddingStore.load(store_path, mmap=cfg.eval.mmap_store)
     # eval.encoder: flax (module tower), fast (bf16 fused layers), int8 (W8A8)
     use_fast, quantize = resolve_encoder(cfg.eval.encoder)
+    rt = None
+    if cfg.eval.shard_corpus or cfg.eval.shard_queries:
+        rt = build_runtime(cfg, device)
+        if rt.mesh.first_device != torch.device(device):
+            device = rt.mesh.first_device  # the towers live where the merged results land
+            model = model.to(device)
     clip_r = CLIPRetrieval(
         model, tokenizer, store,
         device=device,
@@ -87,6 +102,7 @@ def build_engine(cfg, store_path: str, device, kg_path: str = "") -> RetrievalEn
         quantize=quantize,
         quantize_corpus=resolve_quantize_corpus(cfg.eval.quantize_corpus),
         capacity_multiple=cfg.eval.capacity_multiple,
+        rt=rt,
         shard_corpus=cfg.eval.shard_corpus,
         shard_queries=cfg.eval.shard_queries,
         ann=cfg.eval.ann or None,
@@ -179,9 +195,13 @@ def warm_engine(engine: RetrievalEngine, cfg, sizes: str, image: bool):
     return n, time.monotonic() - t0
 
 
-def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: DaemonOptions) -> RetrievalHTTPServer:
+def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: DaemonOptions,
+                     mh=None) -> RetrievalHTTPServer:
     """The daemon over ``engine``: the JAX CLI's wiring, hook for hook. The
-    socket is bound here; serve with ``serve_forever()`` or ``start()``."""
+    socket is bound here; serve with ``serve_forever()`` or ``start()``.
+    Under multi-host serving (``mh``, the coordinator's
+    ``MultiHostSearch``) filtered search and corpus updates answer 501 and
+    ``/healthz`` reports the lockstep's stall state."""
     clip_r = engine.clip_retriever
     batch_fn = engine.retrieve_text_batch if engine.t2s_retriever else engine.retrieve_text_noknowledge_batch
     default_alpha = cfg.fusion.alpha_clip
@@ -194,10 +214,12 @@ def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: Daemon
     def alphas_batch_fn(queries, alphas):
         return batch_fn(queries, alpha_clip=resolve_alphas(alphas))
 
-    def filtered_batch_fn(queries, alphas, allow, deny):
-        # hard filters need an exact scan: under ann='ivf' this raises
-        # ValueError, which the daemon answers with 400
-        return engine.retrieve_text_filtered_batch(queries, allow, deny, alpha_clip=resolve_alphas(alphas))
+    filtered_batch_fn = None
+    if mh is None:
+        def filtered_batch_fn(queries, alphas, allow, deny):
+            # hard filters need an exact scan: under ann='ivf' this raises
+            # ValueError, which the daemon answers with 400
+            return engine.retrieve_text_filtered_batch(queries, allow, deny, alpha_clip=resolve_alphas(alphas))
 
     def candidates_batch_fn(queries, candidates, alphas):
         # caller-supplied candidate sets, scored exactly on the host store
@@ -213,13 +235,15 @@ def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: Daemon
         result_cache_size=opts.cache_results,
         alphas_batch_fn=alphas_batch_fn,
         # live corpus updates: searches serve the old corpus until the new
-        # one swaps in; raw documents are encoded on the device
-        add_documents_fn=clip_r.add_documents,
-        remove_documents_fn=clip_r.remove_documents,
-        encode_documents_fn=clip_r.encode_documents,
+        # one swaps in; raw documents are encoded on the device. Multi-host
+        # followers would not restage their shards: None answers 501
+        add_documents_fn=None if mh is not None else clip_r.add_documents,
+        remove_documents_fn=None if mh is not None else clip_r.remove_documents,
+        encode_documents_fn=None if mh is not None else clip_r.encode_documents,
         # POST /snapshot writes the live corpus back to the store file
         # (atomic replace), so ingested documents survive a restart
-        snapshot_fn=lambda: {"path": store_path, "rows": clip_r.save_store(store_path)},
+        snapshot_fn=None if mh is not None else (
+            lambda: {"path": store_path, "rows": clip_r.save_store(store_path)}),
         image_batch_fn=engine.retrieve_image_batch,
         image_preprocess_fn=clip_r.preprocess_images,
         filtered_batch_fn=filtered_batch_fn,
@@ -228,14 +252,14 @@ def make_http_server(engine: RetrievalEngine, cfg, store_path: str, opts: Daemon
         # (--fusion.head_params); without one the daemon answers 501
         fused_batch_fn=fused_batch_fn,
         length_bucket_fn=clip_r.seq_bucket if opts.bucket_queries else None,
+        # a dead follower blocks the coordinator inside a collective: past
+        # the stall timeout /healthz answers 503 and the orchestrator restarts
+        health_fn=mh.health if mh is not None else None,
     )
 
 
 def main(argv=None) -> None:
     args = list(sys.argv[1:] if argv is None else argv)
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        if any(a == flag or a.startswith(flag + "=") for a in args):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
     batch_mode = "--batch" in args
     if batch_mode:
         args.remove("--batch")
@@ -243,18 +267,58 @@ def main(argv=None) -> None:
     kg_path = pop_flag(args, "--kg", "")
     query = pop_flag(args, "--query")
     opts = pop_daemon_flags(args)
+    # multi-host lockstep serving: every process of a torch.distributed job
+    # runs this same command; the corpus shards over all their devices
+    # (with --eval.shard_corpus=true), the followers join the broadcast
+    # loop, the coordinator serves queries or HTTP as usual
+    multihost = "--multihost" in args
+    if multihost:
+        args.remove("--multihost")
+    mh_batch = int(pop_flag(args, "--multihost-batch", "32"))
     device = resolve_device(pop_flag(args, "--device", "cuda"))
     cfg = config_from_argv(args)
     logging.basicConfig(level=logging.INFO)
+    if multihost and opts.warmup:
+        # warmup searches directly: the followers are not in the broadcast loop yet
+        raise ValueError("--warmup does not compose with --multihost")
+    if multihost and cfg.fusion.head_params:
+        raise ValueError(
+            "--fusion.head_params does not compose with --multihost "
+            "(fused rescoring uses candidate routes outside the broadcast)"
+        )
+    if multihost:
+        from ..parallel.mesh import runtime_init
+
+        backend = runtime_init()  # a no-op for one process
+        logger.info("multihost: torch.distributed backend %s", backend or "none (one process)")
     engine = build_engine(cfg, store_path, device, kg_path=kg_path)
     mode = "knowledge-enhanced" if engine.t2s_retriever else "CLIP-only (no KG endpoints configured)"
     logger.info("engine ready on %s: %s", device, mode)
+    mh = None
+    if multihost:
+        import atexit
+
+        import torch.distributed as dist
+
+        from ..retrieval.multihost import MultiHostRetrieval, MultiHostSearch
+
+        rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+        mh = MultiHostSearch(engine.clip_retriever, batch=mh_batch)
+        if not mh.is_coordinator:
+            logger.info("multihost follower (process %d/%d): joining lockstep serving", rank, world)
+            served = mh.serve()
+            logger.info("multihost follower done after %d searches", served)
+            return
+        logger.info("multihost coordinator: corpus sharded over %d processes", world)
+        engine.clip_retriever = MultiHostRetrieval(mh)
+        # release the followers however the coordinator exits (stop() is idempotent)
+        atexit.register(mh.stop)
     if opts.warmup:
         n, secs = warm_engine(engine, cfg, opts.warmup, image=opts.port is not None)
         logger.info("warmed %d searches for batch sizes %s in %.1fs", n, opts.warmup, secs)
 
     if opts.port is not None:
-        server = make_http_server(engine, cfg, store_path, opts)
+        server = make_http_server(engine, cfg, store_path, opts, mh=mh)
         logger.info("serving HTTP on %s:%d (/search, /search_image, /documents, /snapshot, /healthz, /metrics)",
                     *server.address)
         # SIGTERM: the handler only asks serve_forever to return (shutdown()
@@ -276,6 +340,8 @@ def main(argv=None) -> None:
             pass
         finally:
             server.close()
+            if mh is not None:
+                mh.stop()
         return
 
     def answer_batch(qs) -> None:
@@ -290,17 +356,21 @@ def main(argv=None) -> None:
         for q, results in zip(qs, batches):
             print(json.dumps({"query": q, "results": results[:20]}, indent=2))
 
-    if query is not None:
-        answer_batch([query])
-        return
-    if batch_mode:
-        queries = [line.strip() for line in sys.stdin if line.strip()]
-        if queries:
-            answer_batch(queries)
-        return
-    for line in sys.stdin:
-        if line.strip():
-            answer_batch([line.strip()])
+    try:
+        if query is not None:
+            answer_batch([query])
+            return
+        if batch_mode:
+            queries = [line.strip() for line in sys.stdin if line.strip()]
+            if queries:
+                answer_batch(queries)
+            return
+        for line in sys.stdin:
+            if line.strip():
+                answer_batch([line.strip()])
+    finally:
+        if mh is not None:
+            mh.stop()
 
 
 if __name__ == "__main__":

@@ -139,7 +139,7 @@ class DataPipeline:
     ) -> Iterator[Batch]:
         """Batches of one epoch, in a permutation fixed by (seed, epoch)."""
         if num_shards != 1 or shard_index != 0:
-            raise NotImplementedError("sharded epoch_batches is not ported yet: ROADMAP A5 (parallel modes)")
+            raise NotImplementedError("sharded epoch_batches is not ported yet: ROADMAP A5 (b) (parallel training)")
         n = len(self.source)
         order = list(range(n))
         if shuffle:

@@ -80,7 +80,7 @@ class MeshShardedCaptioner:
     it needs the parallel modes."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError("MeshShardedCaptioner is not ported yet: ROADMAP A5 (parallel modes)")
+        raise NotImplementedError("MeshShardedCaptioner is not ported yet: ROADMAP A5 (b) (parallel training)")
 
 
 class FakeCaptioner:

@@ -6,6 +6,8 @@ row reduces to its coordinate sign bits, 32 per word; the scan scores a
 query's sketch against each tower with Hamming distances, maps them to the
 proxy ``1 - 2 * hamming / dim`` and blends the towers with alpha. The proxy
 is candidate-generation quality only: the retriever always reranks.
+:func:`sharded_hamming_topk` scans a row-sharded sketch corpus shard by
+shard and merges the winners.
 
 The JAX package stores the words as uint32. PyTorch's uint32 arithmetic is
 thin and it has no popcount, so the port keeps the same bits in int32 words
@@ -20,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .similarity import _segmented_topk_from_scores, alpha_column
+from .similarity import _merge_shard_winners, _segmented_topk_from_scores, alpha_column, sharded_scan
 
 # corpus rows scored per step: bounds the [Q, chunk, words] XOR intermediate
 _DEFAULT_CHUNK = 4096
@@ -90,3 +92,19 @@ def hamming_topk(queries: torch.Tensor, cimg_bits: torch.Tensor, ctxt_bits: torc
     p_txt = 1.0 - inv * hamming_scores(q_bits, ctxt_bits, chunk).float()
     scores = a * p_img + (1.0 - a) * p_txt
     return _segmented_topk_from_scores(scores, min(k, cimg_bits.shape[0]), segment=4096)
+
+
+def sharded_hamming_topk(queries: torch.Tensor, cimg_bits, ctxt_bits, *, dim: int, k: int, alpha, mesh,
+                         axis: str = "data", chunk: int = _DEFAULT_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hamming_topk` over a row-sharded sketch corpus: each device
+    scans its local words, and only the per-shard ``[Q, k]`` winners move
+    for the merge."""
+    n = cimg_bits.shape[0]
+    k = min(k, n)
+    a = alpha_column(alpha, queries.shape[0], queries.device)
+
+    def scan(dev, g, shard_n, ci, ct):
+        return hamming_topk(queries.to(dev), ci, ct, dim=dim, k=min(k, shard_n), alpha=a.to(dev), chunk=chunk)
+
+    all_v, all_i, _, _ = sharded_scan(mesh, axis, (cimg_bits, ctxt_bits), scan)
+    return _merge_shard_winners(all_v, all_i, k)

@@ -23,6 +23,7 @@ reuse the library.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -190,10 +191,32 @@ _COUNTED: Dict[str, object] = {}
 _COUNT_LOCK = threading.Lock()
 
 
+def operands_device(args, kwargs) -> Optional[torch.device]:
+    """The one CUDA device that every CUDA tensor argument lies on, or None
+    when there is none. Operands on two cards raise: a kernel reads its
+    operands from the device it launches on, and would otherwise return
+    wrong winners without an error."""
+    devs = {a.device for a in (*args, *kwargs.values()) if torch.is_tensor(a) and a.is_cuda}
+    if len(devs) > 1:
+        raise ValueError(f"kernel operands lie on several cards: {sorted(str(d) for d in devs)}")
+    return next(iter(devs), None)
+
+
 def counted(fn):
-    fn.launches = 0
-    _COUNTED[fn.__name__] = fn
-    return fn
+    """A kernel wrapper with a launch counter, run with its operands' card
+    current (:func:`operands_device`): the C entries launch on the current
+    device, which on a mesh of several cards need not hold the operands."""
+    @functools.wraps(fn)
+    def on_operands_device(*args, **kwargs):
+        dev = operands_device(args, kwargs)
+        if dev is None:
+            return fn(*args, **kwargs)
+        with torch.cuda.device(dev):
+            return fn(*args, **kwargs)
+
+    on_operands_device.launches = 0
+    _COUNTED[fn.__name__] = on_operands_device
+    return on_operands_device
 
 
 def count_launch(fn) -> None:

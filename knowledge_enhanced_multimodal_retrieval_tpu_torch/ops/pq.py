@@ -20,6 +20,10 @@ row packs to scale 0 and scores exactly 0).
   calls the kernel's wrapper directly. Filtered search
   (:func:`masked_pq_similarity_topk`) takes the decode path on every
   device, as the JAX package does.
+- **Sharded.** :func:`sharded_pq_similarity_topk` and
+  :func:`sharded_masked_pq_similarity_topk` scan a row-sharded code corpus
+  shard by shard (B5 on each CUDA shard; the codebooks replicate) and merge
+  the winners (``similarity.sharded_scan``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from . import dispatch
 from .dispatch import I, P
 from .similarity import (
     _masked_topk_from_scores,
+    _merge_shard_winners,
     _ptr,
     _segmented_topk_from_scores,
     _sm_count,
@@ -40,6 +45,8 @@ from .similarity import (
     random_rotation,
     scan_scratch,
     scan_strips,
+    sharded_masked_topk,
+    sharded_scan,
     topk_passes,
     topk_plain,
 )
@@ -593,3 +600,33 @@ def pq_similarity_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_i
     if not dispatch.use_kernel(queries):
         return pq_similarity_topk_xla(*args, k, alpha, chunk)
     return _adc_topk(*args, k, alpha)
+
+
+def sharded_pq_similarity_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, k: int,
+                               alpha, mesh, axis: str = "data", chunk: int = _DECODE_CHUNK
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PQ top-k over a row-sharded code corpus: each device scans only its
+    codes (B5 on a CUDA shard, the decode path on a CPU one; the codebooks
+    replicate), and only the per-shard ``[Q, k]`` winners move for the merge."""
+    n = img_codes.shape[0]
+    k = min(k, n)
+    a = alpha_column(alpha, queries.shape[0], queries.device)
+
+    def scan(dev, g, shard_n, ci, si, ct, st):
+        return pq_similarity_topk(queries.to(dev), ci, si, ct, st, cb_img.to(dev), cb_txt.to(dev),
+                                  k=min(k, shard_n), alpha=a.to(dev), chunk=chunk)
+
+    all_v, all_i, _, _ = sharded_scan(mesh, axis, (img_codes, img_scale, txt_codes, txt_scale), scan)
+    return _merge_shard_winners(all_v, all_i, k)
+
+
+def sharded_masked_pq_similarity_topk(queries, img_codes, img_scale, txt_codes, txt_scale, cb_img, cb_txt, mask,
+                                      k: int, alpha, mesh, axis: str = "data", chunk: int = _DECODE_CHUNK
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Filtered PQ top-k over a row-sharded code corpus (the decode path a
+    shard; the mask shards with the rows; ``-1`` sentinels on dead slots)."""
+    def score(q, ci, si, ct, st, a):
+        return blended_scores_pq(q, ci, si, ct, st, cb_img.to(q.device), cb_txt.to(q.device), a, chunk)
+
+    return sharded_masked_topk(score, queries, (img_codes, img_scale, txt_codes, txt_scale), mask, k, alpha,
+                               mesh, axis)

@@ -17,7 +17,10 @@ every k: its running lists carry up to ``KERNEL_PASS_K`` = 512 rows a pass,
 and a larger k runs as passes under a ceiling (:func:`topk_passes`).
 
 The masked (filtered) top-k at the end of the module is plain PyTorch on
-every device, as it is plain XLA in the JAX package.
+every device, as it is plain XLA in the JAX package. The mesh-sharded scans
+after it (``sharded_similarity_topk{,_q8,_q4}``,
+``sharded_masked_similarity_topk``) run the one-device route on each row
+shard and merge the winners.
 
 Also here, as in JAX, the host helpers the capacity tiers share: the
 Matryoshka prefix renormalization, the seeded random rotation and the exact
@@ -27,7 +30,7 @@ f32 host rerank of fetched candidates.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -502,3 +505,114 @@ def masked_similarity_topk_q4(queries, img_p, img_scale, txt_p, txt_scale, mask,
                               alpha=0.5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked top-k over a nibble-packed int4 corpus."""
     return _masked_topk_from_scores(blended_scores_q4(queries, img_p, img_scale, txt_p, txt_scale, alpha), mask, k)
+
+
+# -- mesh-sharded corpus ------------------------------------------------------
+# The corpus rows shard over one mesh axis (``parallel.sharding.shard_rows``):
+# each shard is scanned on its own device by the one-device route (B2 in the
+# matching mode on a CUDA shard, the plain version on a CPU one) at
+# k_local = min(k, shard_n), its rows offset to global ones, and only the
+# [Q, k_local] winners move: to the mesh's first device, and across processes
+# through ``torch.distributed``. The merge flattens them shard-major and takes
+# the stable top-k, so ties keep the lowest global row, as JAX's
+# ``lax.top_k`` over the gathered winners does.
+
+
+def _merge_shard_winners(all_vals: torch.Tensor, all_idx: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[S, Q, k_local]`` winners with global rows -> the final ``[Q, k]``:
+    flattened shard-major, then the top-k with ties to the first position."""
+    s, qn, kl = all_vals.shape
+    flat_v = all_vals.permute(1, 0, 2).reshape(qn, s * kl)
+    flat_i = all_idx.permute(1, 0, 2).reshape(qn, s * kl)
+    vals, pos = _stable_topk(flat_v, k)
+    return vals, torch.gather(flat_i, 1, pos).to(torch.int32)
+
+
+def sharded_scan(mesh, axis: str, corpus: Sequence, scan) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Run ``scan(device, shard_index, shard_n, *corpus shards) -> (values,
+    local rows)`` on each of this process's shards of ``corpus`` (tensors or
+    ``RowShards``, all sharded alike); returns every shard's winners
+    ``[S, Q, k_local]`` with global rows on the mesh's first device, the
+    shard count and the rows a shard holds."""
+    from ..parallel.sharding import gather_shard_outputs, shard_rows
+
+    parts = [shard_rows(c, mesh, axis) for c in corpus]
+    shard_n, n_shards = parts[0].shard_n, parts[0].n_shards
+    vals, rows = [], []
+    for j, (g, t) in enumerate(parts[0].shards):
+        v, i = scan(t.device, g, shard_n, *(p.shards[j][1] for p in parts))
+        vals.append(v.float())
+        rows.append(i.to(torch.int32) + g * shard_n)
+    return gather_shard_outputs(vals, mesh), gather_shard_outputs(rows, mesh), n_shards, shard_n
+
+
+def _sharded_topk(fn, queries, corpus, k: int, alpha, mesh, axis: str):
+    n = corpus[0].shape[0]
+    k = min(k, n)
+    a = alpha_column(alpha, queries.shape[0], queries.device)
+
+    def scan(dev, g, shard_n, *shards):
+        return fn(queries.to(dev), *shards, k=min(k, shard_n), alpha=a.to(dev))
+
+    all_v, all_i, _, _ = sharded_scan(mesh, axis, corpus, scan)
+    return _merge_shard_winners(all_v, all_i, k)
+
+
+def sharded_similarity_topk(queries, img_emb, txt_emb, k: int, alpha, mesh, axis: str = "data"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over an exact corpus row-sharded on ``axis``: each shard's B2
+    scan (plain version on the CPU), then the merge of the winners."""
+    def one(q, img, txt, *, k, alpha):
+        return fused_similarity_topk(q, img, txt, k=k, alpha=alpha)
+
+    return _sharded_topk(one, queries, (img_emb, txt_emb), k, alpha, mesh, axis)
+
+
+def sharded_similarity_topk_q8(queries, img_q, img_scale, txt_q, txt_scale, k: int, alpha, mesh,
+                               axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sharded_similarity_topk` over an int8 corpus: each device holds
+    only its int8 shard and per-row scales."""
+    def one(q, img, img_s, txt, txt_s, *, k, alpha):
+        return fused_similarity_topk_q8(q, img, img_s, txt, txt_s, k=k, alpha=alpha)
+
+    return _sharded_topk(one, queries, (img_q, img_scale, txt_q, txt_scale), k, alpha, mesh, axis)
+
+
+def sharded_similarity_topk_q4(queries, img_p, img_scale, txt_p, txt_scale, k: int, alpha, mesh,
+                               axis: str = "data") -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sharded_similarity_topk` over a nibble-packed int4 corpus (B2-q4 a shard)."""
+    def one(q, img, img_s, txt, txt_s, *, k, alpha):
+        return fused_similarity_topk_q4(q, img, img_s, txt, txt_s, k=k, alpha=alpha)
+
+    return _sharded_topk(one, queries, (img_p, img_scale, txt_p, txt_scale), k, alpha, mesh, axis)
+
+
+def sharded_masked_topk(score_fn, queries, corpus: Sequence, mask, k: int, alpha, mesh, axis: str = "data"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over a row-sharded corpus: ``score_fn(q, *shards,
+    alpha) -> [Q, shard_n]`` scores a shard, the mask's columns shard with
+    the rows, the local selection is the segmented exact top-k, and dead
+    slots carry the ``-1`` row sentinel after the merge."""
+    n = corpus[0].shape[0]
+    k = min(k, n)
+    a = alpha_column(alpha, queries.shape[0], queries.device)
+    m2d = normalize_mask(mask, queries.shape[0], n, device=queries.device)
+
+    def scan(dev, g, shard_n, *shards):
+        m = m2d[:, g * shard_n:(g + 1) * shard_n].to(dev)
+        scores = score_fn(queries.to(dev), *shards, a.to(dev))
+        scores = torch.where(m, scores, torch.full_like(scores, _NEG_INF))
+        return _segmented_topk_from_scores(scores, min(k, shard_n), segment=4096)
+
+    all_v, all_i, _, _ = sharded_scan(mesh, axis, corpus, scan)
+    vals, idx = _merge_shard_winners(all_v, all_i, k)
+    return vals, torch.where(vals > _NEG_INF / 2, idx, torch.full_like(idx, -1))
+
+
+def sharded_masked_similarity_topk(queries, corpus_args: Sequence, mask, k: int, alpha, mesh,
+                                   axis: str = "data", mode: str = "exact") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over a row-sharded corpus. ``corpus_args``: ``(img,
+    txt)`` exact or ``(img, img_scale, txt, txt_scale)`` for ``mode`` in
+    {"q8", "q4"}."""
+    score_fn = {"exact": blended_scores, "q8": blended_scores_q8, "q4": blended_scores_q4}[mode]
+    return sharded_masked_topk(score_fn, queries, corpus_args, mask, k, alpha, mesh, axis)

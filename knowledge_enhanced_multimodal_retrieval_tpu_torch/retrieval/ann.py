@@ -13,6 +13,13 @@ Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/retrieval/ann.py``
   fewer than k rows were probed. Top-k selections order ties by position, as
   ``jax.lax.top_k`` does (a stable sort).
 
+- **Sharded search** (:func:`sharded_ivf_search`): the index shards by
+  cluster over a mesh axis (:func:`shard_ivf_index`); each shard probes its
+  own best ``ceil(nprobe / n)`` clusters, so the probe set is the best per
+  shard rather than the global top ``nprobe`` (``nprobe == nlist`` still
+  probes every cluster), and the ``[Q, k]`` winners merge. ``packed_rows``
+  hold global row ids, so the merge needs no offsets.
+
 The ``.npz`` of :func:`save_ivf_index` / :func:`load_ivf_index` is the JAX
 package's format, fingerprint and all: an index built by either package
 loads in the other. The first k-means seed row is drawn from a
@@ -26,13 +33,19 @@ import dataclasses
 import hashlib
 import os
 import tempfile
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.pq import pq_encode_host, pq_luts, train_pq_codebooks
-from ..ops.similarity import _unpack_q4, alpha_column, quantize_corpus_host, quantize_corpus_host_q4
+from ..ops.similarity import (
+    _merge_shard_winners,
+    _unpack_q4,
+    alpha_column,
+    quantize_corpus_host,
+    quantize_corpus_host_q4,
+)
 
 _SUBLANE = 8  # the packed cap axis rounds up to this multiple (the JAX format's)
 
@@ -357,6 +370,73 @@ def ivf_search(queries: torch.Tensor, index: IVFIndex, *, k: int, nprobe: int, a
         vals = torch.nn.functional.pad(vals, (0, k - kk), value=-float("inf"))
         ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
     return vals, ids
+
+
+_SHARDED_FIELDS = ("centroids_img", "centroids_txt", "packed_img", "packed_txt", "packed_rows",
+                   "packed_img_scale", "packed_txt_scale")
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedIVFIndex:
+    """An IVF index cluster-sharded over one mesh axis: this process's
+    shards as ``(shard index, IVFIndex of nlist / n clusters on its device)``
+    (the codebooks replicate)."""
+
+    shards: List[Tuple[int, IVFIndex]]
+    n_shards: int
+    nlist: int
+    cap: int
+    mesh: object
+    axis: str
+
+
+def shard_ivf_index(index: IVFIndex, mesh, axis: str = "data") -> ShardedIVFIndex:
+    """Cut ``index`` into ``mesh.shape[axis]`` contiguous cluster ranges and
+    place this process's on their devices (views where the index already
+    lives there)."""
+    from ..parallel.sharding import shard_rows
+
+    n = mesh.shape[axis]
+    if index.nlist % n:
+        raise ValueError(f"nlist {index.nlist} does not shard {n} ways (a multiple of the axis size is needed)")
+    cut = {f: shard_rows(getattr(index, f), mesh, axis) for f in _SHARDED_FIELDS if getattr(index, f) is not None}
+    shards = []
+    for j, (g, dev) in enumerate(mesh.axis_shards(axis)):
+        parts = {f: c.shards[j][1] for f, c in cut.items()}
+        cbs = {f: getattr(index, f).to(dev) for f in ("cb_img", "cb_txt") if getattr(index, f) is not None}
+        shards.append((g, dataclasses.replace(index, **parts, **cbs)))
+    return ShardedIVFIndex(shards, n, index.nlist, index.cap, mesh, axis)
+
+
+def sharded_ivf_search(queries: torch.Tensor, index, *, k: int, nprobe: int, mesh, alpha=0.5, axis: str = "data"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF probe over an index cluster-sharded on ``axis`` (an
+    :class:`IVFIndex`, cut here, or a :class:`ShardedIVFIndex`): each shard
+    probes its best ``ceil(nprobe / n)`` clusters with :func:`ivf_search` at
+    ``k_local = min(k, clusters x cap)``, the winners gather shard-major, and
+    the final top-k pads with ``-inf`` / ``-1`` to ``k``."""
+    from ..parallel.sharding import gather_shard_outputs
+
+    sh = index if isinstance(index, ShardedIVFIndex) else shard_ivf_index(index, mesh, axis)
+    nlist_local = sh.nlist // sh.n_shards
+    nprobe_local = min(-(-nprobe // sh.n_shards), nlist_local)
+    k_local = min(k, nlist_local * sh.cap)
+    b = queries.shape[0]
+    a = alpha_column(alpha, b, queries.device)
+    vals, ids = [], []
+    for _, li in sh.shards:
+        dev = li.packed_rows.device
+        v, i = ivf_search(queries.to(dev), li, k=k_local, nprobe=nprobe_local, alpha=a.to(dev))
+        vals.append(v.float())
+        ids.append(i)
+    all_v, all_i = gather_shard_outputs(vals, sh.mesh), gather_shard_outputs(ids, sh.mesh)
+    kk = min(k, all_v.shape[0] * all_v.shape[2])
+    best_v, best_i = _merge_shard_winners(all_v, all_i, kk)
+    best_i = torch.where(torch.isfinite(best_v), best_i, torch.full_like(best_i, -1))
+    if kk < k:
+        best_v = torch.nn.functional.pad(best_v, (0, k - kk), value=-float("inf"))
+        best_i = torch.nn.functional.pad(best_i, (0, k - kk), value=-1)
+    return best_v, best_i
 
 
 def corpus_fingerprint(image, text) -> str:

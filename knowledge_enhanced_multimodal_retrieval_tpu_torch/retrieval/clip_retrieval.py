@@ -20,13 +20,25 @@ the pipelined batch streams, warmup, and corpus replacement and snapshots;
 and learned-fusion serving (a trained head rescores the scan's candidates).
 Every tensor lives on the explicit ``device``; CUDA runs the hand-written
 kernels, the CPU their plain versions. The search runs eagerly (no
-per-bucket compiled program). Options of the JAX retriever that this port
-does not carry yet raise ``NotImplementedError`` naming their ROADMAP item.
+per-bucket compiled program).
+
+Over a :class:`parallel.mesh.MeshRuntime` (``rt``) the retriever has the JAX
+package's two sharded modes. ``shard_corpus`` (capacity): the corpus rows
+(or the IVF clusters) shard over the mesh's data axis, each shard is scanned
+on its own device (the tier's kernel once a shard on the card) and only the
+``[Q, k]`` winners merge; the rows pad to ``capacity_multiple x num_data``.
+``shard_queries`` (throughput): the query batch pads to a multiple of the
+data axis and splits over it; each slice is encoded and scanned on its own
+device against a replica of the corpus, and the results concatenate in
+order. A device that repeats in the mesh holds one copy, and a shard on the
+device that holds the staged corpus is a row view of it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import os
 import threading
 import zipfile
@@ -42,16 +54,19 @@ from ..data.tokenizer import DEFAULT_BUCKETS as _WARMUP_BUCKETS
 from ..data.tokenizer import CLIPTokenizer, trim_to_bucket
 from ..models.clip import CLIP, l2_normalize
 from ..models.fast_encode import encode_image_fast, encode_text_fast, make_text_plan, make_vision_plan
-from ..ops.binary_sketch import hamming_topk, pack_sign_bits_host
+from ..ops.binary_sketch import hamming_topk, pack_sign_bits_host, sharded_hamming_topk
 from ..ops.pq import (
     masked_pq_similarity_topk,
     pack_pq_host,
     pq_similarity_topk,
+    sharded_masked_pq_similarity_topk,
+    sharded_pq_similarity_topk,
     train_opq_rotation,
     train_pq_codebooks,
     train_pq_codebooks_anisotropic,
 )
 from ..ops.similarity import (
+    alpha_column,
     fused_similarity_topk,
     fused_similarity_topk_q4,
     fused_similarity_topk_q8,
@@ -65,17 +80,25 @@ from ..ops.similarity import (
     quantize_corpus_host_q4,
     random_rotation,
     rerank_scores_host,
+    sharded_masked_similarity_topk,
+    sharded_similarity_topk,
+    sharded_similarity_topk_q4,
+    sharded_similarity_topk_q8,
 )
+from ..parallel.mesh import MeshRuntime, canonical_device
+from ..parallel.sharding import gather_shard_outputs, replicate, shard_rows
 from .ann import _SUBLANE as _CAP_SUBLANE
-from .ann import IVFIndex, build_ivf_index, corpus_fingerprint, ivf_search, load_ivf_index, save_ivf_index
+from .ann import (
+    IVFIndex,
+    build_ivf_index,
+    corpus_fingerprint,
+    ivf_search,
+    load_ivf_index,
+    save_ivf_index,
+    shard_ivf_index,
+    sharded_ivf_search,
+)
 from .embedding_store import EmbeddingStore, host_tensor
-
-# options of the JAX retriever outside this port's slice -> ROADMAP item
-_NOT_PORTED = {
-    "rt": "A5 (parallel modes)",
-    "shard_corpus": "A5 (parallel modes)",
-    "shard_queries": "A5 (parallel modes)",
-}
 
 
 @dataclass(frozen=True)
@@ -93,6 +116,8 @@ class _CorpusState:
     top_k: int  # requested k clamped to the real row count
     nprobe: int  # ann probe width clamped to the (possibly rebuilt) nlist
     ann_spill_fraction: float = 0.0  # IVF rows packed outside their best cluster; 0.0 without an index
+    ivf_shards: object = None  # shard_corpus in ann mode: the index cut by cluster over the mesh
+    replicas: Optional[dict] = None  # shard_queries: this state on each other query device
 
 
 class CLIPRetrieval:
@@ -124,15 +149,28 @@ class CLIPRetrieval:
         rotate_seed: int = 0,
         pq_m: int = 0,
         pq_aniso_t: float = 0.0,
-        **options,
+        rt: Optional[MeshRuntime] = None,
+        shard_corpus: bool = False,
+        shard_queries: bool = False,
     ):
-        for name, value in options.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            if value not in (None, False, 0, 0.0):
-                raise NotImplementedError(
-                    f"CLIPRetrieval({name}=...) is not ported yet: ROADMAP {_NOT_PORTED[name]}"
-                )
+        self.rt = rt
+        # shard_corpus scales capacity (rows split over the mesh's data
+        # axis, queries replicated); shard_queries scales throughput (query
+        # batches split, corpus and weights replicated). Without a mesh both
+        # are off, as in the JAX package.
+        self.shard_corpus = bool(shard_corpus) and rt is not None
+        self.shard_queries = bool(shard_queries) and rt is not None
+        if self.shard_queries and self.shard_corpus:
+            raise ValueError(
+                "shard_queries and shard_corpus both shard over the mesh's "
+                "data axis — pick one (capacity vs throughput scaling)"
+            )
+        if (self.shard_corpus or self.shard_queries) and getattr(rt, "dcn_axis", None):
+            raise ValueError(
+                "serving shards over ONE intra-slice data axis; a multi-slice "
+                "(dcn) mesh is a training layout — serve each slice with its "
+                "own single-slice MeshRuntime"
+            )
         if quantize is not None and not use_fused_encoder:
             raise ValueError("quantize requires use_fused_encoder=True")
         if tokenizer.vocab_size > model.arch.vocab_size:
@@ -247,7 +285,7 @@ class CLIPRetrieval:
         self.ann_index_path = ann_index_path
         self._index_cache_armed = ann_index_path is not None
 
-        self.device = torch.device(device)
+        self.device = canonical_device(device)
         self.model = model.to(self.device).eval()
         self.tokenizer = tokenizer
         self._requested_top_k = top_k
@@ -259,6 +297,13 @@ class CLIPRetrieval:
             make_text_plan(self.model, dtype=model.dtype, quantize=quantize) if use_fused_encoder else None
         )
         self._encode_image = None  # built at the first image query
+        # shard_queries: the towers (and their plans) on each other device
+        # the query slices run on; the first is this retriever's own
+        self._replicas = {}
+        for dev in self._query_devices():
+            m = copy.deepcopy(self.model).to(dev)
+            plan = make_text_plan(m, dtype=model.dtype, quantize=quantize) if use_fused_encoder else None
+            self._replicas[dev] = (m, plan)
         self._update_lock = threading.Lock()
         self._install_corpus(store)
         if self._rot_np is not None:
@@ -266,8 +311,47 @@ class CLIPRetrieval:
 
     # -- corpus state ----------------------------------------------------------
 
-    def _to_device(self, a, dtype=None) -> torch.Tensor:
+    def _to_device(self, a, dtype=None):
+        """A host array staged for the scan: on the retriever's device, or
+        row-sharded over the mesh's data axis under ``shard_corpus``."""
+        if self.shard_corpus:
+            return shard_rows(host_tensor(a).to(dtype=dtype), self.rt.mesh, self.rt.data_axis)
         return host_tensor(a).to(device=self.device, dtype=dtype)
+
+    def _pad_multiple(self) -> int:
+        """Device rows round up to this (capacity bucket x mesh shards)."""
+        return self.capacity_multiple * (self.rt.num_data if self.shard_corpus else 1)
+
+    def _query_devices(self) -> List[torch.device]:
+        """Under ``shard_queries``, the distinct devices other than the
+        retriever's own that query slices run on."""
+        if not self.shard_queries:
+            return []
+        devs = dict.fromkeys(d for _, d in self.rt.mesh.axis_shards(self.rt.data_axis))
+        return [d for d in devs if d != self.device]
+
+    def _replicate(self, state: "_CorpusState") -> "_CorpusState":
+        """Under ``shard_queries``, the corpus state on every query device."""
+        devs = self._query_devices()
+        if not devs:
+            return state
+
+        def copies(t):  # {device: t there} over the mesh
+            if t is None:
+                return dict.fromkeys(devs)
+            if isinstance(t, tuple):
+                parts = [copies(x) for x in t]
+                return {dev: tuple(p[dev] for p in parts) for dev in devs}
+            return replicate(t, self.rt.mesh)
+
+        fields = ("corpus_img", "corpus_txt", "corpus_img_scale", "corpus_txt_scale")
+        placed = {f: copies(getattr(state, f)) for f in fields}
+        reps = {dev: dataclasses.replace(state, ivf=None if state.ivf is None else state.ivf.to(dev),
+                                         **{f: placed[f][dev] for f in fields}) for dev in devs}
+        return dataclasses.replace(state, replicas=reps)
+
+    def _state_on(self, c: "_CorpusState", dev: torch.device) -> "_CorpusState":
+        return c if dev == self.device or not c.replicas else c.replicas[dev]
 
     def _install_corpus(self, store: EmbeddingStore) -> None:
         """Build the corpus device state and swap it in atomically."""
@@ -277,21 +361,33 @@ class CLIPRetrieval:
         top_k = min(self._requested_top_k, n_real)
         if self.ann == "ivf":
             nlist = self._ann_nlist or max(1, int(np.sqrt(n_real)))
+            if self.shard_corpus:
+                # clusters shard over the mesh: nlist snaps to the nearest
+                # workable multiple of the axis size (<= corpus rows)
+                n_shards = self.rt.num_data
+                nlist = min(-(-nlist // n_shards) * n_shards, (n_real // n_shards) * n_shards)
+                if nlist < n_shards:
+                    raise ValueError(f"corpus of {n_real} rows cannot shard {n_shards} ways in ann mode")
             index = self._load_or_build_index(store, nlist)
             if self.ann_nprobe < 1:
                 raise ValueError(f"ann_nprobe must be >= 1, got {self.ann_nprobe}")
+            shards = None
+            if self.shard_corpus:
+                shards = shard_ivf_index(index, self.rt.mesh, self.rt.data_axis)
+                if any(li.packed_rows.device != index.packed_rows.device for _, li in shards.shards):
+                    index = index.to("cpu")  # the shards hold the device copies
             # clamp rather than raise: a corpus-shrinking update can rebuild
             # with a smaller derived nlist (nprobe == nlist is an exact probe)
-            self._corpus = _CorpusState(
+            self._corpus = self._replicate(_CorpusState(
                 store=store, n_real=n_real, corpus_img=None, corpus_txt=None,
                 corpus_img_scale=None, corpus_txt_scale=None, ivf=index,
                 top_k=top_k, nprobe=min(self.ann_nprobe, index.nlist),
-                ann_spill_fraction=index.spill_fraction,
-            )
+                ann_spill_fraction=index.spill_fraction, ivf_shards=shards,
+            ))
             return
         # pad rows (zero vectors, score 0, sentinel uuids) round the device
-        # arrays up to the capacity bucket
-        padded = store.padded(self.capacity_multiple)
+        # arrays up to the capacity bucket (and the mesh's shard count)
+        padded = store.padded(self._pad_multiple())
         src_img, src_txt = padded.image, padded.text
         if self.truncate_dim:
             # the device only sees the prefix; the full f32 store stays on
@@ -322,8 +418,9 @@ class CLIPRetrieval:
                 cb_t = train_pq_codebooks(src_txt, m=m)
             codes_i, si = pack_pq_host(src_img, cb_i, aniso_t=self.pq_aniso_t)
             codes_t, st = pack_pq_host(src_txt, cb_t, aniso_t=self.pq_aniso_t)
-            cimg = (self._to_device(codes_i), self._to_device(cb_i))
-            ctxt = (self._to_device(codes_t), self._to_device(cb_t))
+            # the codebooks replicate (KB-sized): they stay on this device
+            cimg = (self._to_device(codes_i), host_tensor(cb_i).to(self.device))
+            ctxt = (self._to_device(codes_t), host_tensor(cb_t).to(self.device))
             cimg_s, ctxt_s = self._to_device(si), self._to_device(st)
         elif self.quantize_corpus:
             # int8 / int4 quantized on the host: the f32 corpus never stages
@@ -336,12 +433,14 @@ class CLIPRetrieval:
             cimg = self._to_device(src_img, self.corpus_dtype)
             ctxt = self._to_device(src_txt, self.corpus_dtype)
         else:
-            cimg, ctxt = padded.device_arrays(self.corpus_dtype, self.device)
-        self._corpus = _CorpusState(
+            mesh = self.rt.mesh if self.shard_corpus else None
+            cimg, ctxt = padded.device_arrays(self.corpus_dtype, self.device, mesh=mesh,
+                                              axis=self.rt.data_axis if mesh else "data")
+        self._corpus = self._replicate(_CorpusState(
             store=padded, n_real=n_real, corpus_img=cimg, corpus_txt=ctxt,
             corpus_img_scale=cimg_s, corpus_txt_scale=ctxt_s, ivf=None,
             top_k=top_k, nprobe=0,
-        )
+        ))
 
     def _load_or_build_index(self, store: EmbeddingStore, nlist: int) -> IVFIndex:
         use_cache, self._index_cache_armed = self._index_cache_armed, False
@@ -463,13 +562,37 @@ class CLIPRetrieval:
         return self._encode_ids(self._tokenize(queries))
 
     @torch.no_grad()
-    def _encode_ids(self, ids) -> torch.Tensor:
-        ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
+    def _encode_ids(self, ids, device=None) -> torch.Tensor:
+        """Token ids -> L2-normalized embeddings on ``device`` (default the
+        retriever's; under ``shard_queries`` another query device's replica)."""
+        device = self.device if device is None else device
+        model, plan = self._replicas.get(device, (self.model, self._text_plan))
+        ids = torch.as_tensor(ids, dtype=torch.long).to(device)
         if self.use_fused_encoder:
-            q = encode_text_fast(self.model.arch, self._text_plan, ids)
+            q = encode_text_fast(model.arch, plan, ids)
         else:
-            q = self.model.encode_text(ids)
+            q = model.encode_text(ids)
         return l2_normalize(q)
+
+    def _qdp(self, body, *arrays) -> tuple:
+        """Query data parallelism (``shard_queries``): pad the leading query
+        axis of ``arrays`` to a multiple of the mesh's data ways by repeating
+        the first row, run ``body(device, *slices) -> tuple`` for each of this
+        process's slices on its device, and concatenate each output in slice
+        order (across processes too), the pad cut off."""
+        n = self.rt.num_data
+        nq = arrays[0].shape[0]
+        qs = -(-nq // n)
+        pad = qs * n - nq
+        if pad:
+            arrays = [torch.cat([a, a[:1].expand(pad, *a.shape[1:])]) for a in arrays]
+        outs = [body(dev, *(a[g * qs:(g + 1) * qs] for a in arrays))
+                for g, dev in self.rt.mesh.axis_shards(self.rt.data_axis)]
+        merged = []
+        for parts in zip(*outs):
+            every = gather_shard_outputs(parts, self.rt.mesh)  # [n, qs, ...]
+            merged.append(every.reshape(n * qs, *every.shape[2:])[:nq])
+        return tuple(merged)
 
     def search_batch(self, queries: Sequence[str], alpha=0.5, top_k: Optional[int] = None):
         """Batched search: ``(values [Q, k_fetch], rows [Q, k_fetch])`` device
@@ -479,15 +602,34 @@ class CLIPRetrieval:
         :meth:`results_from_topk`-based :meth:`retrieval_batch` for results."""
         return self._search_state(self._corpus, queries, alpha, top_k)
 
+    @torch.no_grad()
     def _search_state(self, c: _CorpusState, queries: Sequence[str], alpha, top_k: Optional[int]):
-        return self._search_state_emb(c, self.encode_queries(queries), alpha, top_k)
+        if not self.shard_queries:
+            return self._search_state_emb(c, self.encode_queries(queries), alpha, top_k)
+        # each query slice is tokenized here, then encoded and scanned on its device
+        ids = torch.as_tensor(self._tokenize(queries), dtype=torch.long)
+        k = self._k_fetch(c, min(top_k or c.top_k, c.n_real))
+        self._check_pq_probe_cost(c, ids.shape[0])
+
+        def body(dev, ids_s, a_s):
+            q = self._encode_ids(ids_s, dev)
+            out = self._score(self._state_on(c, dev), q, a_s, k)
+            return out + (q,) if self.rerank else out
+
+        return self._qdp(body, ids, alpha_column(alpha, ids.shape[0], self.device))
 
     @torch.no_grad()
     def _search_state_emb(self, c: _CorpusState, q_emb, alpha, top_k: Optional[int]):
         k = min(top_k or c.top_k, c.n_real)
         q = torch.as_tensor(q_emb, dtype=torch.float32, device=self.device)
         self._check_pq_probe_cost(c, q.shape[0])
-        vals, idx = self._score(c, q, alpha, self._k_fetch(c, k))
+        if self.shard_queries:
+            def body(dev, q_s, a_s):
+                return self._score(self._state_on(c, dev), q_s.to(dev), a_s, self._k_fetch(c, k))
+
+            vals, idx = self._qdp(body, q, alpha_column(alpha, q.shape[0], self.device))
+        else:
+            vals, idx = self._score(c, q, alpha, self._k_fetch(c, k))
         # the rerank rescores in the original space: unrotated, full width
         return (vals, idx, q) if self.rerank else (vals, idx)
 
@@ -496,24 +638,33 @@ class CLIPRetrieval:
         if self.truncate_dim:
             q = prefix_normalize(q, self.truncate_dim)
         if self._rot is not None:
-            q = q.float() @ self._rot
+            q = q.float() @ self._rot.to(q.device)
+        # shard_corpus: the tier's sharded scan over the mesh's data axis
+        mesh = dict(mesh=self.rt.mesh, axis=self.rt.data_axis) if self.shard_corpus else None
         if self.ann == "ivf":
+            if mesh:
+                return sharded_ivf_search(q, c.ivf_shards, k=k, nprobe=nprobe or c.nprobe, alpha=alpha, **mesh)
             return ivf_search(q, c.ivf, k=k, nprobe=nprobe or c.nprobe, alpha=alpha)
         if self.quantize_corpus == "binary":
             dim = self.truncate_dim or c.store.dim
-            return hamming_topk(q.float(), c.corpus_img, c.corpus_txt, dim=dim, k=k, alpha=alpha)
+            fn = functools.partial(sharded_hamming_topk, **mesh) if mesh else hamming_topk
+            return fn(q.float(), c.corpus_img, c.corpus_txt, dim=dim, k=k, alpha=alpha)
         if self.quantize_corpus == "pq":
             q = q.to(self.model.dtype).contiguous()
             (codes_i, cb_i), (codes_t, cb_t) = c.corpus_img, c.corpus_txt
-            return pq_similarity_topk(
-                q, codes_i, c.corpus_img_scale, codes_t, c.corpus_txt_scale, cb_i, cb_t, k=k, alpha=alpha
-            )
+            fn = functools.partial(sharded_pq_similarity_topk, **mesh) if mesh else pq_similarity_topk
+            return fn(q, codes_i, c.corpus_img_scale, codes_t, c.corpus_txt_scale, cb_i, cb_t, k=k, alpha=alpha)
         if self.quantize_corpus:
             q = q.to(self.model.dtype).contiguous()
-            fn = fused_similarity_topk_q4 if self.quantize_corpus == "int4" else fused_similarity_topk_q8
+            if mesh:
+                fn = sharded_similarity_topk_q4 if self.quantize_corpus == "int4" else sharded_similarity_topk_q8
+                fn = functools.partial(fn, **mesh)
+            else:
+                fn = fused_similarity_topk_q4 if self.quantize_corpus == "int4" else fused_similarity_topk_q8
             return fn(q, c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, k=k, alpha=alpha)
         q = q.to(c.corpus_img.dtype).contiguous()
-        return fused_similarity_topk(q, c.corpus_img, c.corpus_txt, k=k, alpha=alpha)
+        fn = functools.partial(sharded_similarity_topk, **mesh) if mesh else fused_similarity_topk
+        return fn(q, c.corpus_img, c.corpus_txt, k=k, alpha=alpha)
 
     def _score_masked(self, c: _CorpusState, q: torch.Tensor, alpha, mask, k: int):
         """Blend + top-k restricted to ``mask``-eligible rows (the JAX
@@ -522,24 +673,32 @@ class CLIPRetrieval:
         if self.truncate_dim:
             q = prefix_normalize(q, self.truncate_dim)
         if self._rot is not None:
-            q = q.float() @ self._rot
+            q = q.float() @ self._rot.to(q.device)
         if self.quantize_corpus == "binary":
             raise ValueError(
                 "filtered search is not supported over a binary-sketch "
                 "corpus — use candidate scoring (retrieval_candidates_batch)"
             )
-        mask = normalize_mask(mask, q.shape[0], len(c.store), device=self.device)
+        mask = normalize_mask(mask, q.shape[0], len(c.store), device=q.device)
+        mesh = dict(mesh=self.rt.mesh, axis=self.rt.data_axis) if self.shard_corpus else None
         if self.quantize_corpus == "pq":
             q = q.to(self.model.dtype)
             (codes_i, cb_i), (codes_t, cb_t) = c.corpus_img, c.corpus_txt
-            return masked_pq_similarity_topk(
-                q, codes_i, c.corpus_img_scale, codes_t, c.corpus_txt_scale, cb_i, cb_t, mask, k=k, alpha=alpha
-            )
+            fn = functools.partial(sharded_masked_pq_similarity_topk, **mesh) if mesh else masked_pq_similarity_topk
+            return fn(q, codes_i, c.corpus_img_scale, codes_t, c.corpus_txt_scale, cb_i, cb_t, mask, k=k, alpha=alpha)
         if self.quantize_corpus:
             q = q.to(self.model.dtype)
+            args = (c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale)
+            if mesh:
+                mode = "q4" if self.quantize_corpus == "int4" else "q8"
+                return sharded_masked_similarity_topk(q, args, mask, k=k, alpha=alpha, mode=mode, **mesh)
             fn = masked_similarity_topk_q4 if self.quantize_corpus == "int4" else masked_similarity_topk_q8
-            return fn(q, c.corpus_img, c.corpus_img_scale, c.corpus_txt, c.corpus_txt_scale, mask, k=k, alpha=alpha)
-        return masked_similarity_topk(q.to(c.corpus_img.dtype), c.corpus_img, c.corpus_txt, mask, k=k, alpha=alpha)
+            return fn(q, *args, mask, k=k, alpha=alpha)
+        q = q.to(c.corpus_img.dtype)
+        if mesh:
+            return sharded_masked_similarity_topk(q, (c.corpus_img, c.corpus_txt), mask, k=k, alpha=alpha,
+                                                  mode="exact", **mesh)
+        return masked_similarity_topk(q, c.corpus_img, c.corpus_txt, mask, k=k, alpha=alpha)
 
     def _k_fetch(self, c: _CorpusState, k: int) -> int:
         """Pad rows score exactly 0 and could displace negative-scoring real
@@ -549,7 +708,7 @@ class CLIPRetrieval:
             k = k * self.rerank_factor
         if self.ann == "ivf":
             return min(k, c.n_real) if self.rerank else k
-        return min(k + self.capacity_multiple - 1, len(c.store))
+        return min(k + self._pad_multiple() - 1, len(c.store))
 
     def _check_pq_probe_cost(self, c: _CorpusState, batch: int) -> None:
         """Refuse IVF-PQ searches whose LUT-walk lookup count exceeds
@@ -727,13 +886,31 @@ class CLIPRetrieval:
                 "clusters); use retrieval_candidates_batch for allow-lists in ann mode"
             )
         mask = self._mask_from_uuids(c, allow_uuids, deny_uuids)
-        return self._filtered_emb(c, self.encode_queries(queries), mask, alpha, top_k)
+        if not self.shard_queries:
+            return self._filtered_emb(c, self.encode_queries(queries), mask, alpha, top_k)
+        ids = torch.as_tensor(self._tokenize(queries), dtype=torch.long)
+        k = self._k_fetch_masked(c, min(top_k or c.top_k, c.n_real))
+
+        def body(dev, ids_s, a_s):
+            q = self._encode_ids(ids_s, dev)
+            out = self._score_masked(self._state_on(c, dev), q, a_s, mask, k)
+            return out + (q,) if self.rerank else out
+
+        with torch.no_grad():
+            return self._qdp(body, ids, alpha_column(alpha, ids.shape[0], self.device))
 
     @torch.no_grad()
     def _filtered_emb(self, c: _CorpusState, q_emb, mask, alpha, top_k: Optional[int]):
-        k = min(top_k or c.top_k, c.n_real)
+        k = self._k_fetch_masked(c, min(top_k or c.top_k, c.n_real))
         q = torch.as_tensor(q_emb, dtype=torch.float32, device=self.device)
-        vals, idx = self._score_masked(c, q, alpha, mask, self._k_fetch_masked(c, k))
+        if self.shard_queries:
+            # the row mask is one filter for the batch: it replicates
+            def body(dev, q_s, a_s):
+                return self._score_masked(self._state_on(c, dev), q_s.to(dev), a_s, mask, k)
+
+            vals, idx = self._qdp(body, q, alpha_column(alpha, q.shape[0], self.device))
+        else:
+            vals, idx = self._score_masked(c, q, alpha, mask, k)
         return (vals, idx, q) if self.rerank else (vals, idx)
 
     def retrieval_filtered_batch(

@@ -133,8 +133,14 @@ class EmbeddingStore:
 
     # -- device placement ----------------------------------------------------
 
-    def device_arrays(self, dtype: torch.dtype, device):
-        """Both towers as ``dtype`` tensors on ``device``."""
+    def device_arrays(self, dtype: torch.dtype, device=None, mesh=None, axis: str = "data"):
+        """Both towers as ``dtype`` tensors on ``device``, or row-sharded
+        over ``axis`` of ``mesh`` (``parallel.sharding.RowShards``; pad to the
+        shard multiple first with :meth:`padded`)."""
+        if mesh is not None:
+            from ..parallel.sharding import shard_rows
+
+            return tuple(shard_rows(host_tensor(a).to(dtype=dtype), mesh, axis) for a in (self.image, self.text))
         img = host_tensor(self.image).to(device=device, dtype=dtype)
         txt = host_tensor(self.text).to(device=device, dtype=dtype)
         return img.contiguous(), txt.contiguous()

@@ -10,7 +10,7 @@ whatever the embeddings' dtype.
 ``axis_name`` names the JAX mesh axis whose all-gather gives global-batch
 negatives. On one process the gather is the identity, as on a one-device
 JAX mesh; a ``torch.distributed`` run of more than one process is ROADMAP
-A5 and raises.
+A5 (b) and raises.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def require_one_process(what: str) -> None:
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(f"{what} across processes is not ported yet: ROADMAP A5 (parallel modes)")
+        raise NotImplementedError(f"{what} across processes is not ported yet: ROADMAP A5 (b) (parallel training)")
 
 
 def _check_one_process(axis_name) -> None:

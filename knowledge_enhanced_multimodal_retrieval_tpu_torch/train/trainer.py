@@ -28,7 +28,7 @@ on one card (the JAX package's data-parallel step on a one-device mesh):
 Compute runs in the model's dtype (bf16 on the card) with f32 parameters, as
 in the JAX package. Attention runs the B6/B7 kernel forward on a CUDA tensor
 and recomputes its gradient through the plain version. The sharded steps of
-ROADMAP A5 raise ``NotImplementedError`` where the JAX trainer branches to
+ROADMAP A5 (b) raise ``NotImplementedError`` where the JAX trainer branches to
 them; the JAX trainer's refusals of variant combinations raise ``ValueError``.
 """
 
@@ -61,7 +61,7 @@ from .schedule import cosine_annealing_lr
 
 # The reference validates on T2I + T2T only and early-stops on their mean MRR.
 VAL_TASKS = ("T2I", "T2T")
-A5 = "ROADMAP A5 (parallel modes)"
+A5 = "ROADMAP A5 (b) (parallel training)"
 
 Params = Dict[str, torch.Tensor]
 

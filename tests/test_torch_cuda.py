@@ -1212,3 +1212,185 @@ def test_qat_payoff_quick_on_card(dev, tmp_path):
     for run in ("ptq", "qat"):
         assert all(np.isfinite(v) for v in out["runs"][run].values()), out["runs"][run]
     assert out["backend"] == "cuda" and out["device"].startswith("NVIDIA")
+
+
+# -- sharded serving (ROADMAP A5 (a)) -------------------------------------------
+
+
+def _card_mesh(dev, n):
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import make_mesh
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig
+
+    return make_mesh(MeshConfig(data_parallel=n), [dev] * n)
+
+
+def _topk_agree(got, scores, k, tol=1e-5):
+    """Card top-k against the plain top-k of ``scores`` (CPU f32): values
+    within ``tol``, rows equal wherever the values are no near tie."""
+    gv, gi = (t.cpu() for t in got)
+    wv, wi = S.topk_plain(scores, k)
+    torch.testing.assert_close(gv, wv, rtol=tol, atol=tol)
+    differ = gi.long() != wi.long()
+    assert bool(((gv - wv).abs()[differ] <= tol).all())
+
+
+@pytest.mark.parametrize("n, shard_n", [(4, 1001), (3, 999), (2, 4096)])
+@pytest.mark.parametrize("mode", ["exact", "q8", "q4"])
+def test_sharded_b2_on_card_matches_plain(rng, dev, n, shard_n, mode):
+    """Each shard is a row view of the staged corpus (odd shard_n included)
+    and launches B2 once; the merged top-k is the plain top-k of the whole
+    corpus, at k below and above 128."""
+    rows, d, q = n * shard_n, 256, 37
+    img = rng.standard_normal((rows, d)).astype(np.float32)
+    txt = rng.standard_normal((rows, d)).astype(np.float32)
+    qs = _t(rng.standard_normal((q, d)), dev, torch.bfloat16)
+    alpha = torch.tensor(rng.uniform(0.2, 0.8, q).astype(np.float32))
+    mesh = _card_mesh(dev, n)
+    if mode == "exact":
+        args = (_t(img, dev, torch.bfloat16), _t(txt, dev, torch.bfloat16))
+        fn = S.sharded_similarity_topk
+        scores = S.blended_scores(qs.cpu(), *(a.cpu() for a in args), alpha)
+    else:
+        quant = S.quantize_corpus_host if mode == "q8" else S.quantize_corpus_host_q4
+        (ci, si), (ct, st) = quant(img), quant(txt)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (ci, si, ct, st))
+        fn = S.sharded_similarity_topk_q8 if mode == "q8" else S.sharded_similarity_topk_q4
+        plain = S.blended_scores_q8 if mode == "q8" else S.blended_scores_q4
+        scores = plain(qs.cpu(), *(a.cpu() for a in args), alpha)
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import shard_rows
+
+    parts = shard_rows(args[0], mesh)
+    row_bytes = args[0][0].numel() * args[0].element_size()
+    assert [t.data_ptr() for _, t in parts.shards] == [args[0].data_ptr() + g * shard_n * row_bytes for g in range(n)]
+    for k in (20, 300):
+        dispatch.reset_launch_counts()
+        got = fn(qs, *args, k, alpha.to(dev), mesh)
+        assert dispatch.launch_counts()["similarity_topk_kernel"] == n
+        _topk_agree(got, scores, k)
+
+
+@pytest.mark.parametrize("n, shard_n", [(4, 1001), (2, 3000)])
+def test_sharded_b5_on_card_matches_plain(rng, dev, n, shard_n):
+    """B5 once a shard (codebooks replicated); the merged top-k is the plain
+    top-k of the whole corpus's ADC scores (B5 is bit-equal to them)."""
+    rows, d, m = n * shard_n, 128, 16
+    codes_i = torch.from_numpy(rng.integers(0, 256, (rows, m), dtype=np.uint8)).to(dev)
+    codes_t = torch.from_numpy(rng.integers(0, 256, (rows, m), dtype=np.uint8)).to(dev)
+    sc_i = _t(rng.uniform(0.5, 1.5, (rows, 1)), dev, torch.float32)
+    sc_t = _t(rng.uniform(0.5, 1.5, (rows, 1)), dev, torch.float32)
+    cb_i = _t(rng.standard_normal((m, 256, d // m)), dev, torch.float32)
+    cb_t = _t(rng.standard_normal((m, 256, d // m)), dev, torch.float32)
+    qs = _t(rng.standard_normal((19, d)), dev, torch.bfloat16)
+    args = (codes_i, sc_i, codes_t, sc_t, cb_i, cb_t)
+    scores = PQ.blended_scores_pq_adc(qs.cpu(), *(a.cpu() for a in args), 0.4)
+    for k in (20, 200):
+        dispatch.reset_launch_counts()
+        got = PQ.sharded_pq_similarity_topk(qs, *args, k, 0.4, _card_mesh(dev, n))
+        assert dispatch.launch_counts()["pq_adc_topk_kernel"] == n
+        _topk_agree(got, scores, k, tol=0)
+
+
+def test_sharded_ivf_and_hamming_on_card_match_cpu(rng, dev):
+    """The plain PyTorch sharded scans (IVF probe, sketch) give the CPU's
+    answers on the card."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import binary_sketch as B
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval import ann as A
+
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    img, txt = norm(rng.standard_normal((4000, 64))), norm(rng.standard_normal((4000, 64)))
+    q = norm(rng.standard_normal((9, 64)))
+    index = A.build_ivf_index(img, txt, 16, quantize="int8")
+    cpu_mesh = _card_mesh(torch.device("cpu"), 4)
+    for nprobe in (5, 16):
+        want = A.sharded_ivf_search(torch.tensor(q), index, k=30, nprobe=nprobe, mesh=cpu_mesh)
+        got = A.sharded_ivf_search(torch.tensor(q, device=dev), index.to(dev), k=30, nprobe=nprobe,
+                                   mesh=_card_mesh(dev, 4))
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    bi, bt = (torch.from_numpy(B.pack_sign_bits_host(x).view(np.int32)) for x in (img, txt))
+    want = B.sharded_hamming_topk(torch.tensor(q), bi, bt, dim=64, k=25, alpha=0.5, mesh=cpu_mesh)
+    got = B.sharded_hamming_topk(torch.tensor(q, device=dev), bi.to(dev), bt.to(dev), dim=64, k=25, alpha=0.5,
+                                 mesh=_card_mesh(dev, 4))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("mode", ["shard_corpus", "shard_queries"])
+def test_sharded_retriever_on_card(rng, dev, mode):
+    """``CLIPRetrieval`` over ``[cuda] * 4``: shard_corpus launches B2 q8
+    once a shard, shard_queries B1 once a layer and B2 once for each query
+    slice; the answers equal the unsharded retriever's on the card."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import MeshRuntime
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig
+
+    arch = CLIPArch(256, 32, 1, 128, 16, 77, 49408, 256, 4, 2)
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    store = EmbeddingStore(image=norm(rng.standard_normal((3001, 256))), text=norm(rng.standard_normal((3001, 256))),
+                           uuids=[f"uuid-{k:06d}" for k in range(3001)])
+    tok = CLIPTokenizer([("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")])
+    model = build_model("tiny", dtype=torch.bfloat16, seed=0, device=dev, arch=arch)
+    kw = dict(device=dev, top_k=20, quantize="int8", quantize_corpus="int8")
+    plain = CLIPRetrieval(model, tok, store, **kw)
+    rt = MeshRuntime.create(MeshConfig(data_parallel=4), [dev] * 4)
+    sharded = CLIPRetrieval(model, tok, store, rt=rt, **{mode: True}, **kw)
+    queries = [f"hello cat {'he ' * (i % 5)}" for i in range(10)]
+    dispatch.reset_launch_counts()
+    got = sharded.retrieval_batch(queries)
+    counts = dispatch.launch_counts()
+    assert counts["similarity_topk_kernel"] == 4
+    assert counts["fused_layer_q8"] == (arch.text_layers * 4 if mode == "shard_queries" else arch.text_layers)
+    want = plain.retrieval_batch(queries)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose([x["score"] for x in a], [x["score"] for x in b], rtol=1e-5, atol=1e-5)
+        sa, sb = [x["uuid"] for x in a], [x["uuid"] for x in b]
+        for i, (u, v) in enumerate(zip(sa, sb)):
+            assert u == v or abs(a[i]["score"] - b[i]["score"]) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["shard_corpus", "shard_queries"])
+def test_sharded_serving_across_cards(rng, dev, mode):
+    """A mesh of distinct cards (skips with fewer than two): each shard and
+    each query slice launches on the card its operands live on, and the
+    answers equal one card's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import MeshRuntime
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    arch = CLIPArch(256, 32, 1, 128, 16, 77, 49408, 256, 4, 2)
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    store = EmbeddingStore(image=norm(rng.standard_normal((4001, 256))), text=norm(rng.standard_normal((4001, 256))),
+                           uuids=[f"uuid-{k:06d}" for k in range(4001)])
+    tok = CLIPTokenizer([("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")])
+    model = build_model("tiny", dtype=torch.bfloat16, seed=0, device=cards[0], arch=arch)
+    kw = dict(device=cards[0], top_k=20, quantize="int8", quantize_corpus="int8")
+    rt = MeshRuntime.create(MeshConfig(data_parallel=len(cards)), cards)
+    sharded = CLIPRetrieval(model, tok, store, rt=rt, **{mode: True}, **kw)
+    queries = [f"hello cat {'he ' * (i % 5)}" for i in range(10)]
+    got, want = sharded.retrieval_batch(queries), CLIPRetrieval(model, tok, store, **kw).retrieval_batch(queries)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose([x["score"] for x in a], [x["score"] for x in b], rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_operands_on_two_cards_raise(rng, dev):
+    """A kernel wrapper given operands on two cards refuses rather than
+    launching on one of them (skips with fewer than two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.similarity import similarity_topk_kernel
+
+    q = _t(rng.standard_normal((4, 64)), torch.device("cuda", 0), torch.bfloat16)
+    c = _t(rng.standard_normal((256, 64)), torch.device("cuda", 1), torch.bfloat16)
+    with pytest.raises(ValueError, match="several cards"):
+        dispatch.operands_device((q, c), {})
+    with pytest.raises(ValueError, match="several cards"):
+        dispatch.operands_device((q,), {"alpha": c})
+    dispatch.reset_launch_counts()
+    with pytest.raises(ValueError, match="several cards"):
+        similarity_topk_kernel(q, q, c, c, None, None, torch.full((4, 1), 0.5, device=q.device), 5)
+    assert dispatch.launch_counts()["similarity_topk_kernel"] == 0

@@ -271,8 +271,9 @@ def test_cli_flags_without_a_card(tmp_path):
                            (index_cli.main, ["--store", store, "--out", str(tmp_path / "i.npz")])):
             with pytest.raises(RuntimeError, match="--device=cpu"):
                 main(args)  # the default device is the card
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tserve.main([f"--store={store}", "--multihost", "--device=cpu"])
+    # multi-host serving is ported; --warmup would search outside the broadcast, as in JAX
+    with pytest.raises(ValueError, match="--warmup does not compose with --multihost"):
+        tserve.main([f"--store={store}", "--multihost", "--warmup=1,2", "--device=cpu"])
     opts = tserve.pop_daemon_flags(args := ["--http", "8080", "--warmup=1,2", "--bucket-queries", "--x=1"])
     assert args == ["--x=1"] and opts == tserve.DaemonOptions(port=8080, warmup="1,2", bucket_queries=True)
     out = index_cli.main(["--store", store, "--out", str(tmp_path / "ivf.npz"), "--eval.ann_nlist=2",

@@ -107,6 +107,11 @@ SLICE_MODULES = [
     f"{PKG}.cli.mine_negatives",
     f"{PKG}.cli.distill",
     f"{PKG}.scripts.qat_payoff",
+    f"{PKG}.parallel",
+    f"{PKG}.parallel.mesh",
+    f"{PKG}.parallel.sharding",
+    f"{PKG}.retrieval.multihost",
+    f"{PKG}.scripts.dryrun_multichip",
 ]
 
 

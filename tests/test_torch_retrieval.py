@@ -22,15 +22,19 @@ from knowledge_enhanced_multimodal_retrieval_tpu.data.tokenizer import CLIPToken
 from knowledge_enhanced_multimodal_retrieval_tpu.knowledge import FakeKGSparqlClient, FakeLLMClient, Text2SparqlRetrieval
 from knowledge_enhanced_multimodal_retrieval_tpu.models import clip as JM
 from knowledge_enhanced_multimodal_retrieval_tpu.models.convert import flax_to_openai
+from knowledge_enhanced_multimodal_retrieval_tpu.parallel import MeshRuntime as JMeshRuntime
 from knowledge_enhanced_multimodal_retrieval_tpu.retrieval.clip_retrieval import CLIPRetrieval as JRetrieval
 from knowledge_enhanced_multimodal_retrieval_tpu.retrieval.embedding_store import EmbeddingStore as JStore
 from knowledge_enhanced_multimodal_retrieval_tpu.retrieval.engine import RetrievalEngine as JEngine
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import serve
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer as TTok
+from knowledge_enhanced_multimodal_retrieval_tpu.utils.config import MeshConfig as JMeshConfig
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import load_openai_state_dict
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import MeshRuntime as TMeshRuntime
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval as TRetrieval
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore as TStore
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.engine import RetrievalEngine as TEngine
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig as TMeshConfig
 
 
 def from_flax_params(params, **kw):
@@ -185,16 +189,24 @@ def test_flax_encoder_mode_matches_fused(world):
 
 @pytest.mark.parametrize(
     "kwargs",
-    # the parallel modes (A5) stay out on every corpus tier
-    [{"shard_corpus": True}, {"shard_queries": True}, {"rt": object()},
-     {"shard_corpus": True, "quantize_corpus": "int4"}, {"shard_queries": True, "ann": "ivf"},
-     {"rt": object(), "quantize_corpus": "pq"}],
+    # the parallel modes are ported (A5 (a)); what raises is what the JAX
+    # retriever refuses: both modes at once, and a multi-slice (dcn) mesh
+    [{"shard_corpus": True, "shard_queries": True}, {"shard_queries": True, "dcn": True},
+     {"shard_corpus": True, "dcn": True}, {"shard_corpus": True, "shard_queries": True, "quantize_corpus": "int4"},
+     {"shard_queries": True, "ann": "ivf", "dcn": True}, {"shard_corpus": True, "quantize_corpus": "pq", "dcn": True}],
 )
 def test_out_of_slice_options_raise(world, kwargs):
-    _, params, path = world
+    model, params, path = world
+    kw = dict(kwargs)
+    cfg = dict(dcn_parallel=2) if kw.pop("dcn", False) else {}
+    jrt = JMeshRuntime.create(JMeshConfig(**cfg))  # the conftest's 8 virtual devices
+    trt = TMeshRuntime.create(TMeshConfig(**cfg), [torch.device("cpu")] * 8)
+    with pytest.raises(ValueError) as jerr:
+        JRetrieval(model, params, JTok(MERGES), JStore.load(path), rt=jrt, **kw)
     tower = from_flax_params(params, dtype=torch.float32, arch=ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TRetrieval(tower, TTok(MERGES), TStore.load(path), device="cpu", **kwargs)
+    with pytest.raises(ValueError) as terr:
+        TRetrieval(tower, TTok(MERGES), TStore.load(path), device="cpu", rt=trt, **kw)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_store_npz_roundtrip_across_packages(world, tmp_path):
@@ -235,8 +247,9 @@ def test_serve_cli_refuses_silent_fallbacks(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device=cpu"):
             serve.main([f"--store={path}", "--query=x"])  # default --device=cuda
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        serve.main([f"--store={path}", "--multihost", "--device=cpu"])
+    # multi-host serving is ported; fused rescoring outside the broadcast is refused, as in JAX
+    with pytest.raises(ValueError, match="does not compose with --multihost"):
+        serve.main([f"--store={path}", "--multihost", "--fusion.head_params=head.npz", "--device=cpu"])
 
 
 @pytest.mark.parametrize("mode", sorted(_MODES))
