@@ -151,7 +151,7 @@ just after; every kernel must have launched in the path it belongs to.
 21. The profiling scripts (``profiling_scripts_phase``): ``scripts.{profile_serving,
    profile_vision, vision_batch_sweep, profile_pq, profile_ivf,
    scale_bench}.main`` once each at full width with repeats cut
-   (``SCRIPT_RUNS``; ``profile_ivf`` at 32,768 rows, ``scale_bench`` at 131,072), their JSON under
+   (``SCRIPT_RUNS``; ``profile_pq`` at 21,504 rows, ``profile_ivf`` at 16,384, ``scale_bench`` at 65,536), their JSON under
    ``chiprun_out/``; every line finite, the scans' recall checked.
 22. Training (``train_phase``): ``cli.train`` at ViT-L/14 (bf16 compute, f32
    parameters, batch 64, ``synthetic:256``): the reference-parity run
@@ -160,7 +160,7 @@ just after; every kernel must have launched in the path it belongs to.
    at epoch 2; a variant (accumulation 2, EMA 0.999, remat, FLIP 0.5: the
    vision tower at s = 129) whose ``load_params_only`` must return the EMA
    shadow, and a second one (SigLIP, Matryoshka 256 / 768, frozen image
-   encoder), 1 epoch each, both at ViT-L/14 widths cut to 6 vision and 3
+   encoder), 1 epoch each, both at ViT-L/14 widths cut to 4 vision and 2
    text layers; ``cli.export --format openai`` of the best checkpoint,
    loaded through ``load_clip_state_dict``, its module towers against the
    ``fast`` ones (cosine > 0.999), one 256-query ``fast`` batch over the
@@ -177,10 +177,10 @@ just after; every kernel must have launched in the path it belongs to.
    the host merge; the card's merge within half a bf16 step of it), the
    merged model served (one 256-query ``int8`` batch: B1, B2 q8) against the
    plain top-k; GradCache (4 chunks) at ViT-L/14, 1 epoch; QAT at ViT-L/14
-   widths cut to 6 + 3 layers, 1 epoch; ``cli.mine_negatives
+   widths cut to 4 + 2 layers, 1 epoch; ``cli.mine_negatives
    --eval.encoder=int8 --k=16`` at ViT-L/14 (B1 on both towers; the card's
    table against a CPU mining of the same embeddings, near ties excepted) and
-   ``cli.train`` with the table (k 4) at 6 + 3 layers; ``cli.distill``
+   ``cli.train`` with the table (k 4) at 4 + 2 layers; ``cli.distill``
    (ViT-B/32 student, ViT-L/14 ``int8`` teacher, cosine term off), 1 epoch;
    ``scripts/qat_payoff.py`` at its defaults; one LoRA, QAT, GradCache and
    distill step of ViT-L/14 widths at 1 layer, batch 8, f32, on the card
@@ -204,8 +204,27 @@ just after; every kernel must have launched in the path it belongs to.
    sharded over the two; rank 0 answers 16 queries from standard input) and
    a world-size-1 NCCL group driving ``MultiHostSearch`` in this process,
    both against the single-process retriever.
+25. Parallel training (``parallel_training_phase``, ROADMAP A5 (b)) over
+   ``[cuda:0] * 4``: f32 (TF32 off) steps of ViT-L/14 widths at 1 layer a
+   tower, batch 16, global negatives: DP4, FSDP4, dp2 x tp2, fsdp + tp and
+   dcn2 x dp2 against the one-device step (loss 1e-5, parameters 2e-5);
+   DP4 with local negatives against the mean of its four shards' losses;
+   LoRA, GradCache (2 chunks), mined negatives and distillation under DP4
+   against their one-device steps; ViT-L/14 in bf16, batch 64, DP4, FSDP4
+   and dp2 x tp2 (step ms, peak memory, FSDP's state a position a quarter of
+   the replicated one to 1 %); two ``cli.train`` processes over gloo on the
+   card against one process over ``[cuda:0] * 2`` (monitors, steps and stop
+   decision equal on both ranks, parameters equal across ranks and to 1e-4
+   of one process, metrics written by rank 0 only) and a world-size-1 NCCL
+   step and encode; pp (ViT-L/14's 12 text blocks in 4 stages, 8
+   microbatches, forward and gradients against the stack), sp (ring
+   attention [2, 12, 1024, 64] in f32 and bf16 against ``mha``, which
+   launches B7; a text block at s = 1024 against ``ResidualBlock``), ep (4
+   experts, 768 / 3072, 154 tokens, sharded against unsharded); the sharded
+   ``int8`` encode over 4 shards against one device (cosine > 0.999, 99.5 %
+   of values within 1e-3).
 The kernel line's entries carry ``launches_by_path`` for the launches of
-items 15-24 beside the earlier paths', and ``launches`` is their sum.
+items 15-25 beside the earlier paths', and ``launches`` is their sum.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 object with the kernel table, and ``{"ok": true, "device": {...}}``.
@@ -407,7 +426,7 @@ def record(torch, results, name, src, replaces, got, want, tol, kernel_fn, plain
     log(f"{name}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
     if not np.isfinite(err) or err > tol:
         raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
-    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters)
+    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn, iters=plain_iters, warmup=1 if plain_iters < 20 else 3)
     log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 20 / {plain_iters}, CUDA events)")
     library_ms = median_ms(library_fn) if library_fn is not None else None
     if library_fn is not None:
@@ -1493,7 +1512,7 @@ def capacity_kernel_phases(torch, dev, results):
     ref_pq = "knowledge_enhanced_multimodal_retrieval_tpu/ops/pq.py:708"
     for n in (CORPUS, SCALE_ROWS):
         t0 = time.perf_counter()
-        plain_iters = 20 if n == CORPUS else 5
+        plain_iters = 20 if n == CORPUS else 3  # the plain B5 at 1M rows takes ~1.9 s a call
         if n == CORPUS:  # host-packed real rows
             packs = [SIM.quantize_corpus_host_q4(norm(rng.standard_normal((n, WIDTH)))) for _ in range(2)]
             c4 = (_t(torch, dev, packs[0][0], torch.int8), _t(torch, dev, packs[0][1], f32),
@@ -3072,13 +3091,14 @@ def baseline_phase(torch, dev, results):
         f"baseline phase {results['baseline']['phase_s']:.1f} s (no kernel of the port: plain products on the card)")
 
 
-IVF_ROWS = 32_768  # profile_ivf's corpus (its default 262,144 spends ~70 s in the host IVF-PQ build)
-SCALE_BENCH_ROWS = 131_072  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
+PQ_PROFILE_ROWS = 21_504  # profile_pq's corpus here (its default 43,000 spends ~20 s in host PQ k-means)
+IVF_ROWS = 16_384  # profile_ivf's corpus (its default 262,144 spends ~70 s in the host IVF-PQ build)
+SCALE_BENCH_ROWS = 65_536  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
 SCRIPT_RUNS = {  # name: (argv, the module's scan functions tallied by name) -- repeats and profile_ivf's rows cut, widths kept
     "profile_serving": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8")),
     "profile_vision": (["--iters=5"], ()),
     "vision_batch_sweep": (["--bf16", "--medians=2", "--iters=3"], ()),
-    "profile_pq": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8", "fused_similarity_topk_q4",
+    "profile_pq": (["--iters=10", f"--n={PQ_PROFILE_ROWS}"], ("fused_similarity_topk", "fused_similarity_topk_q8", "fused_similarity_topk_q4",
                                     "fused_pq_topk")),
     "profile_ivf": (["--repeats=5", f"--n={IVF_ROWS}"], ("fused_similarity_topk_q8",)),
     "scale_bench": ([f"--rows={SCALE_BENCH_ROWS}", "--iters=5"], ("fused_similarity_topk_q8", "fused_similarity_topk_q4",
@@ -3129,7 +3149,7 @@ def profiling_scripts_phase(torch, dev, results):
 
 TRAIN_N, TRAIN_BATCH = 256, 64  # synthetic:256 at TrainConfig.batch_size: 4 steps an epoch
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_BATCH = 1, 8  # the card-vs-CPU step: ViT-L/14 widths, 1 layer a tower
-TRAIN_VARIANT_LAYERS = (6, 3)  # the variant runs: ViT-L/14 widths, depth cut (vision, text) to keep the phase short
+TRAIN_VARIANT_LAYERS = (4, 2)  # the variant runs: ViT-L/14 widths, depth cut (vision, text) to keep the phase short
 OVERFIT_STEPS, OVERFIT_LR = 8, 2e-5
 TOL_GRAD_COS, TOL_LOSS_BF16, TOL_F32 = 0.99, 1e-2, 1e-4
 
@@ -3788,8 +3808,8 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         f"{r} {v['wall_s']:.1f} s, step ms (events, median of steps 2..n) {res['step_ms'].get(r, float('nan')):.1f}, "
         f"peak {v['max_memory_allocated'] / 2**30:.2f} GiB, loss {', '.join(f'{x:.4f}' for x in v['loss'])}"
         for r, v in res["runs"].items()))
-    what = {"lora": "LoRA, ViT-L/14", "gradcache": "GradCache, ViT-L/14, both passes", "qat": "QAT, 6 + 3 layers",
-            "negatives": "mined negatives, 6 + 3 layers", "distill": "distill, ViT-B/32 student (s = 50)"}
+    what = {"lora": "LoRA, ViT-L/14", "gradcache": "GradCache, ViT-L/14, both passes", "qat": "QAT, {} + {} layers".format(*TRAIN_VARIANT_LAYERS),
+            "negatives": "mined negatives, {} + {} layers".format(*TRAIN_VARIANT_LAYERS), "distill": "distill, ViT-B/32 student (s = 50)"}
     paths = {
         "B6 flash_attention s=257": {
             **{f"variants: {what[r]}: train steps": n for r, n in b6_train.items()},
@@ -3812,6 +3832,450 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
     res["launches_by_path"] = paths
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"train variants phase: {res['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in wall.items())})")
+    return paths
+
+
+PT_SHARDS = 4  # the parallel training phase's mesh: [cuda:0] * 4
+PT_BATCH, PT_FULL_BATCH = 16, 64  # the equality steps' batch (4 rows a shard), the full-depth steps' batch
+PT_MP_N, PT_MP_BATCH = 16, 8  # the two-process cli.train run: synthetic:16, 2 steps an epoch, 2 epochs
+TOL_PT_LOSS, TOL_PT_PARAM = 1e-5, 2e-5  # a sharded step against one device (JAX tests/test_{fsdp,tp}.py)
+TOL_PT_NORM = 1e-5  # a sharded step's grad_norm against one device's, relative
+# The equality steps' learning rate. AdamW's first step moves each parameter by about lr * sign(g), so a gradient
+# that is wrong in sign or never arrives moves it by lr or more: 10x TOL_PT_PARAM. Where |g| is under AdamW's eps
+# (1e-6) the step is lr * g / eps, which turns f32 rounding in g (~2e-8 at these widths: dp2 x tp2's split sums)
+# into lr * 2e-2: 4e-6 here, 2e-5 (the limit) at lr 1e-3.
+PT_LR = 2e-4
+PT_MP_LR = 1e-3  # the two-process run's (the CPU tests'): 4 steps of DP, whose sums split only the batch
+TOL_PT_MP = 1e-4  # two processes' parameters (and monitors) after 4 steps against one process (the repo's fp bar)
+TOL_PT_FSDP_STATE = 0.01  # FSDP's state bytes a position against a quarter of the replicated state
+TOL_PT_BLOCKS = 1e-4  # pp / sp blocks against the stack or the module (f32, the kernel's order of sums)
+PT_LAYOUTS = {"dp4": dict(data_parallel=4), "fsdp4": dict(data_parallel=4, fsdp=True),
+              "dp2xtp2": dict(data_parallel=2, model_parallel=2),
+              "fsdp2xtp2": dict(data_parallel=2, model_parallel=2, fsdp=True),
+              "dcn2xdp2": dict(dcn_parallel=2, data_parallel=2)}
+_MP_TRAIN = """
+import sys, torch
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import train as CT
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+real = TT.CLIPTrainer.train
+def train(self, *a, **kw):  # keep each rank's final parameters beside the result
+    out = real(self, *a, **kw)
+    torch.save({"params": self.params(), "result": out}, sys.argv[1])
+    return out
+TT.CLIPTrainer.train = train
+CT.main(sys.argv[2:])
+"""
+
+
+def parallel_training_phase(torch, dev, tmp, model, results):
+    """Parallel training (ROADMAP A5 (b), item 25) over ``[cuda:0] * 4``:
+    (1) f32, TF32 off, ViT-L/14 widths at ``TRAIN_SMALL_LAYERS`` a tower,
+    batch 16, global negatives: DP4, FSDP4, dp2 x tp2, fsdp + tp and dcn2 x
+    dp2 against the one-device step (loss 1e-5, parameters 2e-5); DP4 with
+    local negatives against the mean of the four shard losses computed by
+    hand; LoRA, GradCache (2 chunks), distillation and mined negatives under
+    DP4 against their one-device steps; (2) ViT-L/14 in bf16, batch 64: DP4,
+    FSDP4 and dp2 x tp2, step ms (median of 3 after a warm-up), peak memory,
+    finite losses, FSDP's state a position a quarter of the replicated one;
+    (3) two ``cli.train`` processes over gloo on the card (2 epochs of
+    ``synthetic:16``) against one process over ``[cuda:0] * 2``, and one
+    data-parallel step and encode under a world-size-1 NCCL group; (4) pp
+    (the 12 ViT-L/14 text blocks, 4 stages, 8 microbatches of [8, 77, 768],
+    forward and gradients against the sequential stack), sp (ring attention
+    at [2, 12, 1024, 64] f32 and bf16 against ``mha``: B7; a text block at
+    s = 1024 against ``ResidualBlock``) and ep (4 experts, width 768, hidden
+    3072, 154 tokens, sharded against unsharded); (5) the sharded ``int8``
+    encode over 4 shards against one device under the int8 rules. Returns
+    {kernel line: {path: launches}}."""
+    import copy
+    import dataclasses
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.datasets import DataPipeline, make_synthetic_source
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.eval.evaluator import encode_dataset
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import fast_encode as FE
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import save_openai_pt
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import ep as EP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import pp as PP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import sp as SP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.mesh import Mesh, MeshRuntime
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import distill as TD
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train.lora import lora_init
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train.losses import joint_contrastive_loss
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    res = results["parallel_training"] = {}
+    wall, b6, paths = {}, {}, {}
+    flash = "flash_attention_kernel"
+    tok = CLIPTokenizer(MERGES)
+
+    def rt_of(layout, n=PT_SHARDS):
+        return MeshRuntime.create(MeshConfig(**layout), [dev] * n)
+
+    def host_batch(n, image_size=224):
+        pipe = DataPipeline(make_synthetic_source(n, image_size=image_size), tok, image_size=image_size,
+                            context_length=77, num_workers=4)
+        b = pipe.make_batch(list(range(n)))
+        return pipe, {"images": b.images, "query_ids": b.query_ids, "target_ids": b.target_ids}
+
+    def on_dev(host):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in host.items()}
+
+    def whole(state, model):
+        if state.layout is not None:
+            return state.whole(state.params())
+        if state.adapters is not None:
+            return {n: a.detach() for n, a in state.adapters.items()}
+        return {n: p.detach() for n, p in model.named_parameters()}
+
+    def make(model, cfg, layout=None, adapters=None, distill=False):
+        """(state, step) of one device (``layout`` None) or of a mesh layout."""
+        rt = None if layout is None else rt_of(layout)
+        if adapters is not None:
+            ad = {n: torch.nn.Parameter(a.clone().to(dev)) for n, a in adapters.items()}
+            for p in model.parameters():
+                p.requires_grad_(False)
+            state = TT.TrainState(model, TT.Optimizer(ad, cfg, 1), 0, None, ad)
+            return state, TT.make_train_step(model, cfg, ad, cfg.lora_alpha / cfg.lora_rank, rt=rt)
+        if distill:
+            return TT.TrainState(model, TT.make_optimizer(cfg, 1, model)), TD.make_distill_step(
+                model, cfg, model.arch.embed_dim, model.arch.embed_dim, rt=rt)
+        if rt is not None and (rt.fsdp or rt.mesh.shape[rt.model_axis] > 1):
+            state = (TT.init_state_fsdp if rt.fsdp else TT.init_state_gspmd)(model, cfg, rt, 1)
+            return state, TT.make_train_step_gspmd(model, cfg, rt, state.layout)
+        return TT.TrainState(model, TT.make_optimizer(cfg, 1, model)), TT.make_train_step(model, cfg, rt=rt)
+
+    def compare(tag, base, cfg, host, layout, **kw):
+        m1, m2 = copy.deepcopy(base), copy.deepcopy(base)
+        s1, f1 = make(m1, cfg, **kw)
+        s1, met1 = f1(s1, on_dev(host))
+        s2, f2 = make(m2, cfg, layout, **kw)
+        dispatch.reset_launch_counts()
+        s2, met2 = f2(s2, dict(host))
+        torch.cuda.synchronize()
+        b6[tag] = dispatch.launch_counts()[flash]
+        w1, w2 = whole(s1, m1), whole(s2, m2)
+        start = dict(p0, **{n: t.detach() for n, t in (kw.get("adapters") or {}).items()})
+        record(tag, met1, met2, max(float((w2[n].to(dev) - w1[n]).abs().max()) for n in w1),
+               max(float((w1[n] - start[n].to(dev)).abs().max()) for n in w1))
+
+    def record(tag, met1, met2, d_param, moved):
+        """Hold a sharded step (``met2``) to the one-device step: loss, grad_norm, parameters."""
+        d_loss = abs(float(met2["loss"]) - float(met1["loss"]))
+        d_norm = abs(float(met2["grad_norm"]) - float(met1["grad_norm"])) / float(met1["grad_norm"])
+        assert d_loss <= TOL_PT_LOSS and d_norm <= TOL_PT_NORM and d_param <= TOL_PT_PARAM, (
+            f"{tag}: loss {d_loss:.3g}, grad_norm {d_norm:.3g} relative, params {d_param:.3g}")
+        # the step must move the parameters far past the tolerance, or the check could not see a gradient
+        assert moved >= 5 * TOL_PT_PARAM, f"{tag}: the one-device step moved the parameters by {moved:.3g}"
+        res.setdefault("equality", {})[tag] = dict(loss_diff=d_loss, grad_norm_rel_diff=d_norm, param_diff=d_param,
+                                                   largest_update=moved)
+
+    # (1) equality: f32, TF32 off, ViT-L/14 widths at TRAIN_SMALL_LAYERS a tower
+    t0 = time.perf_counter()
+    small = dataclasses.replace(CM.ARCHS["ViT-L/14"], vision_layers=TRAIN_SMALL_LAYERS, text_layers=TRAIN_SMALL_LAYERS)
+    base = CM.build_model("ViT-L/14", dtype=torch.float32, seed=0, device=dev, arch=small)
+    pipe16, host = host_batch(PT_BATCH)
+    cfg = TrainConfig(batch_size=PT_BATCH, global_negatives=True, lr=PT_LR)
+    p0 = {n: p.detach().clone() for n, p in base.named_parameters()}  # the start: each step's largest update
+    for tag, layout in PT_LAYOUTS.items():
+        compare(tag, base, cfg, host, layout)
+    # DP4 with local negatives: the mean of the four shard losses, each on its own rows
+    m = copy.deepcopy(base)
+    local = dataclasses.replace(cfg, global_negatives=False)
+    state, step = make(m, local, PT_LAYOUTS["dp4"])
+    with torch.no_grad():
+        per = []
+        for j in range(PT_SHARDS):
+            rows = {k: v[j * 4:(j + 1) * 4] for k, v in on_dev(host).items()}
+            img, q, t = TT.encode_batch(m, None, rows["images"], rows["query_ids"], rows["target_ids"])
+            per.append(float(joint_contrastive_loss(img, q, t, temperature=local.temperature,
+                                                    t2i_weight=local.t2i_weight, t2t_weight=local.t2t_weight)[0]))
+    _, met = step(state, dict(host))
+    d = abs(float(met["loss"]) - float(np.mean(per)))
+    assert d <= TOL_PT_LOSS, f"dp4 local negatives: {float(met['loss'])} against the shards' mean {np.mean(per)}"
+    res["equality"]["dp4 local negatives (the shards' mean)"] = dict(loss_diff=d)
+    # the variants under DP4
+    ad = lora_init(dict(base.named_parameters()), 8, "all", torch.Generator().manual_seed(0))
+    compare("lora dp4", base, dataclasses.replace(cfg, lora_rank=8, lora_alpha=16.0), host, PT_LAYOUTS["dp4"],
+            adapters=ad)
+    compare("gradcache dp4", base, dataclasses.replace(cfg, grad_cache_chunks=2), host, PT_LAYOUTS["dp4"])
+    table = np.stack([np.roll(np.arange(PT_BATCH), -(i + 1))[:4] for i in range(PT_BATCH)]).astype(np.int32)
+    neg_host = dict(host, neg_ids=pipe16.negative_target_ids(np.arange(PT_BATCH), table, 2))
+    compare("mined negatives dp4", base, dataclasses.replace(cfg, hard_negatives="table", hard_negatives_k=2),
+            neg_host, PT_LAYOUTS["dp4"])
+    # distillation: each shard's KD on its own in-batch matrices; the one-device reference averages them by hand
+    rng = np.random.default_rng(3)
+    teach = {k: (lambda x: x / np.linalg.norm(x, axis=1, keepdims=True))(
+        rng.standard_normal((PT_BATCH, small.embed_dim)).astype(np.float32)) for k in ("t_img", "t_q", "t_t")}
+    dcfg = dataclasses.replace(cfg, distill_teacher="teacher")
+    m1, m2 = copy.deepcopy(base), copy.deepcopy(base)
+    s1 = TT.TrainState(m1, TT.make_optimizer(dcfg, 1, m1))
+    params1 = dict(m1.named_parameters())
+    dev_h = on_dev(dict(host, **teach))
+    losses = []
+    for j in range(PT_SHARDS):
+        sl = slice(j * 4, (j + 1) * 4)
+        img, q, t = TT.encode_batch(m1, None, dev_h["images"][sl], dev_h["query_ids"][sl], dev_h["target_ids"][sl])
+        losses.append(TD.distill_loss(img, q, t, dev_h["t_img"][sl], dev_h["t_q"][sl], dev_h["t_t"][sl],
+                                      temperature=dcfg.temperature, t2i_weight=dcfg.t2i_weight,
+                                      t2t_weight=dcfg.t2t_weight, kd_weight=dcfg.distill_kd_weight,
+                                      embed_weight=dcfg.distill_embed_weight)[0])
+    loss1 = torch.stack(losses).mean()
+    loss1.backward()
+    _, met1 = TT.apply_gradients(s1, TT.collect_grads(params1), {"loss": loss1.detach()})
+    s2, f2 = make(m2, dcfg, PT_LAYOUTS["dp4"], distill=True)
+    s2, met2 = f2(s2, dict(host, **teach))
+    record("distill dp4 (the shards' KD averaged by hand)", met1, met2,
+           max(float((p.detach() - params1[n].detach()).abs().max()) for n, p in m2.named_parameters()),
+           max(float((p.detach() - p0[n]).abs().max()) for n, p in params1.items()))
+    del base
+    wall["equality"] = time.perf_counter() - t0
+    log("parallel training equality (f32, ViT-L/14 widths, {} layer a tower, batch {}, lr {}): ".format(
+        TRAIN_SMALL_LAYERS, PT_BATCH, PT_LR) + "; ".join(f"{k} loss {v['loss_diff']:.2e}" + (
+            f", grad_norm {v['grad_norm_rel_diff']:.2e} relative, params {v['param_diff']:.2e} of an update of"
+            f" {v['largest_update']:.2e}" if "param_diff" in v else "") for k, v in res["equality"].items()))
+
+    # (2) full depth: ViT-L/14, bf16 compute, batch 64 (the serving phases' seeded model, copied for each step)
+    t0 = time.perf_counter()
+    full = model
+    replicated = sum(p.numel() * p.element_size() * 3 for p in full.parameters())  # parameter + AdamW's two moments
+    pipe64, host64 = host_batch(PT_FULL_BATCH)
+    cfg64 = TrainConfig(batch_size=PT_FULL_BATCH, global_negatives=True)
+    res["full_depth"] = {}
+    for tag in ("dp4", "fsdp4", "dp2xtp2"):
+        m = copy.deepcopy(full)
+        state, step = make(m, cfg64, PT_LAYOUTS[tag])
+        batch = TT.as_row_shards(host64, rt_of(PT_LAYOUTS[tag]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        dispatch.reset_launch_counts()
+        for _ in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, met = step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(met["loss"]))
+        b6[f"{tag} ViT-L/14"] = dispatch.launch_counts()[flash]
+        assert all(np.isfinite(losses)), f"{tag}: losses {losses}"
+        out = dict(step_ms=float(np.median(times[1:])), max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   losses=losses)
+        if state.layout is not None and tag.startswith("fsdp"):
+            per = state.layout.position_bytes(state.optimizer.moment_tensors())
+            worst = max(abs(x - replicated / PT_SHARDS) for x in per) / (replicated / PT_SHARDS)
+            assert worst <= TOL_PT_FSDP_STATE, f"fsdp4 state a position {per} against {replicated / PT_SHARDS:.0f}"
+            out.update(state_bytes_per_position=per, replicated_state_bytes=replicated, worst_share_error=worst)
+        res["full_depth"][tag] = out
+        del m, state, step, batch
+        torch.cuda.empty_cache()
+    wall["full depth"] = time.perf_counter() - t0
+    log("parallel training at ViT-L/14, bf16, batch {} ({}): ".format(PT_FULL_BATCH, "[cuda:0] x 4") + "; ".join(
+        f"{k} {v['step_ms']:.1f} ms a step, peak {v['max_memory_allocated'] / 2**30:.2f} GiB" for k, v in
+        res["full_depth"].items()) + "; fsdp4 state a position {} of {} bytes replicated".format(
+        res["full_depth"]["fsdp4"]["state_bytes_per_position"], replicated))
+
+    # (3) two cli.train processes over gloo on the card, against one process over [cuda:0] * 2
+    t0 = time.perf_counter()
+    import torch.distributed as dist
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli.common import build_model, build_pipeline
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import config_from_argv
+
+    root = tempfile.mkdtemp(dir=tmp)
+    seed_pt = os.path.join(root, "small.pt")
+    seed_model = CM.build_model("ViT-L/14", dtype=torch.float32, seed=1, arch=small)
+    start_mp = {n: p.detach().clone() for n, p in seed_model.named_parameters()}
+    save_openai_pt(seed_model, seed_pt)
+    del seed_model
+    common = ["--model.name=ViT-L/14", f"--model.checkpoint={seed_pt}", "--model.dtype=float32",
+              f"--data.dataset=synthetic:{PT_MP_N}", f"--train.batch_size={PT_MP_BATCH}", "--train.epochs=2",
+              "--train.global_negatives=true", "--train.early_stop_patience=1", "--data.num_workers=2",
+              f"--train.lr={PT_MP_LR}"]
+    port, procs, logs = free_port(), [], []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            log_f = open(os.path.join(root, f"mp{rank}.log"), "w+")
+            logs.append(log_f)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _MP_TRAIN, os.path.join(root, f"rank{rank}.pt"), f"--device={dev.type}",
+                 *common, f"--train.checkpoint_dir={root}/ckpt", f"--eval.output_dir={root}/out{rank}"],
+                cwd=REPO, env=env, stdout=log_f, stderr=subprocess.STDOUT, text=True))
+        # the one-process reference while the two run: the same global batches over [cuda:0] * 2
+        one_cfg = config_from_argv(common + [f"--train.checkpoint_dir={root}/one", f"--eval.output_dir={root}/one"])
+        one_model = build_model(one_cfg, dev)
+        pipe = build_pipeline(one_cfg, one_cfg.data.split_train)
+        one = TT.CLIPTrainer(one_model, pipe, pipe, one_cfg.train, out_dir=f"{root}/one", rt=rt_of(
+            dict(data_parallel=2), 2))
+        one_result = one.train()
+        one_params = one.params()
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, f"cli.train rank exited {p.returncode}:\n{out[-3000:]}"
+    assert "runtime_init: torch.distributed gloo" in outs[0], "gloo did not run"
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    r0, r1 = (r["result"] for r in ranks)
+    mon = [[h["monitor"] for h in r["history"]] for r in (r0, r1)]
+    assert mon[0] == mon[1] and [h["steps"] for h in r0["history"]] == [h["steps"] for h in r1["history"]]
+    assert (r0["epochs_run"], r0["best_epoch"]) == (r1["epochs_run"], r1["best_epoch"])
+    assert all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in ranks[0]["params"])
+    d_mp = max(float((ranks[0]["params"][n].detach().to(dev) - v.detach()).abs().max())
+               for n, v in one_params.items())
+    mp_moved = max(float((v.detach() - start_mp[n].to(dev)).abs().max()) for n, v in one_params.items())
+    assert d_mp <= TOL_PT_MP and mp_moved >= 5 * TOL_PT_MP, f"two processes against one: {d_mp} of {mp_moved}"
+    one_mon = [h["monitor"] for h in one_result["history"]]
+    assert len(one_mon) == len(mon[0]) and max(abs(a - b) for a, b in zip(one_mon, mon[0])) <= TOL_PT_MP, (
+        f"monitors: one process {one_mon}, the ranks {mon[0]}")
+    assert os.path.exists(f"{root}/out0/train_metrics.jsonl") and not os.path.exists(f"{root}/out1/train_metrics.jsonl")
+    res["two_process"] = dict(wall_s=time.perf_counter() - t0, monitors=mon[0], one_process_monitors=one_mon,
+                              steps=[h["steps"] for h in r0["history"]], param_diff=d_mp, largest_update=mp_moved)
+    shutil.rmtree(root)
+    # one data-parallel step and a validation encode under a world-size-1 NCCL group
+    t1 = time.perf_counter()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        m = copy.deepcopy(full)
+        rt = rt_of(PT_LAYOUTS["dp4"])
+        assert rt.mesh.group is not None
+        state, step = make(m, cfg64, PT_LAYOUTS["dp4"])
+        dispatch.reset_launch_counts()
+        state, met = step(state, dict(host64))
+        enc = TT.make_encode_step(m, rt)(None, host64["images"][:8], host64["query_ids"][:8], host64["target_ids"][:8])
+        torch.cuda.synchronize()
+        b6["dp4 NCCL world 1 (step + encode)"] = dispatch.launch_counts()[flash]
+        assert np.isfinite(float(met["loss"])) and all(e.shape == (8, full.arch.embed_dim) for e in enc)
+        del m, state, step
+    finally:
+        dist.destroy_process_group()
+    res["two_process"]["nccl_world1_s"] = time.perf_counter() - t1
+    wall["two processes + NCCL"] = time.perf_counter() - t0
+    log(f"parallel training: two cli.train processes over gloo {res['two_process']['wall_s']:.1f} s (monitors "
+        f"{mon[0]}, one process {res['two_process']['one_process_monitors']}, params against one process "
+        f"{d_mp:.2e}); NCCL world 1 step + encode {res['two_process']['nccl_world1_s']:.1f} s")
+
+    # (4) pp / sp / ep
+    t0 = time.perf_counter()
+
+    def line(axis):
+        arr = np.empty(PT_SHARDS, dtype=object)
+        arr[:] = [dev] * PT_SHARDS
+        return Mesh(arr, (axis,))
+
+    rng = np.random.default_rng(7)
+    tw, th = full.arch.text_width, full.arch.text_heads  # ViT-L/14's text blocks: width 768, 12 heads, 12 layers
+    blocks = [{k: v.detach().clone().requires_grad_() for k, v in blk.state_dict().items()}
+              for blk in full.text.transformer.resblocks]
+    block = CM.ResidualBlock(tw, th).to(dev)
+    layer = lambda p, x: torch.func.functional_call(block, p, (x, True))  # noqa: E731
+    xs = torch.from_numpy(rng.standard_normal((8, 8, 77, tw)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal(xs.shape).astype(np.float32)).to(dev)
+    stacked = {k: v.detach().clone().requires_grad_() for k, v in PP.stack_stages(blocks, 4).items()}
+    got = PP.pipeline_apply(layer, stacked, xs, line("pipe"), "pipe")
+    (got * w).sum().backward()
+    want = []
+    for mb in range(xs.shape[0]):
+        h = xs[mb]
+        for p in blocks:
+            h = layer(p, h)
+        want.append(h)
+    want = torch.stack(want)
+    (want * w).sum().backward()
+    d_pp = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    g_want = PP.stack_stages([{k: v.grad for k, v in b.items()} for b in blocks], 4)
+    d_pp_g = max(float((stacked[k].grad - g_want[k]).abs().max()) / max(1e-6, float(g_want[k].abs().max()))
+                 for k in stacked)
+    assert d_pp <= TOL_PT_BLOCKS and d_pp_g <= TOL_PT_BLOCKS, f"pp: forward {d_pp:.3g}, gradients {d_pp_g:.3g}"
+    res["pp"] = dict(forward_rel_err=d_pp, grad_rel_err=d_pp_g)
+    res["sp"] = {}
+    for dt, tol in ((torch.float32, TOL_PT_BLOCKS), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, th, 1024, 64)).astype(np.float32)).to(dev, dt)
+                   for _ in range(3))
+        got = SP.ring_attention(q, k, v, line("seq"), causal=True)
+        dispatch.reset_launch_counts()
+        want = mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        b6[f"sp dense reference {str(dt)[6:]}"] = dispatch.launch_counts()[flash]
+        d_sp = float((got.float() - want.float()).abs().max())
+        assert d_sp <= tol, f"ring attention {dt}: {d_sp}"
+        res["sp"][f"ring_attention {str(dt)[6:]}"] = d_sp
+    blk = full.text.transformer.resblocks[0].float()
+    x = torch.from_numpy(rng.standard_normal((2, 1024, tw)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        got = SP.sp_block_apply({k: v for k, v in blk.state_dict().items()}, x, line("seq"), heads=th, causal=True)
+        dispatch.reset_launch_counts()
+        want = blk(x, True)
+        torch.cuda.synchronize()
+        b6["sp block reference"] = dispatch.launch_counts()[flash]
+    d_blk = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+    assert d_blk <= TOL_PT_BLOCKS, f"sp_block_apply: {d_blk}"
+    res["sp"]["sp_block_apply s=1024"] = d_blk
+    moe = EP.init_moe_params(torch.Generator().manual_seed(1), tw, 4 * tw, 4)
+    moe = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in moe.items()}
+    x_ep = torch.from_numpy(rng.standard_normal((2, 77, tw)).astype(np.float32)).to(dev)
+    y, aux = EP.moe_apply(moe, x_ep, k=2, mesh=line("expert"))
+    y1, aux1 = EP.moe_apply(moe, x_ep, k=2)
+    d_ep = float((y - y1).abs().max())
+    assert d_ep <= TOL_PT_PARAM and abs(float(aux) - float(aux1)) <= 1e-5, f"ep: {d_ep}"
+    res["ep"] = dict(max_abs_err=d_ep)
+    wall["pp / sp / ep"] = time.perf_counter() - t0
+    log(f"parallel training pp ({len(blocks)} text blocks, 4 stages, 8 x [8, 77, {tw}]): forward {d_pp:.2e}, "
+        f"gradients {d_pp_g:.2e} (relative); sp ring attention [2, {th}, 1024, 64]: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in res["sp"].items()) + f"; ep (4 experts, {tw} / {4 * tw}, 154 tokens) {d_ep:.2e}")
+
+    # (5) the sharded int8 validation encode over 4 shards against one device
+    t0 = time.perf_counter()
+    with _Tally([(FE, "encode_image_fast"), (FE, "encode_text_fast")]) as tally:
+        sharded = encode_dataset(full, pipe64, batch_size=PT_FULL_BATCH, quantize="int8", rt=rt_of(PT_LAYOUTS["dp4"]))
+    one = encode_dataset(full, pipe64, batch_size=PT_FULL_BATCH, quantize="int8")
+    res["int8_encode"] = {}
+    for key in ("image", "query", "target"):
+        a, b = getattr(sharded, key), getattr(one, key)
+        cos = float(np.min(np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))))
+        within = float(np.mean(np.abs(a - b) <= 1e-3))
+        assert cos > STORE_COS and within >= 0.995, f"sharded int8 encode {key}: cosine {cos}, within 1e-3 {within}"
+        res["int8_encode"][key] = dict(min_cosine=cos, share_within_1e3=within, max_abs_err=float(np.abs(a - b).max()))
+    wall["int8 encode"] = time.perf_counter() - t0
+    del full
+    torch.cuda.empty_cache()
+    log("parallel training sharded int8 encode (4 shards, 64 rows): " + "; ".join(
+        f"{k} min cosine {v['min_cosine']:.7f}, max |diff| {v['max_abs_err']:.2e}" for k, v in res["int8_encode"].items()))
+
+    vis = f" vision [{V_BATCH}x{V_SEQ}]"
+    paths = {
+        "B6 flash_attention s=257": {f"parallel training: {k} (both towers, every shard)": n for k, n in b6.items()
+                                     if not k.startswith("sp ")},
+        "B7 flash_attention s=577": {f"parallel training: {k} (s=1024)": n for k, n in b6.items() if k.startswith("sp ")},
+        "B1 fused_layer_q8": {"parallel training: sharded int8 encode, text towers (4 shards)":
+                              tally.of("encode_text_fast", "fused_layer_q8")},
+        f"B1 fused_layer_q8{vis}": {"parallel training: sharded int8 encode, image tower (4 shards)":
+                                    tally.of("encode_image_fast", "fused_layer_q8")},
+    }
+    for line_name, by in paths.items():
+        for path, n in by.items():
+            assert n > 0, f"{line_name} never launched on {path}"
+    res["launches_by_path"] = paths
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"parallel training phase: {res['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in wall.items())})")
     return paths
 
 
@@ -3882,6 +4346,7 @@ def main() -> int:
         sc = profiling_scripts_phase(torch, dev, results)
         tr = train_phase(torch, dev, tmp, store_path, results)
         tv = train_variants_phase(torch, dev, tmp, store_path, results)
+        pt = parallel_training_phase(torch, dev, tmp, model, results)
 
         stores, pre, pre336 = {}, {}, {}
         for enc in ("flax", "fast", "int8"):
@@ -4019,8 +4484,8 @@ def main() -> int:
         by_path.setdefault(name, {}).update({f"sharded serving: {p}": n for p, n in paths.items()})
     # this slice's path: training (item 22)
     by_path["B6 flash_attention s=257"].update({f"train: {path}": n for path, n in tr.items()})
-    # this slice's paths: the training variants (item 23)
-    for name, paths in tv.items():
+    # this slice's paths: the training variants (item 23), parallel training (item 25)
+    for name, paths in (*tv.items(), *pt.items()):
         by_path.setdefault(name, {}).update(paths)
     for name in results:
         if name.startswith("S1 "):
@@ -4062,9 +4527,9 @@ def main() -> int:
         f"ms; phase {fu_r['phase_s']:.1f} s ({smi})")
     log(f"quality: sweep {results['quality']['sweep_s']:.1f} s, autotune {results['quality']['autotune_s']:.1f} s, "
         f"recall against the served tiers {results['quality']['recall_diff']}; phase {results['quality']['phase_s']:.1f} s")
-    log("items 18-24 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
+    log("items 18-25 phases (s): " + ", ".join(f"{n} {results[n]['phase_s']:.1f}" for n in
                                          ("checkpoints", "parity", "baseline", "scripts", "train", "train_variants",
-                                          "sharded_serving"))
+                                          "sharded_serving", "parallel_training"))
         + "; scripts " + ", ".join(f"{n} {t:.1f}" for n, t in results["scripts"]["wall_s"].items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -15,7 +15,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from ..utils.config import Config, MeshConfig
+from ..utils.config import Config
 
 from ..data.datasets import DataPipeline, load_hf_source, make_synthetic_source
 from ..data.tokenizer import CLIPTokenizer
@@ -97,21 +97,12 @@ def build_model(cfg: Config, device, seed: int = 0) -> clip_mod.CLIP:
 
 
 def build_runtime(cfg: Config, device=None) -> MeshRuntime:
-    """The serving mesh of ``--mesh.*`` (``parallel.mesh.default_devices``):
-    over the visible cards, or over ``cpu`` when ``device`` is the CPU."""
+    """The mesh of ``--mesh.*`` (``parallel.mesh.default_devices``): over
+    the visible cards, or over ``cpu`` repeated when ``device`` is the CPU
+    (``--mesh.data_parallel=4 --device=cpu`` runs four shards). Every
+    serving, evaluation, precompute and training CLI builds one."""
     kind = None if device is None else torch.device(device).type
     return MeshRuntime.create(cfg.mesh, default_devices(cfg.mesh, kind))
-
-
-def check_one_device(mesh: MeshConfig) -> None:
-    """Refuse a ``--mesh.*`` layout of more than one device in the training
-    CLIs (the sharded training steps are ROADMAP A5 (b); serving takes a
-    mesh through :func:`build_runtime`)."""
-    if mesh.data_parallel > 1 or mesh.model_parallel > 1 or mesh.dcn_parallel > 1 or mesh.fsdp:
-        raise NotImplementedError(
-            f"--mesh.* asks for more than one device (data {mesh.data_parallel}, model {mesh.model_parallel}, "
-            f"dcn {mesh.dcn_parallel}, fsdp {mesh.fsdp}): ROADMAP A5 (b) (parallel training)"
-        )
 
 
 def build_pipeline(cfg: Config, split: str, tokenizer: Optional[CLIPTokenizer] = None) -> DataPipeline:

@@ -36,7 +36,8 @@ from ..eval.evaluator import encode_dataset
 from ..train.distill import load_encoded_dataset, save_encoded_dataset
 from ..train.trainer import CLIPTrainer
 from ..utils.config import config_from_argv, resolve_encoder
-from .common import build_model, build_pipeline, check_one_device, pop_flag, resolve_device
+from ..parallel.mesh import runtime_init
+from .common import build_model, build_pipeline, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.distill")
 
@@ -49,7 +50,8 @@ def main(argv=None) -> dict:
     teacher_path = pop_flag(args, "--teacher-embeddings", "")
     device = resolve_device(pop_flag(args, "--device", "cuda"))
     cfg = config_from_argv(args)
-    check_one_device(cfg.mesh)
+    runtime_init()  # a no-op unless launched as several processes (torchrun's variables)
+    rt = build_runtime(cfg, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = cfg.eval.output_dir
@@ -68,7 +70,8 @@ def main(argv=None) -> dict:
         use_fast, quantize = resolve_encoder(teacher_encoder)
         pipe = build_pipeline(cfg, cfg.data.split_train)
         logger.info("encoding teacher %s over %s (%s towers)", teacher_name, cfg.data.split_train, teacher_encoder)
-        enc = encode_dataset(teacher, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize)
+        enc = encode_dataset(teacher, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize,
+                             rt=rt)
         teacher_path = teacher_path or os.path.join(out_dir, "teacher_train.npz")
         save_encoded_dataset(teacher_path, enc)
         logger.info("saved %d teacher rows -> %s", len(enc.uuids), teacher_path)
@@ -83,7 +86,7 @@ def main(argv=None) -> dict:
     train_pipe = build_pipeline(cfg, cfg.data.split_train)
     synthetic = cfg.data.dataset.startswith("synthetic:")
     val_pipe = train_pipe if synthetic else build_pipeline(cfg, cfg.data.split_val)
-    trainer = CLIPTrainer(model, train_pipe, val_pipe, cfg.train, mesh=cfg.mesh, out_dir=out_dir)
+    trainer = CLIPTrainer(model, train_pipe, val_pipe, cfg.train, out_dir=out_dir, rt=rt)
     result = trainer.train()
     logger.info("distilled %s: best val %.4f @ epoch %d", cfg.model.name, result["best_metric"], result["best_epoch"])
     return dict(result, teacher_embeddings=teacher_path)

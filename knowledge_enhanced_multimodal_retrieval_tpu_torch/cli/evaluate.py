@@ -26,7 +26,7 @@ import torch
 
 from ..eval.evaluator import run_full_evaluation
 from ..utils.config import config_from_argv
-from .common import build_model, build_pipeline, pop_flag, resolve_device
+from .common import build_model, build_pipeline, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.evaluate")
 
@@ -40,6 +40,7 @@ def main(argv=None) -> dict:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
     torch.backends.cuda.matmul.allow_tf32 = False  # evaluation runs in f32
 
+    rt = build_runtime(cfg, device)
     model = build_model(cfg, device)
     pipe = build_pipeline(cfg, cfg.data.split_test)
     t2s_results = None
@@ -59,6 +60,7 @@ def main(argv=None) -> dict:
         text2sparql_results=t2s_results,
         output_json=out,
         encoder=cfg.eval.encoder,
+        rt=rt,
     )
     logger.info("saved %s", out)
     for key, value in report["per_task"].items():

@@ -26,7 +26,7 @@ import torch
 from ..eval.evaluator import encode_dataset
 from ..train.negatives import mine_hard_negatives, save_negatives
 from ..utils.config import config_from_argv, resolve_encoder
-from .common import build_model, build_pipeline, check_one_device, pop_flag, resolve_device
+from .common import build_model, build_pipeline, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.mine_negatives")
 
@@ -40,13 +40,13 @@ def main(argv=None) -> str:
         raise SystemExit(f"--by must be 'query' or 'image', got {by!r}")
     device = resolve_device(pop_flag(args, "--device", "cuda"))
     cfg = config_from_argv(args)
-    check_one_device(cfg.mesh)
+    rt = build_runtime(cfg, device)
     torch.backends.cuda.matmul.allow_tf32 = False  # the mining product runs in f32
 
     model = build_model(cfg, device)
     pipe = build_pipeline(cfg, cfg.data.split_train)
     use_fast, quantize = resolve_encoder(cfg.eval.encoder)
-    enc = encode_dataset(model, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize)
+    enc = encode_dataset(model, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize, rt=rt)
     anchors = enc.query if by == "query" else enc.image
     idx = mine_hard_negatives(anchors, enc.target, k, device=device)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -20,7 +20,7 @@ import sys
 from ..utils.config import config_from_argv, resolve_encoder
 
 from ..retrieval.embedding_store import build_embedding_store
-from .common import build_model, build_pipeline, pop_flag, resolve_device
+from .common import build_model, build_pipeline, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.precompute")
 
@@ -33,6 +33,7 @@ def main(argv=None) -> str:
     if cfg.eval.compile_cache:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
     use_fast, quantize = resolve_encoder(cfg.eval.encoder)
+    rt = build_runtime(cfg, device)
     model = build_model(cfg, device)
     if cfg.data.image_size != model.arch.image_resolution:
         raise ValueError(
@@ -40,7 +41,8 @@ def main(argv=None) -> str:
             f"{model.arch.image_resolution} px images"
         )
     pipe = build_pipeline(cfg, cfg.data.split_test)
-    store = build_embedding_store(model, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize)
+    store = build_embedding_store(model, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize,
+                                  rt=rt)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     store.save(out)
     logger.info("saved %d x %d embedding store to %s", len(store), store.dim, out)

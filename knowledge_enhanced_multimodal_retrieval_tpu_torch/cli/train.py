@@ -29,7 +29,8 @@ from ..train import checkpoint as ckpt
 from ..train.lora import save_adapters
 from ..train.trainer import CLIPTrainer
 from ..utils.config import config_from_argv
-from .common import build_model, build_pipeline, check_one_device, pop_flag, resolve_device
+from ..parallel.mesh import runtime_init
+from .common import build_model, build_pipeline, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.train")
 
@@ -40,7 +41,8 @@ def main(argv=None) -> dict:
     cfg = config_from_argv(args)
     if cfg.eval.compile_cache:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
-    check_one_device(cfg.mesh)
+    runtime_init()  # a no-op unless launched as several processes (torchrun's variables)
+    rt = build_runtime(cfg, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     logger.info("training %s on %s (%s)", cfg.model.name, cfg.data.dataset, device)
@@ -49,7 +51,7 @@ def main(argv=None) -> dict:
     train_pipe = build_pipeline(cfg, cfg.data.split_train)
     synthetic = cfg.data.dataset.startswith("synthetic:")
     val_pipe = train_pipe if synthetic else build_pipeline(cfg, cfg.data.split_val)
-    trainer = CLIPTrainer(model, train_pipe, val_pipe, cfg.train, mesh=cfg.mesh, out_dir=cfg.eval.output_dir)
+    trainer = CLIPTrainer(model, train_pipe, val_pipe, cfg.train, out_dir=cfg.eval.output_dir, rt=rt)
     result = trainer.train()
     logger.info("done: best %.4f @ epoch %d", result["best_metric"], result["best_epoch"])
     if trainer.lora:

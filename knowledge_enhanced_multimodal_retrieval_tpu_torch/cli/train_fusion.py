@@ -29,7 +29,7 @@ from ..eval.evaluator import encode_dataset
 from ..models.fusion_heads import FusionModel
 from ..train.fusion_trainer import evaluate_fusion_model, save_fusion_head, train_fusion_head
 from ..utils.config import config_from_argv, resolve_encoder
-from .common import build_model, build_pipeline, pop_flag, resolve_device
+from .common import build_model, build_pipeline, build_runtime, pop_flag, resolve_device
 
 logger = logging.getLogger("kemr_torch.cli.train_fusion")
 
@@ -43,12 +43,14 @@ def main(argv=None) -> dict:
         raise NotImplementedError("--eval.compile_cache is a JAX executable cache; the port runs eagerly")
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    rt = build_runtime(cfg, device)
     model = build_model(cfg, device)
     use_fast, quantize = resolve_encoder(cfg.eval.encoder)
 
     def encode(split):
         pipe = build_pipeline(cfg, split)
-        return encode_dataset(model, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize)
+        return encode_dataset(model, pipe, batch_size=cfg.eval.batch_size, use_fast=use_fast, quantize=quantize,
+                              rt=rt)
 
     enc_train = encode(cfg.data.split_train)
     fm = FusionModel(cfg.fusion.head, embed_dim=enc_train.query.shape[1])

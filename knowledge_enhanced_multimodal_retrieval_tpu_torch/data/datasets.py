@@ -137,16 +137,32 @@ class DataPipeline:
         num_shards: int = 1,
         shard_index: int = 0,
     ) -> Iterator[Batch]:
-        """Batches of one epoch, in a permutation fixed by (seed, epoch)."""
-        if num_shards != 1 or shard_index != 0:
-            raise NotImplementedError("sharded epoch_batches is not ported yet: ROADMAP A5 (b) (parallel training)")
+        """Batches of one epoch, in a permutation fixed by (seed, epoch).
+
+        With ``num_shards`` > 1 (one shard a process, ``DistributedSampler``'s
+        semantics) ``batch_size`` stays the global batch and this process
+        loads only its contiguous ``batch_size / num_shards`` slice of each
+        one; a short tail batch (``drop_last=False``) first repeats its
+        leading indices up to a multiple of ``num_shards``, so every shard
+        gets an equal, non-empty slice."""
+        if batch_size % num_shards:
+            raise ValueError(f"batch_size={batch_size} not divisible by num_shards={num_shards}")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} out of range for {num_shards} shards")
         n = len(self.source)
         order = list(range(n))
         if shuffle:
             random.Random(seed * 1_000_003 + epoch).shuffle(order)
         stop = n - (n % batch_size) if drop_last else n
         for start in range(0, stop, batch_size):
-            yield self.make_batch(order[start : start + batch_size])
+            idxs = order[start : start + batch_size]
+            if num_shards > 1:
+                if len(idxs) % num_shards:
+                    target = -(-len(idxs) // num_shards) * num_shards
+                    idxs = (idxs * (target // len(idxs) + 1))[:target]
+                local_b = len(idxs) // num_shards
+                idxs = idxs[shard_index * local_b : (shard_index + 1) * local_b]
+            yield self.make_batch(idxs)
 
     def num_batches(self, batch_size: int, drop_last: bool = True) -> int:
         n = len(self.source)

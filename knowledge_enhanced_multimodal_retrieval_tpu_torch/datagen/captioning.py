@@ -26,6 +26,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Protocol, Sequence
 
+import numpy as np
+
 
 class Captioner(Protocol):
     def generate(self, images: Sequence[Any]) -> List[List[str]]:
@@ -75,12 +77,52 @@ class Blip2Captioner:
 
 
 class MeshShardedCaptioner:
-    """Data-parallel captioning over several devices: the JAX package's is
-    one jitted program whose batch shards over a device mesh. Not ported:
-    it needs the parallel modes."""
+    """Data-parallel captioning over a device mesh: the counterpart of the
+    JAX package's one jitted program whose batch shards over the mesh's data
+    axes. ``caption_fn(params, images [B, S, S, 3] f32) -> int [B, C, L]``
+    token ids (C captions an image); ``decode_fn(ids [L]) -> str`` decodes
+    one caption on the host. ``params`` (tensors, or dicts of them) are
+    replicated once on each distinct mesh device; a batch is padded up to a
+    multiple of the shard count by repeating its last image, each shard
+    captioned on its own device, and the padding cut before decoding.
+    Implements the :class:`Captioner` protocol, so :class:`CaptioningPipeline`
+    (resume, persistence) is unchanged."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("MeshShardedCaptioner is not ported yet: ROADMAP A5 (b) (parallel training)")
+    def __init__(self, caption_fn, params, decode_fn, rt):
+        from ..parallel.sharding import replicate
+
+        self.rt = rt
+        self.caption_fn = caption_fn
+        self.decode_fn = decode_fn
+        self._shards = rt.mesh.axis_shards(rt.data_axes)
+        self._n_shards = rt.num_data
+
+        def on_each(tree):
+            if isinstance(tree, dict):
+                per = {k: on_each(v) for k, v in tree.items()}
+                return {d: {k: v[d] for k, v in per.items()} for d in dict.fromkeys(rt.mesh.local_devices)}
+            return replicate(tree, rt.mesh)
+
+        self._params = on_each(params)
+
+    def generate(self, images: Sequence[Any]) -> List[List[str]]:
+        import torch
+
+        from ..parallel.sharding import all_gather_processes, host_local_batch_to_global
+
+        batch = np.stack([np.asarray(im, np.float32) for im in images])
+        n = batch.shape[0]
+        pad = (-n) % self._n_shards
+        if pad:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
+        pc, pi = self.rt.mesh.process_count, self.rt.mesh.process_index
+        local = batch.shape[0] // pc
+        shards = host_local_batch_to_global({"images": batch[pi * local:(pi + 1) * local]}, self.rt.mesh,
+                                            self.rt.data_axes)["images"]
+        with torch.no_grad():
+            outs = [self.caption_fn(self._params[x.device], x).cpu() for _, x in shards.shards]
+        ids = all_gather_processes(torch.cat(outs), self.rt.mesh).numpy()[:n]  # [n, C, L]
+        return [[self.decode_fn(cap) for cap in row] for row in ids]
 
 
 class FakeCaptioner:

@@ -1,12 +1,15 @@
-"""Retrieval evaluation pipelines, on one device.
+"""Retrieval evaluation pipelines, on one device or over a device mesh.
 
 Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/eval/evaluator.py``
 (and of ``make_encode_step`` in its ``train/trainer.py``):
 
 - ``encode_dataset``      — a dataset into L2-normalized image / query /
-  target embeddings. The JAX version shards each batch over a device mesh
-  and pads the last one to keep jit shapes static; here one eager loop runs
-  on the model's device, every batch at its own size, in the dataset's order;
+  target embeddings, in the dataset's order: on the model's device, every
+  batch at its own size, or over a mesh runtime ``rt`` as the JAX version
+  does: each batch padded to a multiple of the shard count, each process
+  encoding its slice (``train.trainer.make_encode_step``: each data shard on
+  its device, B1 / B3a / B3b once a shard with ``use_fast`` on the card),
+  the gathered embeddings cut back to the batch;
 - ``evaluate_clip_model`` — the 3-task metric suite;
 - ``evaluate_weighted``   — the weighted T2I+T2T combined-matrix eval;
 - ``fusion_sweep``        — CLIP x Text2SPARQL: (t2i, t2t) weight pairs x an
@@ -72,10 +75,14 @@ def encode_dataset(
     batch_size: int = 256,
     use_fast: bool = False,
     quantize: Optional[str] = None,
+    rt=None,
 ) -> EncodedDataset:
-    """Encode every example in order, on the model's device. ``use_fast``
-    (implied by ``quantize``) packs both towers into serving plans first."""
+    """Encode every example in order, on the model's device or over the
+    mesh runtime ``rt``. ``use_fast`` (implied by ``quantize``) packs both
+    towers into serving plans first."""
     use_fast = use_fast or quantize is not None
+    if rt is not None and rt.mesh.size > 1:
+        return _encode_sharded(model, pipeline, rt, batch_size, use_fast, quantize)
     plans = make_encode_plans(model, dtype=model.dtype, quantize=quantize) if use_fast else None
     step = make_encode_step(model, plans)
     device = model.logit_scale.device
@@ -89,6 +96,29 @@ def encode_dataset(
         imgs.append(img_e.cpu().numpy())
         qs.append(q_e.cpu().numpy())
         ts.append(t_e.cpu().numpy())
+        uuids.extend(batch.uuids)
+    return EncodedDataset(image=np.concatenate(imgs), query=np.concatenate(qs), target=np.concatenate(ts), uuids=uuids)
+
+
+def _encode_sharded(model: CLIP, pipeline: DataPipeline, rt, batch_size: int, use_fast: bool,
+                    quantize: Optional[str]) -> EncodedDataset:
+    from ..train.trainer import make_encode_step as mesh_encode_step
+
+    step = mesh_encode_step(model, rt, fast=use_fast, quantize=quantize)
+    shard = rt.num_data
+    eff_batch = -(-batch_size // shard) * shard  # every batch divides the data axes
+    pc, pi = rt.mesh.process_count, rt.mesh.process_index
+    imgs, qs, ts, uuids = [], [], [], []
+    for batch in pipeline.epoch_batches(batch_size, shuffle=False, drop_last=False):
+        n = batch.images.shape[0]
+        arrays = [np.pad(a, [(0, eff_batch - n)] + [(0, 0)] * (a.ndim - 1))
+                  for a in (batch.images, batch.query_ids, batch.target_ids)]
+        local = eff_batch // pc  # each process its contiguous slice of the padded global batch
+        arrays = [a[pi * local:(pi + 1) * local] for a in arrays]
+        img_e, q_e, t_e = (e[:n].cpu().numpy() for e in step(None, *arrays))
+        imgs.append(img_e)
+        qs.append(q_e)
+        ts.append(t_e)
         uuids.extend(batch.uuids)
     return EncodedDataset(image=np.concatenate(imgs), query=np.concatenate(qs), target=np.concatenate(ts), uuids=uuids)
 
@@ -155,13 +185,15 @@ def run_full_evaluation(
     text2sparql_results: Optional[Mapping[str, Sequence[str]]] = None,
     output_json: Optional[str] = None,
     encoder: str = "flax",
+    rt=None,
 ) -> Dict[str, object]:
-    """Encode -> 3-task metrics -> weighted combined -> optional fusion sweep
-    -> optional JSON, all on the model's device. ``encoder``: ``flax`` (the
-    module towers), ``fast`` (bf16 fused layers) or ``int8`` (W8A8)."""
+    """Encode (over the mesh runtime ``rt`` when given) -> 3-task metrics ->
+    weighted combined -> optional fusion sweep -> optional JSON, on the
+    model's device. ``encoder``: ``flax`` (the module towers), ``fast``
+    (bf16 fused layers) or ``int8`` (W8A8)."""
     use_fast, quantize = resolve_encoder(encoder)
     device = model.logit_scale.device
-    encoded = encode_dataset(model, pipeline, batch_size, use_fast=use_fast, quantize=quantize)
+    encoded = encode_dataset(model, pipeline, batch_size, use_fast=use_fast, quantize=quantize, rt=rt)
     report: Dict[str, object] = {
         "num_samples": len(encoded.uuids),
         "per_task": evaluate_clip_model(encoded, k_values, device=device),

@@ -84,14 +84,20 @@ def _ln_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 # (name, x, w) -> (x, w): rewrites a block projection's input rows and f32 weight
 ProjectionHook = Callable[[str, torch.Tensor, torch.Tensor], tuple]
+# (name, x, hook) -> y: computes a block projection from weights held elsewhere (tensor parallelism)
+ParallelLinear = Callable[[str, torch.Tensor, Optional[ProjectionHook]], torch.Tensor]
 
 
 def block_linear(module: nn.Module, name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One of a block's four projections (``name``: ``in_proj_weight``,
     ``out_proj.weight``, ``c_fc.weight`` or ``c_proj.weight``): ``x @ w.T +
     b`` in ``x``'s dtype, the f32 weight cast per call. The module's
-    ``projection_hook``, when set, sees ``(name, x, w)`` before the cast."""
+    ``projection_hook``, when set, sees ``(name, x, w)`` before the cast;
+    its ``parallel_linear``, when set, computes the projection instead
+    (``parallel.tp``: the weight's blocks live elsewhere)."""
     hook = module.projection_hook
+    if module.parallel_linear is not None:  # tensor parallelism (parallel.tp) computes it from its blocks
+        return module.parallel_linear(name, x, hook)
     if hook is not None:
         x, w = hook(name, x, w)
     dt = x.dtype
@@ -102,6 +108,7 @@ class MultiheadSelfAttention(nn.Module):
     """Fused-qkv self-attention in OpenAI's layout (``in_proj_weight`` [3W, W])."""
 
     projection_hook: Optional[ProjectionHook] = None
+    parallel_linear: Optional[ParallelLinear] = None
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -120,6 +127,7 @@ class MultiheadSelfAttention(nn.Module):
 
 class MLP(nn.Module):
     projection_hook: Optional[ProjectionHook] = None
+    parallel_linear: Optional[ParallelLinear] = None
 
     def __init__(self, width: int):
         super().__init__()
@@ -132,20 +140,21 @@ class MLP(nn.Module):
 
 
 @contextlib.contextmanager
-def projection_hooks(model: nn.Module, make_hook: Callable[[str], Optional[ProjectionHook]]):
+def projection_hooks(model: nn.Module, make_hook: Callable[[str], Optional[Callable]],
+                     attr: str = "projection_hook"):
     """Set ``make_hook(prefix)`` (a hook or None) as the ``projection_hook``
-    of every attention and MLP module of ``model`` for the block's duration;
-    ``prefix`` is the module's name (``text.transformer.resblocks.0.attn``).
-    A train step holds it over its forward and its backward, so a remat
-    recompute sees the same weights."""
+    (or ``attr``: ``parallel_linear``) of every attention and MLP module of
+    ``model`` for the block's duration; ``prefix`` is the module's name
+    (``text.transformer.resblocks.0.attn``). A train step holds it over its
+    forward and its backward, so a remat recompute sees the same weights."""
     mods = [(n, m) for n, m in model.named_modules() if isinstance(m, (MultiheadSelfAttention, MLP))]
     for n, m in mods:
-        m.projection_hook = make_hook(n)
+        setattr(m, attr, make_hook(n))
     try:
         yield
     finally:
         for _, m in mods:
-            m.projection_hook = None
+            setattr(m, attr, None)
 
 
 class ResidualBlock(nn.Module):

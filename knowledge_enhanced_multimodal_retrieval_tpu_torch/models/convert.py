@@ -27,7 +27,7 @@ checkpoint.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -209,6 +209,20 @@ def _block_to_openai(block: Mapping, prefix: str, out: StateDict) -> None:
 
 def _n_blocks(transformer: Mapping) -> int:
     return 1 + max(int(k.split("_")[-1]) for k in transformer if k.startswith("resblocks_"))
+
+
+_FLAX_TRANSPOSED = ("attn.in_proj_weight", "attn.out_proj.weight", "mlp.c_fc.weight", "mlp.c_proj.weight")
+
+
+def flax_dims(name: str, ndim: int) -> Tuple[int, ...]:
+    """The layout map of one CLIP parameter (port module name or OpenAI
+    key): dimension ``i`` of the port's tensor is dimension ``perm[i]`` of
+    the JAX package's flax leaf (the transposes of :func:`flax_to_openai`)."""
+    if name.endswith(_FLAX_TRANSPOSED):
+        return (1, 0)
+    if name.endswith("conv1.weight"):
+        return (3, 2, 0, 1)
+    return tuple(range(ndim))
 
 
 def flax_to_openai(params: Mapping) -> StateDict:

@@ -156,20 +156,65 @@ class Mesh:
         """Where merged results land (the mesh's first local device)."""
         return self.devices.flat[0]
 
-    def axis_shards(self, axis: str) -> List[Tuple[int, torch.device]]:
-        """``(index along axis, device)`` of each shard of ``axis`` this
-        process computes: the grid positions whose other coordinates are 0
-        (an array sharded on one axis is replicated over the others, and one
-        replica computes)."""
-        ax = self.axis_names.index(axis)
+    def axis_size(self, axes) -> int:
+        """The shard count of one axis or of a tuple of axes jointly."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def axis_shards(self, axes) -> List[Tuple[int, torch.device]]:
+        """``(index, device)`` of each shard of ``axes`` (one axis name, or a
+        tuple of them sharded jointly, outer axis major) this process
+        computes: the grid positions whose other coordinates are 0 (an array
+        sharded on some axes is replicated over the others, and one replica
+        computes)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = [self.axis_names.index(a) for a in axes]
+        dims = self.shape
         local = self.devices.shape
         out = []
         for pos in np.ndindex(*local):
             glob = list(pos)
             glob[0] += self.process_index * local[0]
-            if all(c == 0 for i, c in enumerate(glob) if i != ax):
-                out.append((glob[ax], self.devices[pos]))
+            if all(c == 0 for i, c in enumerate(glob) if i not in idx):
+                flat = 0
+                for a, i in zip(axes, idx):
+                    flat = flat * dims[a] + glob[i]
+                out.append((flat, self.devices[pos]))
+        return sorted(out, key=lambda t: t[0])
+
+    def shard_rows_of_devices(self, axes, across: str) -> List[Tuple[int, Tuple[torch.device, ...]]]:
+        """Like :meth:`axis_shards`, each shard with the devices along the
+        axis ``across`` at its position (a data shard's tensor-parallel
+        row of devices: ``across`` is the model axis)."""
+        ax = self.axis_names.index(across)
+        out = []
+        for flat, _ in self.axis_shards(axes):
+            pos = self._local_position(axes, flat)
+            row = []
+            for m in range(self.devices.shape[ax]):
+                p = list(pos)
+                p[ax] = m
+                row.append(self.devices[tuple(p)])
+            out.append((flat, tuple(row)))
         return out
+
+    def _local_position(self, axes, flat: int) -> Tuple[int, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        pos = [0] * self.devices.ndim
+        for a in reversed(axes):
+            i = self.axis_names.index(a)
+            pos[i] = flat % self.shape[a]
+            flat //= self.shape[a]
+        if self.axis_names[0] in axes:
+            pos[0] -= self.process_index * self.devices.shape[0]
+        return tuple(pos)
+
+    def local_coords(self, axis: str) -> List[int]:
+        """The global indices along ``axis`` that this process's positions cover."""
+        if self.axis_names.index(axis) != 0:
+            return list(range(self.shape[axis]))
+        n = self.devices.shape[0]
+        return list(range(self.process_index * n, (self.process_index + 1) * n))
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), devices: Optional[Sequence[torch.device]] = None) -> Mesh:
@@ -221,10 +266,6 @@ class Placement:
 
         if self.is_fully_replicated:
             return replicate(x, self.mesh)
-        if not isinstance(self.spec[0], str):
-            raise NotImplementedError(
-                f"rows sharded over the axes {self.spec[0]} jointly (a multi-slice training layout): "
-                "ROADMAP A5 (b) (parallel training)")
         return shard_rows(x, self.mesh, self.spec[0])
 
 

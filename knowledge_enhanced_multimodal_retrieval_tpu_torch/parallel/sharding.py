@@ -5,14 +5,17 @@ for serving. ``batch_sharding`` / ``replicated`` become placements that put
 a tensor on a :class:`~.mesh.Mesh` as a :class:`RowShards` (rows cut into
 equal contiguous shards, shard *i* on the device at position *i* of the
 axis) or as one copy per distinct device. A shard on the device that
-already holds the rows is a view, not a copy. ``host_local_batch_to_global``
-and ``shard_params`` belong to the sharded training steps (ROADMAP A5 (b)).
+already holds the rows is a view, not a copy. For training,
+``host_local_batch_to_global`` cuts each process's rows of a global batch
+into its data shards, :class:`ShardedParams` holds a parameter dict cut into
+blocks by a per-dimension spec (``parallel.fsdp``, ``parallel.tp``), and
+:func:`all_gather_autograd` is the differentiable cross-process gather.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,9 +87,10 @@ class RowShards:
         return torch.cat([t.to(dev) for _, t in self.shards])
 
 
-def shard_rows(x, mesh: Mesh, axis: str = "data") -> RowShards:
+def shard_rows(x, mesh: Mesh, axis="data") -> RowShards:
     """Cut the global rows of ``x`` (a tensor or host array) into
-    ``mesh.shape[axis]`` equal shards and place this process's on their
+    ``mesh.axis_size(axis)`` equal shards (``axis``: one axis name or a
+    tuple sharded jointly, outer axis major) and place this process's on their
     devices: a row view where ``x`` already lives on that device, a copy
     otherwise. A CUDA view must start on a 16-byte boundary (the kernels
     read their rows through tensor maps); this is asserted here, where the
@@ -94,7 +98,7 @@ def shard_rows(x, mesh: Mesh, axis: str = "data") -> RowShards:
     if isinstance(x, RowShards):
         return x
     t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
-    n_shards = mesh.shape[axis]
+    n_shards = mesh.axis_size(axis)
     if t.shape[0] % n_shards:
         raise ValueError(f"{t.shape[0]} rows do not shard {n_shards} ways (pad to a multiple first)")
     shard_n = t.shape[0] // n_shards
@@ -150,3 +154,258 @@ def gather_shard_outputs(outs: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tens
     dev = mesh.first_device
     local = torch.stack([o.to(dev) for o in outs])
     return all_gather_processes(local, mesh)
+
+
+def host_local_batch_to_global(batch: Dict[str, Any], mesh: Mesh, axis=("data",)) -> Dict[str, RowShards]:
+    """Each process's contiguous rows of a global batch (host arrays or
+    tensors) cut into its data shards over ``axis`` (one name or a tuple of
+    axes sharded jointly), shard *i* on its device: the port's
+    ``jax.make_array_from_process_local_data``. The global batch is the
+    process-major concatenation of the processes' rows."""
+    axis = axis[0] if isinstance(axis, (tuple, list)) and len(axis) == 1 else axis
+    shards = mesh.axis_shards(axis)
+    n_global = mesh.axis_size(axis)
+    out = {}
+    for key, x in batch.items():
+        t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+        if t.shape[0] % len(shards):
+            raise ValueError(f"{key}: {t.shape[0]} local rows do not split into {len(shards)} data shards")
+        n = t.shape[0] // len(shards)
+        out[key] = RowShards([(g, t[j * n:(j + 1) * n].to(dev)) for j, (g, dev) in enumerate(shards)],
+                             n, n_global, mesh, axis)
+    return out
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[torch.device, Dict[str, torch.Tensor]]:
+    """A parameter dict replicated over the mesh: one copy per distinct
+    device (pure data parallelism; ``parallel.fsdp`` / ``parallel.tp`` cut
+    parameters into blocks instead)."""
+    return {dev: {n: (p if p.device == dev else p.to(dev)) for n, p in params.items()}
+            for dev in dict.fromkeys(mesh.local_devices)}
+
+
+def all_gather_autograd(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every process's ``x`` in process order, differentiably: the backward
+    sums each part's cotangents over the processes and hands each process
+    its own part's sum (JAX's ``all_gather`` transpose, ``psum_scatter``).
+    ``[x]`` without a group. Under gloo the tensors cross as CPU tensors."""
+    if group is None:
+        return [x]
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_gather
+
+    src = x.contiguous() if dist.get_backend(group) == "nccl" else x.cpu().contiguous()
+    # the collectives of the backward read their buffers as contiguous: a
+    # part's cotangent (a slice of a concatenation's) is made so first
+    return [_ContiguousGrad.apply(p).to(x.device) for p in all_gather(src, group=group)]
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity whose backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+REDUCE_BUCKET_BYTES = 64 << 20  # the most one all-reduce of all_reduce_ sends
+
+
+def all_reduce_(tensors: Sequence[torch.Tensor], group, op: str = "sum",
+                dtype: Optional[torch.dtype] = None) -> None:
+    """Sum (``op="sum"``) or maximum (``"max"``) of each tensor over the
+    processes, in place; nothing without a group. The values cross in
+    their own dtype (or ``dtype``, such as float64 for scalar metrics), in
+    flat buckets of at most :data:`REDUCE_BUCKET_BYTES` (a larger tensor
+    alone); under gloo the buckets are CPU tensors."""
+    if group is None or not tensors:
+        return
+    import torch.distributed as dist
+
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    nccl = dist.get_backend(group) == "nccl"
+    dev = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+
+    def flush(bucket, dt):
+        flat = torch.cat([t.detach().reshape(-1).to(dev, dt) for t in bucket])
+        dist.all_reduce(flat, op=red, group=group)
+        i = 0
+        for t in bucket:
+            n = t.numel()
+            t.copy_(flat[i:i + n].view(t.shape))
+            i += n
+
+    buckets: Dict[torch.dtype, Tuple[List[torch.Tensor], int]] = {}
+    for t in tensors:
+        dt = dtype or t.dtype
+        bucket, size = buckets.get(dt, ([], 0))
+        nbytes = t.numel() * dt.itemsize
+        if bucket and size + nbytes > REDUCE_BUCKET_BYTES:
+            flush(bucket, dt)
+            bucket, size = [], 0
+        buckets[dt] = (bucket + [t], size + nbytes)
+    for dt, (bucket, _) in buckets.items():
+        flush(bucket, dt)
+
+
+Spec = Tuple[Any, ...]  # per dimension: None (whole) or the mesh axis the dimension is cut over
+
+
+def _leaf(name: str, coord: Tuple[int, ...]) -> str:
+    """A block's leaf name: ``name@i,j`` (its global block coordinates)."""
+    return f"{name}@{','.join(map(str, coord))}"
+
+
+class ShardedParams:
+    """A parameter dict laid out on a mesh: each tensor cut into equal
+    blocks along the dimensions its spec names (per dimension ``None`` or a
+    mesh axis, as a JAX ``PartitionSpec``), each block of this process a
+    leaf ``nn.Parameter`` on the device of the first position of this
+    process that holds it (a block is replicated over the axes its spec
+    does not name). Blocks along the mesh's leading axis live on the
+    processes that own those coordinates; :meth:`materialize` assembles a
+    parameter from its blocks, across processes through
+    :func:`all_gather_autograd`, so a backward pass leaves each block the
+    sum of the gradients of its every use (FSDP's reduce-scatter)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], mesh: Mesh, specs: Dict[str, Spec],
+                 requires_grad: bool = True):
+        self.mesh = mesh
+        self.specs = {n: tuple(specs[n]) + (None,) * (params[n].ndim - len(specs[n])) for n in params}
+        self.shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self.dtypes = {n: p.dtype for n, p in params.items()}
+        self.blocks: Dict[str, Dict[Tuple[int, ...], torch.nn.Parameter]] = {}
+        self.holders: Dict[str, Dict[Tuple[int, ...], Tuple[int, ...]]] = {}
+        lead = mesh.axis_names[0]
+        for n, p in params.items():
+            spec = self.specs[n]
+            cut = [(d, a) for d, a in enumerate(spec) if a is not None]
+            for d, a in cut:
+                if p.shape[d] % mesh.shape[a]:
+                    raise ValueError(f"{n}: dim {d} ({p.shape[d]}) does not split {mesh.shape[a]} ways over {a!r}")
+            coords_of = [mesh.local_coords(a) if a == lead else list(range(mesh.shape[a])) for _, a in cut]
+            self.blocks[n], self.holders[n] = {}, {}
+            for coord in (tuple(c) for c in np.ndindex(*[len(c) for c in coords_of])):
+                glob = tuple(coords_of[i][c] for i, c in enumerate(coord))
+                pos = self._holder(spec, glob)
+                block = p.detach()
+                for (d, a), g in zip(cut, glob):
+                    size = p.shape[d] // mesh.shape[a]
+                    block = block.narrow(d, g * size, size)
+                dev = mesh.devices[pos]
+                leaf = torch.nn.Parameter(block.to(dev).clone(), requires_grad=requires_grad)
+                self.blocks[n][glob] = leaf
+                self.holders[n][glob] = pos
+
+    def _holder(self, spec: Spec, glob: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The first local grid position whose coordinates on the spec's
+        axes are ``glob``."""
+        mesh = self.mesh
+        cut = [a for a in spec if a is not None]
+        for pos in np.ndindex(*mesh.devices.shape):
+            g = list(pos)
+            g[0] += mesh.process_index * mesh.devices.shape[0]
+            if all(g[mesh.axis_names.index(a)] == c for a, c in zip(cut, glob)):
+                return pos
+        raise ValueError(f"no local position holds block {glob} of spec {spec}")
+
+    def view(self, leaves: Dict[str, torch.Tensor]) -> "ShardedParams":
+        """The same layout over other blocks of the same shapes (an EMA
+        shadow, by leaf name)."""
+        out = object.__new__(ShardedParams)
+        out.__dict__.update(self.__dict__)
+        out.blocks = {n: {c: leaves[_leaf(n, c)] for c in blocks}
+                      for n, blocks in self.blocks.items()}
+        return out
+
+    def leaves(self) -> Dict[str, torch.nn.Parameter]:
+        """Every block of this process by ``name@i,j`` (its global block coordinates)."""
+        return {_leaf(n, c): b for n, blocks in self.blocks.items() for c, b in blocks.items()}
+
+    @staticmethod
+    def base_name(leaf_name: str) -> str:
+        return leaf_name.split("@", 1)[0]
+
+    def spans_processes(self, name: str) -> bool:
+        """True when ``name``'s blocks differ between processes (cut over the leading axis)."""
+        return self.mesh.process_count > 1 and self.mesh.axis_names[0] in self.specs[name]
+
+    def materialize(self, name: str, device, keep: Optional[str] = None,
+                    devices: Optional[Sequence[torch.device]] = None):
+        """The whole parameter on ``device``, its blocks concatenated (in
+        autograd). With ``keep`` (an axis its spec names) the blocks along
+        that axis stay apart: a list, block *m* assembled on ``devices[m]``."""
+        spec = self.specs[name]
+        cut = [(d, a) for d, a in enumerate(spec) if a is not None]
+        blocks = self.blocks[name]
+        if keep is None or keep not in spec:
+            return self._assemble(blocks, (), cut, torch.device(device))
+        k = [a for _, a in cut].index(keep)
+        rest = cut[:k] + cut[k + 1:]
+        return [self._assemble({c[:k] + c[k + 1:]: b for c, b in blocks.items() if c[k] == m}, (), rest,
+                               torch.device(devices[m])) for m in range(self.mesh.shape[keep])]
+
+    def _assemble(self, blocks, prefix, cut, dev) -> torch.Tensor:
+        """Concatenate ``blocks`` (by coordinates) over the dims of ``cut``,
+        across processes along the leading axis, on ``dev``."""
+        if not cut:
+            return blocks[prefix].to(dev)
+        (d, a), rest = cut[0], cut[1:]
+        mesh = self.mesh
+        if a == mesh.axis_names[0] and mesh.process_count > 1:
+            local = torch.cat([self._assemble(blocks, prefix + (i,), rest, dev) for i in mesh.local_coords(a)], dim=d)
+            return torch.cat(all_gather_autograd(local, mesh.group), dim=d)
+        return torch.cat([self._assemble(blocks, prefix + (i,), rest, dev) for i in range(mesh.shape[a])], dim=d)
+
+    def full(self, name: str, tensors: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The whole parameter (or, given ``tensors`` by leaf name, the
+        same-shaped blocks such as moments) as one CPU tensor, gathered over
+        the processes without autograd: every process must call it."""
+        src = tensors if tensors is not None else self.leaves()
+        blocks = {c: src[_leaf(name, c)].detach() for c in self.blocks[name]}
+        cut = [(d, a) for d, a in enumerate(self.specs[name]) if a is not None]
+        with torch.no_grad():
+            return self._assemble(blocks, (), cut, self.mesh.first_device).cpu()
+
+    def whole(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors keyed by leaf name (blocks, or same-shaped moments) as
+        whole CPU tensors by parameter name (every process calls it)."""
+        names = dict.fromkeys(self.base_name(n) for n in leaves)
+        return {n: self.full(n, leaves) for n in names}
+
+    def load_whole(self, whole: Dict[str, torch.Tensor], into: Dict[str, torch.Tensor]) -> None:
+        """Copy whole tensors by parameter name into the leaf-named ``into``."""
+        for n in dict.fromkeys(self.base_name(k) for k in into):
+            self.load_full(n, whole[n], into=into)
+
+    def load_full(self, name: str, value: torch.Tensor, into: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Copy the blocks of a whole ``value`` into this process's blocks
+        (or into ``into``'s same-named tensors)."""
+        spec = self.specs[name]
+        cut = [(d, a) for d, a in enumerate(spec) if a is not None]
+        dst = into if into is not None else self.leaves()
+        with torch.no_grad():
+            for c in self.blocks[name]:
+                block = value
+                for (d, a), g in zip(cut, c):
+                    size = value.shape[d] // self.mesh.shape[a]
+                    block = block.narrow(d, g * size, size)
+                dst[_leaf(name, c)].copy_(block)
+
+    def position_bytes(self, extra: Optional[Dict[str, Sequence[torch.Tensor]]] = None) -> List[int]:
+        """Bytes each local grid position holds (row-major): its blocks and,
+        given ``extra`` (leaf name -> tensors such as the AdamW moments),
+        those too."""
+        out = [0] * self.mesh.devices.size
+        shape = self.mesh.devices.shape
+        for n, blocks in self.blocks.items():
+            for c, b in blocks.items():
+                leaf = _leaf(n, c)
+                size = b.numel() * b.element_size() + sum(
+                    t.numel() * t.element_size() for t in (extra or {}).get(leaf, ()))
+                out[int(np.ravel_multi_index(self.holders[n][c], shape))] += size
+        return out

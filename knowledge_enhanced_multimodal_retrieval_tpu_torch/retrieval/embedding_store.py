@@ -210,11 +210,13 @@ def build_embedding_store(
     batch_size: int = 256,
     use_fast: bool = False,
     quantize: Optional[str] = None,
+    rt=None,
 ) -> EmbeddingStore:
-    """Precompute corpus embeddings on the model's device.
+    """Precompute corpus embeddings on the model's device, or over the mesh
+    runtime ``rt`` (each data shard on its device, ``eval.encode_dataset``).
 
     The ``text`` tower stores *target_text* embeddings (the corpus documents
     the serving engine scores T2T against). ``use_fast``/``quantize`` route
     through the fused / int8 towers (``models.fast_encode``)."""
-    encoded = encode_dataset(model, pipeline, batch_size, use_fast=use_fast, quantize=quantize)
+    encoded = encode_dataset(model, pipeline, batch_size, use_fast=use_fast, quantize=quantize, rt=rt)
     return EmbeddingStore(image=encoded.image, text=encoded.target, uuids=encoded.uuids)

@@ -95,7 +95,8 @@ def distill_loss(
     embed_weight: float = 0.5,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The KD objective of one batch of L2-normalized student ``[B, D_s]``
-    and teacher ``[B, D_t]`` embeddings: ``(loss, {loss, loss_kd,
+    and teacher ``[B, D_t]`` embeddings (or ``[S, B, D]``: each data shard's
+    own in-batch matrices, the mean over the shards): ``(loss, {loss, loss_kd,
     loss_embed})`` with ``loss = kd_weight * kd + embed_weight * embed``;
     ``kd`` is the task-weighted row KL of the T2I and T2T similarity matrices
     (both directions), ``embed`` is ``1 - cos`` over the three modalities
@@ -105,9 +106,9 @@ def distill_loss(
     s_img, s_q, s_t, t_img, t_q, t_t = (x.float() for x in (s_img, s_q, s_t, t_img, t_q, t_t))
 
     def pair_kd(sa, sb, ta, tb):
-        s_logits = sa @ sb.T / temperature
-        t_logits = ta @ tb.T / temperature
-        return 0.5 * (_kl_rows(t_logits, s_logits) + _kl_rows(t_logits.T, s_logits.T))
+        s_logits = sa @ sb.mT / temperature
+        t_logits = ta @ tb.mT / temperature
+        return 0.5 * (_kl_rows(t_logits, s_logits) + _kl_rows(t_logits.mT, s_logits.mT))
 
     kd = w_t2i * pair_kd(s_q, s_img, t_q, t_img) + w_t2t * pair_kd(s_q, s_t, t_q, t_t)
     if embed_weight > 0.0:
@@ -127,25 +128,29 @@ def check_dims(cfg: TrainConfig, student_dim: int, teacher_dim: int) -> None:
         )
 
 
-def make_distill_step(model: CLIP, cfg: TrainConfig, student_dim: int, teacher_dim: int) -> Callable:
+def make_distill_step(model: CLIP, cfg: TrainConfig, student_dim: int, teacher_dim: int, rt=None) -> Callable:
     """``distill_step(state, batch) -> (state, metrics)``: the student's three
     embeddings of the batch against its ``t_img`` / ``t_q`` / ``t_t`` teacher
     rows under :func:`distill_loss`, backward, the optimizer; ``metrics``
-    are the loss's keys and ``grad_norm`` (0-dim device tensors)."""
-    from .trainer import apply_gradients, collect_grads  # the trainer imports this module
+    are the loss's keys and ``grad_norm`` (0-dim device tensors). Over a
+    mesh runtime ``rt`` it is the data-parallel step (JAX
+    ``make_distill_step``): each data shard's KD on its own in-batch
+    matrices, gradients and metrics the shards' mean."""
+    from .trainer import _ShardedStep, apply_gradients, collect_grads  # the trainer imports this module
 
     check_dims(cfg, student_dim, teacher_dim)
+    loss_kw = dict(temperature=cfg.temperature, t2i_weight=cfg.t2i_weight, t2t_weight=cfg.t2t_weight,
+                   kd_weight=cfg.distill_kd_weight, embed_weight=cfg.distill_embed_weight)
+    if rt is not None:
+        return _ShardedStep(model, cfg, rt, distill=lambda s_img, s_q, s_t, teacher: distill_loss(
+            s_img, s_q, s_t, *teacher, **loss_kw))
     params = dict(model.named_parameters())
 
     def distill_step(state, batch: Dict[str, torch.Tensor]):
         s_img = l2_normalize(model.encode_image(batch["images"]))
         s_q = l2_normalize(model.encode_text(batch["query_ids"]))
         s_t = l2_normalize(model.encode_text(batch["target_ids"]))
-        loss, metrics = distill_loss(
-            s_img, s_q, s_t, batch["t_img"], batch["t_q"], batch["t_t"],
-            temperature=cfg.temperature, t2i_weight=cfg.t2i_weight, t2t_weight=cfg.t2t_weight,
-            kd_weight=cfg.distill_kd_weight, embed_weight=cfg.distill_embed_weight,
-        )
+        loss, metrics = distill_loss(s_img, s_q, s_t, batch["t_img"], batch["t_q"], batch["t_t"], **loss_kw)
         for p in params.values():
             p.grad = None
         loss.backward()

@@ -28,15 +28,24 @@ import torch
 __all__ = ["gradcache_value_and_grad"]
 
 
-def _chunk(inputs: Sequence[torch.Tensor], n_chunks: int) -> list:
-    """[B, ...] inputs -> n_chunks tuples of [B / n_chunks, ...] slices."""
+def _split(x: torch.Tensor, n_chunks: int) -> tuple:
+    b = x.shape[0]
+    if b % n_chunks:
+        raise ValueError(f"grad-cache chunk count {n_chunks} must divide the local batch {b} (got shape {tuple(x.shape)})")
+    return x.chunk(n_chunks)
+
+
+def _chunk(inputs: Sequence[Any], n_chunks: int) -> list:
+    """[B, ...] inputs -> n_chunks tuples of [B / n_chunks, ...] slices; an
+    input that is a list of data shards' tensors is chunked shard by shard
+    (each chunk a list over the shards)."""
+    cols = []
     for x in inputs:
-        b = x.shape[0]
-        if b % n_chunks:
-            raise ValueError(
-                f"grad-cache chunk count {n_chunks} must divide the local batch {b} (got shape {tuple(x.shape)})"
-            )
-    return list(zip(*(x.chunk(n_chunks) for x in inputs)))
+        if isinstance(x, (list, tuple)):
+            cols.append([list(c) for c in zip(*(_split(t, n_chunks) for t in x))])
+        else:
+            cols.append(_split(x, n_chunks))
+    return list(zip(*cols))
 
 
 def gradcache_value_and_grad(
@@ -49,7 +58,8 @@ def gradcache_value_and_grad(
 
     ``towers`` holds one ``(encode, inputs)`` pair per table the loss takes:
     ``encode(*chunk_inputs)`` maps ``[chunk, ...]`` slices to ``[chunk, D]``
-    rows and reads ``params`` (tensors with ``requires_grad``); ``emb_loss``
+    rows (or, over a mesh's data shards, lists of each shard's slices to
+    ``[S, chunk, D]``: each shard is chunked on its own) and reads ``params`` (tensors with ``requires_grad``); ``emb_loss``
     returns ``(loss, aux)``. Returns ``((loss, aux), grads)`` with ``grads``
     by the names of ``params`` (zeros where a parameter got none), summed per
     tower over its chunks and then across towers, as the JAX version does;
@@ -58,7 +68,7 @@ def gradcache_value_and_grad(
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     chunked = [(enc, _chunk(ins, n_chunks)) for enc, ins in towers]
     with torch.no_grad():
-        tables = [torch.cat([enc(*c) for c in chunks]) for enc, chunks in chunked]
+        tables = [torch.cat([enc(*c) for c in chunks], dim=-2) for enc, chunks in chunked]
     leaves = [t.detach().requires_grad_(True) for t in tables]
     with torch.enable_grad():
         loss, aux = emb_loss(*leaves)
@@ -68,7 +78,7 @@ def gradcache_value_and_grad(
         g = torch.zeros_like(t) if g is None else g
         for p in params.values():
             p.grad = None
-        for c, g_c in zip(chunks, g.chunk(n_chunks)):
+        for c, g_c in zip(chunks, g.chunk(n_chunks, dim=-2)):
             enc(*c).backward(g_c)
         for n, p in params.items():  # a tower's sum over its chunks, then across towers
             if p.grad is not None:

@@ -7,10 +7,18 @@ pairwise sigmoid loss and the Matryoshka wrapper, each returning
 ``(loss, metrics)`` with the JAX package's metric keys. Logits are f32
 whatever the embeddings' dtype.
 
-``axis_name`` names the JAX mesh axis whose all-gather gives global-batch
-negatives. On one process the gather is the identity, as on a one-device
-JAX mesh; a ``torch.distributed`` run of more than one process is ROADMAP
-A5 (b) and raises.
+``axis_name`` names the mesh axes whose gather gives global-batch
+negatives, as in the JAX package. A step over several data shards passes
+each feature as ``[S, B, D]``: this process's ``S`` shards of ``B`` rows,
+each shard scored as the JAX package's ``shard_map`` body scores it. With
+``axis_name`` the columns are every shard's rows, this process's and (under
+``torch.distributed``) every other process's, gathered in global shard
+order (``parallel.sharding.all_gather_autograd``: its backward hands each
+process the sum of its rows' cotangents, JAX's ``psum_scatter``), and shard
+*s* labels its rows ``offset_s + rows``; without it each shard sees only
+its own rows. Losses and metrics are the mean over this process's shards
+(the per-shard values averaged, as ``pmean`` over them); ``[B, D]``
+features are one shard.
 """
 
 from __future__ import annotations
@@ -22,25 +30,53 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.similarity import prefix_normalize
+from ..parallel.sharding import all_gather_autograd
 
 Metrics = Dict[str, torch.Tensor]
 
 
-def require_one_process(what: str) -> None:
-    """Raise where ``what`` would need collectives across processes."""
+def process_group():
+    """The ``torch.distributed`` group of a run of more than one process, else None."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(f"{what} across processes is not ported yet: ROADMAP A5 (b) (parallel training)")
+        return dist.group.WORLD
+    return None
 
 
-def _check_one_process(axis_name) -> None:
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """``[..., B, D]`` shards -> ``[N, D]``: every shard's rows of every
+    process in global shard order (process-major), differentiably."""
+    flat = x.reshape(-1, x.shape[-1])
+    group = process_group()
+    return flat if group is None else torch.cat(all_gather_autograd(flat, group))
+
+
+def _labels(a: torch.Tensor, axis_name) -> torch.Tensor:
+    """Each row's column: its row within its shard, offset by the shard's
+    first global row under ``axis_name``; ``a.shape[:-1]``."""
+    b = a.shape[-2]
+    rows = torch.arange(b, device=a.device)
+    if axis_name is None:
+        return rows.expand(a.shape[:-1])
+    s = a.shape[0] if a.ndim == 3 else 1
+    group = process_group()
+    first = 0 if group is None else torch.distributed.get_rank(group) * s
+    shard = torch.arange(first, first + s, device=a.device)[:, None]
+    return (shard * b + rows).reshape(a.shape[:-1])
+
+
+def _pool(x: torch.Tensor, extra: Optional[torch.Tensor], axis_name) -> torch.Tensor:
+    """The candidate columns: ``x``'s rows (gathered under ``axis_name``),
+    then the extra rows (gathered the same way)."""
     if axis_name is not None:
-        require_one_process("global-batch negatives")
+        x = gather_rows(x)
+        extra = None if extra is None else gather_rows(extra.float())
+    return x if extra is None else torch.cat([x, extra.float()], dim=-2)
 
 
-def _pool(x: torch.Tensor, extra: Optional[torch.Tensor]) -> torch.Tensor:
-    return x if extra is None else torch.cat([x, extra.float()], dim=0)
+def _at(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return logp.gather(-1, labels.unsqueeze(-1)).squeeze(-1)
 
 
 def info_nce(
@@ -51,17 +87,18 @@ def info_nce(
     negatives_a: Optional[torch.Tensor] = None,
     negatives_b: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Metrics]:
-    """Symmetric InfoNCE over L2-normalized features [B, D].
+    """Symmetric InfoNCE over L2-normalized features ``[B, D]`` (or ``[S, B, D]``).
 
-    ``negatives_b`` ([K, D]) appends candidate rows to the a->b direction's
-    denominator and ``negatives_a`` to b->a: competition, never labels."""
-    _check_one_process(axis_name)
+    ``negatives_b`` (``[K, D]``, ``[S, K, D]``) appends candidate rows to
+    the a->b direction's denominator and ``negatives_a`` to b->a:
+    competition, never labels; under ``axis_name`` they are gathered like
+    the batch."""
     a, b = features_a.float(), features_b.float()
-    rows = torch.arange(a.shape[0], device=a.device)
-    logp_ab = F.log_softmax((a @ _pool(b, negatives_b).T) / temperature, dim=-1)
-    logp_ba = F.log_softmax((b @ _pool(a, negatives_a).T) / temperature, dim=-1)
-    loss_a2b = -logp_ab[rows, rows].mean()
-    loss_b2a = -logp_ba[rows, rows].mean()
+    labels = _labels(a, axis_name)
+    logp_ab = F.log_softmax((a @ _pool(b, negatives_b, axis_name).mT) / temperature, dim=-1)
+    logp_ba = F.log_softmax((b @ _pool(a, negatives_a, axis_name).mT) / temperature, dim=-1)
+    loss_a2b = -_at(logp_ab, labels).mean()
+    loss_b2a = -_at(logp_ba, labels).mean()
     loss = (loss_a2b + loss_b2a) / 2.0
     return loss, {"loss": loss, "loss_a2b": loss_a2b, "loss_b2a": loss_b2a}
 
@@ -79,16 +116,15 @@ def sigmoid_contrastive(
     (sim / temperature + bias))`` with ``z`` = +1 on the diagonal and -1 off
     it, summed over a row and averaged over the rows. Mined extras add pure
     negative pairs at the same per-row scale."""
-    _check_one_process(axis_name)
     a, b = features_a.float(), features_b.float()
-    logits = (a @ b.T) / temperature + bias
-    z = 2.0 * torch.eye(a.shape[0], b.shape[0], device=a.device) - 1.0
+    logits = (a @ _pool(b, None, axis_name).mT) / temperature + bias
+    z = 2.0 * F.one_hot(_labels(a, axis_name), logits.shape[-1]).float() - 1.0
     loss = -F.logsigmoid(z * logits).sum(-1).mean()
     if negatives_b is not None:
-        neg = (a @ negatives_b.float().T) / temperature + bias
+        neg = (a @ _pool(negatives_b.float(), None, axis_name).mT) / temperature + bias
         loss = loss - F.logsigmoid(-neg).sum(-1).mean()
     if negatives_a is not None:
-        neg = (b @ negatives_a.float().T) / temperature + bias
+        neg = (b @ _pool(negatives_a.float(), None, axis_name).mT) / temperature + bias
         loss = loss - F.logsigmoid(-neg).sum(-1).mean()
     return loss, {"loss": loss}
 

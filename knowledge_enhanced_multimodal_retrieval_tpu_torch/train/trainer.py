@@ -1,10 +1,8 @@
-"""CLIP fine-tuning on one device.
+"""CLIP fine-tuning on one device or over a device mesh.
 
-Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/train/trainer.py``
-on one card (the JAX package's data-parallel step on a one-device mesh):
+Counterpart of ``knowledge_enhanced_multimodal_retrieval_tpu/train/trainer.py``:
 
-- the joint T2I + T2T loss of ``train.losses`` over the whole batch; on one
-  device global negatives equal local ones;
+- the joint T2I + T2T loss of ``train.losses``;
 - the JAX optimizer chain (optax) on the CLIP module's parameters: clipping
   by the global norm in optax's form, AdamW (beta 0.9 / 0.98, eps 1e-6,
   weight decay on every parameter but ``logit_scale``) under a per-epoch
@@ -20,22 +18,33 @@ on one card (the JAX package's data-parallel step on a one-device mesh):
   GradCache (``train.gradcache``, ``grad_cache_chunks > 1``); mined hard
   negatives (``train.negatives``: each example's mined target texts join
   the loss denominators); distillation (``train.distill``, its own step);
+- over a mesh (``parallel.mesh.MeshRuntime``): the data-parallel step (JAX
+  ``make_train_step``'s ``shard_map``): the batch cut into ``rt.num_data``
+  row shards over ``('dcn', 'data')``, each shard's towers on its device
+  (``parallel.replicas``), the loss per shard (local negatives, or the
+  gathered columns of every shard with ``global_negatives``), gradients and
+  metrics averaged over the shards (``pmean``), across processes through
+  ``torch.distributed``; and the GSPMD step (``make_train_step_gspmd``) over
+  FSDP and / or tensor-parallel blocks (``parallel.fsdp``, ``parallel.tp``),
+  which always scores the global batch; the sharded encode steps;
 - ``CLIPTrainer``: epoch loop, validation (T2I + T2T MRR), latest / best
-  checkpoints (``train.checkpoint``), early stopping, a SIGTERM drain that
-  saves a resumable checkpoint; a LoRA run's state is the adapters and their
-  optimizer, the frozen base beside it.
+  checkpoints (``train.checkpoint``: whole tensors, written by the
+  coordinator), early stopping agreed across processes, a SIGTERM drain
+  that saves a resumable checkpoint; a LoRA run's state is the adapters and
+  their optimizer, the frozen base beside it.
 
 Compute runs in the model's dtype (bf16 on the card) with f32 parameters, as
 in the JAX package. Attention runs the B6/B7 kernel forward on a CUDA tensor
-and recomputes its gradient through the plain version. The sharded steps of
-ROADMAP A5 (b) raise ``NotImplementedError`` where the JAX trainer branches to
-them; the JAX trainer's refusals of variant combinations raise ``ValueError``.
+and recomputes its gradient through the plain version. The JAX trainer's
+refusals of variant combinations raise ``ValueError``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import functools
 import queue as queue_mod
 import signal
 import threading
@@ -48,10 +57,13 @@ import torch
 from ..data.datasets import Batch, DataPipeline
 from ..eval.metrics import average_mrr, compute_training_metrics
 from ..models.clip import CLIP, l2_normalize
+from ..parallel.mesh import MeshRuntime
+from ..parallel.replicas import MeshReplicas, moved
+from ..parallel.sharding import RowShards, ShardedParams, all_gather_processes, all_reduce_, host_local_batch_to_global
 from ..utils.config import MeshConfig, TrainConfig
 from ..utils.logging_utils import MetricsWriter, is_coordinator, setup_logger
 from . import checkpoint as ckpt
-from .losses import joint_loss_for_config, require_one_process
+from .losses import joint_loss_for_config, process_group
 from .distill import TeacherBank, load_encoded_dataset, make_distill_step
 from .gradcache import gradcache_value_and_grad
 from .lora import lora_init, lora_merge, lora_param_count, lora_projections
@@ -61,21 +73,32 @@ from .schedule import cosine_annealing_lr
 
 # The reference validates on T2I + T2T only and early-stops on their mean MRR.
 VAL_TASKS = ("T2I", "T2T")
-A5 = "ROADMAP A5 (b) (parallel training)"
 
 Params = Dict[str, torch.Tensor]
 
 
+def _agree(value: float, op: str) -> float:
+    """``value`` reduced over the processes (``"max"``), or rank 0's (``"first"``)."""
+    group = process_group()
+    if group is None:
+        return value
+    t = torch.tensor([value if op == "max" or torch.distributed.get_rank(group) == 0 else 0.0], dtype=torch.float64)
+    all_reduce_([t], group, "max" if op == "max" else "sum")
+    return float(t[0])
+
+
 def sync_early_stop_monitor(value: float) -> float:
-    """The coordinator's monitor value on every process: the identity on one."""
-    require_one_process("the early-stop monitor broadcast")
-    return float(value)
+    """The coordinator's monitor value on every process, so that every
+    process takes the same stop decision (and runs the same collectives);
+    the identity on one process."""
+    return float(_agree(float(value), "first"))
 
 
 def sync_preempt_flag(flag: bool) -> bool:
-    """The OR of the processes' preemption flags: the identity on one."""
-    require_one_process("the preemption flag")
-    return bool(flag)
+    """The OR of the processes' preemption flags, taken at the same step
+    boundaries on every process, so all drain at the same step; the
+    identity on one process."""
+    return bool(_agree(1.0 if flag else 0.0, "max"))
 
 
 class PreemptionGuard:
@@ -138,9 +161,32 @@ def trainable_labels(names: Iterable[str], freeze_image: bool, freeze_text: bool
     return {n: label(n) for n in names}
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element (0-dim, f32)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)).float())
+def global_norm(tensors: List[torch.Tensor], layout: Optional[ShardedParams] = None,
+                names: Optional[List[str]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (0-dim, f32), on the
+    first tensor's device. Given a ``layout`` and the tensors' leaf
+    ``names``, blocks that differ between processes count over all of them
+    (an all-reduce) and blocks every process holds count once."""
+    home = tensors[0].device
+    sq = {}
+    for t in tensors:
+        sq.setdefault(t.device, []).append(t)
+    per_dev = [torch.stack(torch._foreach_norm(ts)).float().square().sum().to(home) for ts in sq.values()]
+    if layout is None or layout.mesh.process_count == 1:
+        return torch.stack(per_dev).sum().sqrt()
+    spans = [layout.spans_processes(ShardedParams.base_name(n)) for n in names]
+    split = torch.zeros(2, dtype=torch.float32, device=home)
+    for t, s in zip(tensors, spans):
+        split[int(s)] += t.detach().float().square().sum().to(home)
+    all_reduce_([split[1:]], layout.mesh.group, dtype=torch.float64)
+    return split.sum().sqrt()
+
+
+def _by_device(tensors: List[torch.Tensor]) -> Dict[torch.device, List[torch.Tensor]]:
+    out: Dict[torch.device, List[torch.Tensor]] = {}
+    for t in tensors:
+        out.setdefault(t.device, []).append(t)
+    return out
 
 
 class Optimizer:
@@ -151,17 +197,26 @@ class Optimizer:
     across epochs; the update clips the (mean) gradient of the trainable
     parameters to ``grad_clip_norm`` by ``g * (max_norm / norm)`` where
     ``norm >= max_norm`` (optax's rule: no epsilon), then takes one AdamW
-    step at ``schedule(count)``, ``count`` the 0-based optimizer step."""
+    step at ``schedule(count)``, ``count`` the 0-based optimizer step.
 
-    def __init__(self, named_params: Dict[str, torch.nn.Parameter], cfg: TrainConfig, steps_per_epoch: int):
+    Given a ``layout`` (``parallel.sharding.ShardedParams``) the named
+    parameters are its blocks: AdamW's moments live beside each block (the
+    moments shard like their parameters), the clip's norm is the whole
+    gradient's, and :meth:`state_dict` holds whole tensors by parameter
+    name whatever the layout, so a checkpoint resumes in any mode."""
+
+    def __init__(self, named_params: Dict[str, torch.nn.Parameter], cfg: TrainConfig, steps_per_epoch: int,
+                 layout: Optional[ShardedParams] = None):
         self.k = max(1, cfg.grad_accum_steps)
-        labels = trainable_labels(named_params, cfg.freeze_image_encoder, cfg.freeze_text_encoder)
-        self.trainable = [n for n in named_params if labels[n] == "train"]
+        self.layout = layout
+        base = ShardedParams.base_name
+        labels = trainable_labels({base(n) for n in named_params}, cfg.freeze_image_encoder, cfg.freeze_text_encoder)
+        self.trainable = [n for n in named_params if labels[base(n)] == "train"]
         self.params = [named_params[n] for n in self.trainable]
         # logit_scale gets no gradient (the loss uses the fixed temperature);
         # it is kept out of the weight decay, as the JAX mask does
-        decay = [p for n, p in zip(self.trainable, self.params) if n != "logit_scale"]
-        no_decay = [p for n, p in zip(self.trainable, self.params) if n == "logit_scale"]
+        decay = [p for n, p in zip(self.trainable, self.params) if base(n) != "logit_scale"]
+        no_decay = [p for n, p in zip(self.trainable, self.params) if base(n) == "logit_scale"]
         self.adamw = torch.optim.AdamW(
             [{"params": decay, "weight_decay": cfg.weight_decay}, {"params": no_decay, "weight_decay": 0.0}],
             lr=cfg.lr, betas=(cfg.beta1, cfg.beta2), eps=cfg.eps,
@@ -175,6 +230,9 @@ class Optimizer:
         self.mini_step = 0
         self.acc = [torch.zeros_like(p) for p in self.params] if self.k > 1 else None
 
+    def norm(self, tensors: List[torch.Tensor], names: List[str]) -> torch.Tensor:
+        return global_norm(tensors, self.layout, names)
+
     def step(self, grads: Params) -> None:
         g = [grads[n] for n in self.trainable]
         if self.acc is not None:
@@ -186,8 +244,9 @@ class Optimizer:
                 return
             self.mini_step = 0
             g = self.acc
-        factor = torch.clamp(self.max_norm / global_norm(g), max=1.0)  # 1 below max_norm: g unchanged
-        torch._foreach_mul_(g, factor)
+        factor = torch.clamp(self.max_norm / self.norm(g, self.trainable), max=1.0)  # 1 below max_norm: g unchanged
+        for dev, ts in _by_device(g).items():
+            torch._foreach_mul_(ts, factor.to(dev))
         for p, gi in zip(self.params, g):
             p.grad = gi
         lr = self.schedule(self.count)
@@ -200,20 +259,67 @@ class Optimizer:
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
 
+    def moment_tensors(self) -> Dict[str, List[torch.Tensor]]:
+        """The AdamW state tensors beside each parameter (leaf) name."""
+        return {n: [v for k, v in self.adamw.state[p].items() if k != "step"]
+                for n, p in zip(self.trainable, self.params) if p in self.adamw.state}
+
+    def _whole(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return dict(leaves) if self.layout is None else self.layout.whole(leaves)
+
+    def _split(self, whole: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor]) -> None:
+        if self.layout is not None:
+            self.layout.load_whole(whole, like)
+            return
+        with torch.no_grad():
+            for n, t in like.items():
+                t.copy_(whole[n])
+
     def state_dict(self) -> Dict[str, Any]:
+        named = dict(zip(self.trainable, self.params))
+        st = {n: self.adamw.state[p] for n, p in named.items() if p in self.adamw.state}
+        moments = {key: self._whole({n: s[key] for n, s in st.items()}) for key in ("exp_avg", "exp_avg_sq")}
+        steps = {ShardedParams.base_name(n): float(s["step"]) for n, s in st.items()}
         return {
-            "adamw": self.adamw.state_dict(),
             "count": self.count,
             "mini_step": self.mini_step,
-            "acc": None if self.acc is None else dict(zip(self.trainable, self.acc)),
+            "step": steps,
+            **moments,
+            "acc": None if self.acc is None else self._whole(dict(zip(self.trainable, self.acc))),
         }
 
+    def _by_name(self, sd: Dict[str, Any]) -> Dict[str, Any]:
+        """:meth:`state_dict`'s format from the earlier one, which held
+        ``torch.optim.AdamW``'s own state under ``"adamw"`` (its parameters
+        by index: the decayed ones in parameter order, then
+        ``logit_scale``)."""
+        if "step" in sd:
+            return sd
+        if "adamw" not in sd:
+            raise ValueError(f"unknown optimizer state format (keys {sorted(sd)}): "
+                             "expected 'step', 'exp_avg' and 'exp_avg_sq', or 'adamw'")
+        names = list(dict.fromkeys(ShardedParams.base_name(n) for n in self.trainable))
+        order = [n for n in names if n != "logit_scale"] + [n for n in names if n == "logit_scale"]
+        indices = [i for g in sd["adamw"]["param_groups"] for i in g["params"]]
+        if len(indices) != len(order):
+            raise ValueError(f"optimizer state holds {len(indices)} parameters, this optimizer trains {len(order)}")
+        st = {order[k]: sd["adamw"]["state"][i] for k, i in enumerate(indices) if i in sd["adamw"]["state"]}
+        return dict(sd, step={n: float(s["step"]) for n, s in st.items()},
+                    **{key: {n: s[key] for n, s in st.items()} for key in ("exp_avg", "exp_avg_sq")})
+
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        self.adamw.load_state_dict(sd["adamw"])
+        sd = self._by_name(sd)
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        base = ShardedParams.base_name
+        named = {n: p for n, p in zip(self.trainable, self.params) if base(n) in sd["step"]}
+        moments = {key: {n: torch.zeros_like(p) for n, p in named.items()} for key in ("exp_avg", "exp_avg_sq")}
+        for key, like in moments.items():
+            self._split(sd[key], like)
+        for n, p in named.items():
+            self.adamw.state[p] = {"step": torch.tensor(sd["step"][base(n)]), "exp_avg": moments["exp_avg"][n],
+                                   "exp_avg_sq": moments["exp_avg_sq"][n]}
         if self.acc is not None:
-            for a, n in zip(self.acc, self.trainable):
-                a.copy_(sd["acc"][n])
+            self._split(sd["acc"], dict(zip(self.trainable, self.acc)))
 
 
 def make_optimizer(cfg: TrainConfig, steps_per_epoch: int, model: CLIP) -> Optimizer:
@@ -231,7 +337,7 @@ def collect_grads(params: Params) -> Params:
 def apply_gradients(state: "TrainState", grads: Params, metrics: Dict[str, torch.Tensor]):
     """``grad_norm`` (over every gradient, frozen ones included) into
     ``metrics``, the optimizer on this micro-step's gradients, the step count."""
-    metrics["grad_norm"] = global_norm(list(grads.values()))
+    metrics["grad_norm"] = state.optimizer.norm(list(grads.values()), list(grads))
     state.optimizer.step(grads)
     state.step += 1
     return state, metrics
@@ -318,10 +424,11 @@ def forward_for_config(model: CLIP, cfg: TrainConfig) -> Callable:
     return fwd
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The FLIP draw of one step: a generator on ``device`` seeded by
-    (seed, step), so a resumed run draws the same subsets."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+def step_generator(seed: int, step: int, device, shard: int = 0) -> torch.Generator:
+    """The FLIP draw of one step (and data shard): a generator on ``device``
+    seeded by (seed, step, shard), so a resumed run draws the same subsets
+    and the shards draw apart (JAX folds the axis index in)."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step + shard * 1_000_000_007)
 
 
 def sample_keep_idx(generator: torch.Generator, batch: int, n_patches: int, ratio: float) -> torch.Tensor:
@@ -335,25 +442,44 @@ def sample_keep_idx(generator: torch.Generator, batch: int, n_patches: int, rati
 @dataclasses.dataclass
 class TrainState:
     """What a step updates: the module's parameters (in place) or, in a LoRA
-    run, the ``adapters`` (the module is the frozen base), the optimizer, the
-    step count (micro-steps included) and the EMA shadow. A checkpoint's
-    ``params`` are what the step trains."""
+    run, the ``adapters`` (the module is the frozen base), or in a GSPMD run
+    the ``layout``'s blocks (``parallel.sharding.ShardedParams``); the
+    optimizer, the step count (micro-steps included) and the EMA shadow
+    (keyed like what the step trains). A checkpoint holds whole tensors by
+    parameter name in every mode (every process takes part in gathering
+    them); its ``params`` are what the step trains."""
 
     model: CLIP
     optimizer: Optimizer
     step: int = 0
     ema_params: Optional[Params] = None
     adapters: Optional[Params] = None
+    layout: Optional[ShardedParams] = None
+
+    def params(self) -> Params:
+        """The trained tensors by name (a layout's blocks by leaf name)."""
+        if self.layout is not None:
+            return self.layout.leaves()
+        return self.adapters if self.adapters is not None else dict(self.model.named_parameters())
+
+    def whole(self, tensors: Params) -> Params:
+        """Tensors keyed like :meth:`params` as whole tensors by parameter name."""
+        return self.layout.whole(tensors) if self.layout is not None else dict(tensors)
 
     def state_dict(self) -> Dict[str, Any]:
-        params = dict(self.model.state_dict()) if self.adapters is None else self.adapters
+        if self.layout is not None:
+            params = self.whole(self.layout.leaves())
+        else:
+            params = dict(self.model.state_dict()) if self.adapters is None else self.adapters
         out = {"params": params, "opt_state": self.optimizer.state_dict(), "step": self.step}
         if self.ema_params is not None:
-            out["ema_params"] = self.ema_params
+            out["ema_params"] = self.whole(self.ema_params)
         return out
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        if self.adapters is None:
+        if self.layout is not None:
+            self.layout.load_whole(sd["params"], self.layout.leaves())
+        elif self.adapters is None:
             self.model.load_state_dict(sd["params"])
         else:
             with torch.no_grad():
@@ -362,12 +488,27 @@ class TrainState:
         self.optimizer.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
         if self.ema_params is not None:
-            for n, e in self.ema_params.items():
-                e.copy_(sd["ema_params"][n])
+            if self.layout is not None:
+                self.layout.load_whole(sd["ema_params"], self.ema_params)
+            else:
+                with torch.no_grad():
+                    for n, e in self.ema_params.items():
+                        e.copy_(sd["ema_params"][n])
+
+
+def _tower_losses(cfg: TrainConfig, loss_axis):
+    joint_loss = joint_loss_for_config(cfg)
+
+    def emb_loss(img_e, q_e, t_e, neg_e=None):
+        kw = {} if neg_e is None else {"neg_text_features": neg_e}
+        return joint_loss(img_e, q_e, t_e, temperature=cfg.temperature, t2i_weight=cfg.t2i_weight,
+                          t2t_weight=cfg.t2t_weight, axis_name=loss_axis, **kw)
+
+    return emb_loss
 
 
 def make_train_step(model: CLIP, cfg: TrainConfig, adapters: Optional[Params] = None,
-                    lora_scale: float = 1.0) -> Callable:
+                    lora_scale: float = 1.0, rt: Optional[MeshRuntime] = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: forward both towers
     (the text tower once for queries, once for targets, and once for the
     flattened ``batch["neg_ids"]`` ``[B, k, L]`` with mined negatives), the
@@ -375,24 +516,28 @@ def make_train_step(model: CLIP, cfg: TrainConfig, adapters: Optional[Params] = 
     > 1``), the optimizer on this micro-step's gradients, then the EMA.
     Given ``adapters`` the step trains them on the frozen module (LoRA).
     ``metrics`` are 0-dim device tensors (no host sync): the loss's keys
-    and ``grad_norm``, the global norm of every trained tensor's gradient."""
-    joint_loss = joint_loss_for_config(cfg)
+    and ``grad_norm``, the global norm of every trained tensor's gradient.
+
+    Given a mesh runtime ``rt`` it is the data-parallel step (JAX
+    ``make_train_step``): ``batch`` holds this process's rows (tensors, or
+    the :class:`~..parallel.sharding.RowShards` of
+    ``host_local_batch_to_global``), each data shard runs on its device,
+    the loss is per shard (``global_negatives``: against every shard's
+    columns) and gradients and metrics are the shards' mean."""
+    if rt is not None:
+        return _ShardedStep(model, cfg, rt, adapters=adapters, lora_scale=lora_scale)
     loss_axis = "data" if cfg.global_negatives else None  # one process: gathers nothing
     n_patches = model.arch.grid_size**2
     n_gc = int(cfg.grad_cache_chunks)
     use_negs = bool(cfg.hard_negatives) and cfg.hard_negatives_k > 0
     params = dict(model.named_parameters()) if adapters is None else adapters
+    emb_loss = _tower_losses(cfg, loss_axis)
 
     def enc_img(*args):
         return l2_normalize(model.encode_image(*args))
 
     def enc_txt(ids):
         return l2_normalize(model.encode_text(ids))
-
-    def emb_loss(img_e, q_e, t_e, neg_e=None):
-        kw = {} if neg_e is None else {"neg_text_features": neg_e}
-        return joint_loss(img_e, q_e, t_e, temperature=cfg.temperature, t2i_weight=cfg.t2i_weight,
-                          t2t_weight=cfg.t2t_weight, axis_name=loss_axis, **kw)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         images = batch["images"]
@@ -420,6 +565,200 @@ def make_train_step(model: CLIP, cfg: TrainConfig, adapters: Optional[Params] = 
     return train_step
 
 
+def as_row_shards(batch: Dict[str, Any], rt: MeshRuntime) -> Dict[str, RowShards]:
+    """A batch of this process's rows as its data shards (already cut: as it is)."""
+    if all(isinstance(v, RowShards) for v in batch.values()):
+        return batch
+    return host_local_batch_to_global(batch, rt.mesh, rt.data_axes)
+
+
+class _ShardTowers:
+    """The towers of a mesh's data shards: each shard's module
+    (``parallel.replicas``) bound, for a block, to tensors on its device
+    row made from the module's own parameters, from a ``layout``'s blocks
+    (assembled on the row, the tensor-parallel projections left cut:
+    ``parallel.tp.tp_linear``), or from whole tensors by name."""
+
+    def __init__(self, model: CLIP, rt: MeshRuntime, layout: Optional[ShardedParams] = None):
+        self.model, self.rt, self.layout = model, rt, layout
+        self.replicas = MeshReplicas(model, rt, own_params=layout is None)
+        tp = layout is not None and rt.mesh.shape[rt.model_axis] > 1
+        self.tp_names = {n for n, spec in layout.specs.items() if rt.model_axis in spec} if tp else set()
+
+    def bound(self, params: Any = None, hooks: Optional[Callable] = None):
+        """A context binding every shard's module: ``params`` None (the
+        module's own parameters, or the layout's blocks), a view of the
+        layout over other blocks (the EMA shadow), or whole tensors by name
+        (every module, the caller's own too); ``hooks(module, row)`` (QAT,
+        LoRA) held as well."""
+        layout = params if isinstance(params, ShardedParams) else self.layout if params is None else None
+        whole = params if layout is None else None
+        rows: Dict[Any, Params] = {}
+
+        def tensors_for(row) -> Params:
+            if layout is not None:
+                t = {n: layout.materialize(n, row[0]) for n in layout.specs if n not in self.tp_names}
+            else:
+                t = moved(whole if whole is not None else dict(self.model.named_parameters()), row[0])
+            rows[row] = t
+            return t
+
+        def row_hooks(mod, row):
+            stack = contextlib.ExitStack()
+            if hooks is not None:
+                stack.enter_context(hooks(mod, row))
+            if self.tp_names and layout is not None:
+                from ..parallel.tp import tp_projections
+
+                blocks = {n: layout.materialize(n, row[0], keep=self.rt.model_axis, devices=row)
+                          for n in self.tp_names}
+
+                def weights(name: str):
+                    bias = name[:-len("weight")] + "bias"  # in_proj_weight -> in_proj_bias, c_fc.weight -> c_fc.bias
+                    return blocks[name], blocks.get(bias, rows[row].get(bias))
+
+                stack.enter_context(tp_projections(mod, weights, row))
+            return stack
+
+        return self.replicas.bound(tensors_for, row_hooks, rebind_own=whole is not None)
+
+    def tower(self, method: str) -> Callable:
+        """``enc(*args)``: each arg a list over this process's shards; the
+        shards' L2-normalized embeddings stacked on the home device ``[S, B, D]``."""
+
+        def enc(*args):
+            return self.replicas.per_shard(
+                lambda mod, j, row, g: l2_normalize(getattr(mod, method)(*(a[j] for a in args))))
+
+        return enc
+
+
+class _ShardedStep:
+    """The train step over a mesh's data shards: the data-parallel step
+    (replicated parameters: the module's own, or LoRA ``adapters``) or, given
+    a ``layout``, the GSPMD step over its blocks (global-batch loss, the
+    FLIP draw over the global batch). Also the distillation step (``loss``:
+    a callable of the batch's per-shard tensors)."""
+
+    def __init__(self, model: CLIP, cfg: TrainConfig, rt: MeshRuntime, adapters: Optional[Params] = None,
+                 lora_scale: float = 1.0, layout: Optional[ShardedParams] = None, distill=None):
+        self.model, self.cfg, self.rt = model, cfg, rt
+        self.adapters, self.lora_scale, self.layout, self.distill = adapters, lora_scale, layout, distill
+        self.towers = _ShardTowers(model, rt, layout)
+        self.replicas = self.towers.replicas
+        self.gspmd = layout is not None
+        axes = rt.data_axes
+        self.emb_loss = _tower_losses(cfg, axes if (cfg.global_negatives or self.gspmd) else None)
+        self.params = (layout.leaves() if layout is not None
+                       else adapters if adapters is not None else dict(model.named_parameters()))
+
+    def hooks(self, mod, row):
+        adapters = None if self.adapters is None else moved(self.adapters, row[0])
+        return projections_for_config(mod, self.cfg, adapters, self.lora_scale)
+
+    def keep_idx(self, step: int, images: List[torch.Tensor]) -> List[torch.Tensor]:
+        cfg, n_patches = self.cfg, self.model.arch.grid_size**2
+        if not self.gspmd:  # a fresh subset per shard
+            return [sample_keep_idx(step_generator(cfg.seed, step, x.device, g), x.shape[0], n_patches,
+                                    cfg.image_mask_ratio) for (g, _), x in zip(self.replicas.shards, images)]
+        # one draw over the global batch, each shard its rows of it
+        b = images[0].shape[0]
+        home = self.replicas.home
+        full = sample_keep_idx(step_generator(cfg.seed, step, home), b * self.rt.num_data, n_patches,
+                               cfg.image_mask_ratio)
+        return [full[g * b:(g + 1) * b].to(x.device) for (g, _), x in zip(self.replicas.shards, images)]
+
+    # -- the step ----------------------------------------------------------
+
+    def _reduce(self, grads: Params, metrics: Dict[str, torch.Tensor]):
+        """The mean over the processes: gradients every process holds are
+        all-reduced, blocks gathered across processes already carry every
+        process's share (their gather's backward summed it)."""
+        mesh = self.rt.mesh
+        if mesh.process_count == 1:
+            return grads, metrics
+        whole = [g for n, g in grads.items()
+                 if self.layout is None or not self.layout.spans_processes(ShardedParams.base_name(n))]
+        all_reduce_(whole, mesh.group)
+        for g in grads.values():
+            g.div_(mesh.process_count)
+        vals = list(metrics.values())
+        all_reduce_(vals, mesh.group, dtype=torch.float64)  # scalars: summed in f64
+        return grads, {k: v / mesh.process_count for k, v in metrics.items()}
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        cfg = self.cfg
+        shards = as_row_shards(batch, self.rt)
+        ins = {k: [t for _, t in v.shards] for k, v in shards.items()}
+        params = self.params
+        with self.towers.bound(hooks=self.hooks):
+            img_args = (ins["images"],)
+            if self.distill is None and cfg.image_mask_ratio > 0:
+                img_args += (self.keep_idx(state.step, ins["images"]),)
+            text = self.towers.tower("encode_text")
+            towers = [(self.towers.tower("encode_image"), img_args), (text, (ins["query_ids"],)),
+                      (text, (ins["target_ids"],))]
+            if "neg_ids" in ins:
+                towers.append((text, ([x.reshape(-1, x.shape[-1]) for x in ins["neg_ids"]],)))
+            if self.distill is not None:
+                teacher = [torch.stack([t.to(self.replicas.home) for t in ins[k]]) for k in ("t_img", "t_q", "t_t")]
+                emb_loss, n_gc = functools.partial(self.distill, teacher=teacher), 0
+            else:
+                emb_loss, n_gc = self.emb_loss, int(cfg.grad_cache_chunks)
+            if n_gc > 1:
+                (_, metrics), grads = gradcache_value_and_grad(emb_loss, towers, params, n_gc)
+            else:
+                for p in params.values():
+                    p.grad = None
+                loss, metrics = emb_loss(*(enc(*a) for enc, a in towers))
+                loss.backward()
+                grads = collect_grads(params)
+        grads, metrics = self._reduce(grads, {k: v.detach() for k, v in metrics.items()})
+        state, metrics = apply_gradients(state, grads, metrics)
+        if state.ema_params is not None:
+            _ema_update(state.ema_params, params, cfg.ema_decay)
+        return state, metrics
+
+
+def init_state_gspmd(model: CLIP, cfg: TrainConfig, rt: MeshRuntime, steps_per_epoch: int) -> TrainState:
+    """The GSPMD train state: the module's parameters cut into blocks over
+    the mesh (``parallel.fsdp`` with ``rt.fsdp``, composed with
+    ``parallel.tp`` where the model axis is active), AdamW's moments beside
+    each block; the module's own parameters are released (the ``meta``
+    device). :func:`init_state_fsdp` is this with ``rt.fsdp``."""
+    from ..parallel.fsdp import fsdp_param_pspecs
+    from ..parallel.tp import tp_param_pspecs
+
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    base = tp_param_pspecs(named, rt.model_axis) if rt.mesh.shape[rt.model_axis] > 1 else None
+    if rt.fsdp:
+        specs = fsdp_param_pspecs(named, rt.mesh.shape[rt.data_axis], rt.data_axis, base=base)
+    else:
+        specs = base or {n: (None,) * p.ndim for n, p in named.items()}
+    layout = ShardedParams(named, rt.mesh, specs)
+    model.to("meta")
+    ema = None
+    if cfg.ema_decay > 0.0:
+        ema = {n: b.detach().clone() for n, b in layout.leaves().items()}
+    return TrainState(model, Optimizer(layout.leaves(), cfg, steps_per_epoch, layout=layout), 0, ema, None, layout)
+
+
+def init_state_fsdp(model: CLIP, cfg: TrainConfig, rt: MeshRuntime, steps_per_epoch: int) -> TrainState:
+    """ZeRO-3: parameters and both moments cut over the data axis."""
+    return init_state_gspmd(model, cfg, dataclasses.replace(rt, fsdp=True), steps_per_epoch)
+
+
+def make_train_step_gspmd(model: CLIP, cfg: TrainConfig, rt: MeshRuntime, layout: ShardedParams) -> Callable:
+    """The train step over FSDP / tensor-parallel blocks (JAX
+    ``make_train_step_gspmd``): each data shard assembles the parameters
+    from their blocks on its device (the tensor-parallel projections stay
+    cut, ``parallel.tp.tp_linear``), the loss scores the global batch
+    (numerically the data-parallel step with ``global_negatives``), and each
+    block's gradient is the sum over the shards of its uses, so each
+    position updates only its own block."""
+    return _ShardedStep(model, cfg, rt, layout=layout)
+
+
 def encode_batch(model: CLIP, params: Optional[Params], images, query_ids, target_ids):
     """L2-normalized (image, query, target) embeddings of one batch, with the
     module's own weights or, given ``params`` (names as the module's), those."""
@@ -433,6 +772,56 @@ def encode_batch(model: CLIP, params: Optional[Params], images, query_ids, targe
 
     visual, text = tower("visual"), tower("text")
     return l2_normalize(visual(images)), l2_normalize(text(query_ids)), l2_normalize(text(target_ids))
+
+
+def make_encode_step(model: CLIP, rt: MeshRuntime, fast: bool = False, quantize: Optional[str] = None,
+                     layout: Optional[ShardedParams] = None) -> Callable:
+    """``step(params, images, query_ids, target_ids) -> (img, query, target)``
+    over a mesh (JAX ``make_encode_step``): each data shard encodes its rows
+    on its device and the L2-normalized embeddings come back gathered in
+    global order, ``[N, D]`` on the mesh's first device, on every process.
+    Inputs are this process's rows (or their ``RowShards``). ``params``:
+    None (the module's own weights, or the ``layout``'s blocks), a view of
+    the layout (the EMA shadow), or whole tensors by name (EMA, a LoRA
+    merge). ``fast=True`` (implied by ``quantize``) runs the serving
+    encoders (B1 / B3a / B3b on the card) from plans packed once for each
+    distinct device; given a ``layout`` (the GSPMD state) the parameters
+    stay in their blocks (:func:`make_encode_step_gspmd`)."""
+    from ..models.fast_encode import encode_image_fast, encode_text_fast, make_encode_plans
+
+    fast = fast or quantize is not None
+    home = rt.mesh.first_device
+    if fast:
+        model_home = next(model.parameters()).device
+        plans = {}
+        for dev in dict.fromkeys(d for _, d in rt.mesh.axis_shards(rt.data_axes)):
+            m = model if dev == model_home else copy.deepcopy(model).to(dev)
+            plans[dev] = make_encode_plans(m, dtype=model.dtype, quantize=quantize)
+
+        def fast_tower(fn, name: str) -> Callable:
+            return lambda xs: torch.stack([l2_normalize(fn(model.arch, plans[x.device][name], x)).to(home) for x in xs])
+
+        img, txt = fast_tower(encode_image_fast, "visual"), fast_tower(encode_text_fast, "text")
+    else:
+        towers = _ShardTowers(model, rt, layout)
+        img, txt = towers.tower("encode_image"), towers.tower("encode_text")
+
+    @torch.no_grad()
+    def step(params, images, query_ids, target_ids):
+        shards = as_row_shards({"images": images, "query_ids": query_ids, "target_ids": target_ids}, rt)
+        ins = {k: [t for _, t in v.shards] for k, v in shards.items()}
+        with contextlib.nullcontext() if fast else towers.bound(params):
+            outs = (img(ins["images"]), txt(ins["query_ids"]), txt(ins["target_ids"]))
+        return tuple(all_gather_processes(o.reshape(-1, o.shape[-1]), rt.mesh) for o in outs)
+
+    return step
+
+
+def make_encode_step_gspmd(model: CLIP, rt: MeshRuntime, layout: ShardedParams) -> Callable:
+    """The encode step over the GSPMD state: the parameters stay in their
+    blocks (assembled per shard, the tensor-parallel projections cut), not
+    gathered whole once per call."""
+    return make_encode_step(model, rt, layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -465,8 +854,14 @@ class EarlyStopper:
 
 
 class CLIPTrainer:
-    """Epoch-loop orchestration on the device that holds ``model``'s
-    parameters, which it trains in place."""
+    """Epoch-loop orchestration. Without a mesh (``rt`` None and ``mesh`` of
+    one device) it trains ``model``'s parameters in place on their device.
+    Over a mesh runtime ``rt`` (or a ``mesh`` layout, built over ``cpu``
+    repeated when the model is on the CPU) it runs the data-parallel step,
+    or with a model axis or ``fsdp`` the GSPMD step over blocks (the
+    module's own parameters are then released: :meth:`params` gathers the
+    trained ones). Under ``torch.distributed`` every process runs it on its
+    slice of each global batch."""
 
     def __init__(
         self,
@@ -476,6 +871,7 @@ class CLIPTrainer:
         cfg: TrainConfig,
         mesh: Optional[MeshConfig] = None,
         out_dir: str = "experiments/train",
+        rt: Optional[MeshRuntime] = None,
     ):
         self.model = model
         self.cfg = cfg
@@ -493,6 +889,19 @@ class CLIPTrainer:
                 self._wandb = wandb.init(project=cfg.wandb_project, config=dataclasses.asdict(cfg))
             except Exception as e:  # noqa: BLE001 -- logging is optional
                 self.logger.warning("wandb unavailable: %s", e)
+        if rt is None and mesh is not None and (
+                mesh.data_parallel * mesh.model_parallel * mesh.dcn_parallel > 1 or mesh.fsdp):
+            from ..parallel.mesh import default_devices
+
+            rt = MeshRuntime.create(mesh, default_devices(mesh, "cpu" if self.device.type == "cpu" else None))
+        if rt is not None and rt.mesh.size == 1 and not rt.fsdp and rt.mesh.first_device == self.device:
+            rt = None  # one device: the step of one device
+        self.rt = rt
+        if rt is not None and cfg.batch_size % rt.num_data:
+            raise ValueError(f"train.batch_size={cfg.batch_size} must be divisible by the data-axis size "
+                             f"({rt.num_data} devices)")
+        self.tensor_parallel = rt is not None and rt.mesh.shape[rt.model_axis] > 1
+        self.fsdp = rt is not None and rt.fsdp
         self.steps_per_epoch = train_data.num_batches(cfg.batch_size)
         self.lora = cfg.lora_rank > 0
         self.distill_bank = None
@@ -518,10 +927,10 @@ class CLIPTrainer:
             raise ValueError(f"ema_decay must be in (0, 1), got {cfg.ema_decay}")
         if self.ema and (self.lora or cfg.distill_teacher):
             raise ValueError("ema_decay rides the DP/GSPMD full-fine-tune steps only")
-        mesh = mesh or MeshConfig()
-        if mesh.model_parallel > 1 or mesh.fsdp:
-            raise NotImplementedError(f"tensor-parallel and FSDP training are not ported yet: {A5}")
         if self.lora:
+            # adapter memory is ~0.1% of full fine-tuning: data parallelism covers it
+            if self.tensor_parallel or self.fsdp:
+                raise ValueError("lora_rank > 0 requires plain data parallelism (no tp/fsdp)")
             if cfg.distill_teacher:
                 raise ValueError("distill_teacher and lora_rank are mutually exclusive")
             # the frozen base stays in the module; the state trains rank-r adapters
@@ -533,21 +942,32 @@ class CLIPTrainer:
             self.lora_scale = cfg.lora_alpha / cfg.lora_rank
             optimizer = Optimizer(adapters, cfg, self.steps_per_epoch)
             self.state = TrainState(model, optimizer, 0, None, adapters)
-            self.train_step = make_train_step(model, cfg, adapters, self.lora_scale)
+            self.train_step = make_train_step(model, cfg, adapters, self.lora_scale, rt=rt)
             self.logger.info("LoRA rank %d (%s): %d trainable adapter params", cfg.lora_rank, cfg.lora_targets,
                              lora_param_count(adapters))
         elif cfg.distill_teacher:
+            if self.tensor_parallel or self.fsdp:
+                raise ValueError("distill_teacher requires plain data parallelism (no tp/fsdp)")
             # teacher embeddings precomputed offline ride the batch; the step swaps InfoNCE for the KD loss
             self.distill_bank = TeacherBank(load_encoded_dataset(cfg.distill_teacher))
             self.state = TrainState(model, make_optimizer(cfg, self.steps_per_epoch, model))
-            self.train_step = make_distill_step(model, cfg, model.arch.embed_dim, self.distill_bank.dim)
+            self.train_step = make_distill_step(model, cfg, model.arch.embed_dim, self.distill_bank.dim, rt=rt)
             self.logger.info("distilling from %s (%d teacher rows, dim %d -> student dim %d)", cfg.distill_teacher,
                              len(self.distill_bank.enc.uuids), self.distill_bank.dim, model.arch.embed_dim)
+        elif self.tensor_parallel or self.fsdp:
+            # the GSPMD step scores the global batch whatever global_negatives says
+            if not cfg.global_negatives:
+                self.logger.warning("the GSPMD step computes global-batch negatives; "
+                                    "cfg.global_negatives=False is ignored in tp/fsdp mode")
+            self.state = (init_state_fsdp if self.fsdp else init_state_gspmd)(model, cfg, rt, self.steps_per_epoch)
+            self.train_step = make_train_step_gspmd(model, cfg, rt, self.state.layout)
         else:
             optimizer = make_optimizer(cfg, self.steps_per_epoch, model)
             ema = {n: p.detach().clone() for n, p in model.named_parameters()} if self.ema else None
             self.state = TrainState(model, optimizer, 0, ema)
-            self.train_step = make_train_step(model, cfg)
+            self.train_step = make_train_step(model, cfg, rt=rt)
+        if rt is not None:
+            self.encode_step = make_encode_step(model, rt, layout=self.state.layout)
         self.stopper = EarlyStopper(cfg.early_stop_patience)
         self.start_epoch = 0
         if cfg.resume and ckpt.checkpoint_exists(cfg.checkpoint_dir, "latest"):
@@ -556,6 +976,7 @@ class CLIPTrainer:
     # -- checkpointing ------------------------------------------------------
 
     def _resume(self) -> None:
+        # whole tensors by name: the state's own layout places them again
         state, meta = ckpt.load_checkpoint(self.cfg.checkpoint_dir, "latest")
         self.state.load_state_dict(state)
         self.start_epoch = int(meta.get("epoch", -1)) + 1
@@ -565,14 +986,18 @@ class CLIPTrainer:
                          self.stopper.best_epoch)
 
     def _save(self, role: str, epoch: int) -> None:
+        # every process takes part in gathering the state, the coordinator writes
+        multi = self.rt is not None and self.rt.mesh.process_count > 1
         ckpt.save_checkpoint(
             self.cfg.checkpoint_dir, role, self.state.state_dict(),
-            {"epoch": epoch, "best_metric": self.stopper.best, "best_epoch": self.stopper.best_epoch},
+            {"epoch": epoch, "best_metric": self.stopper.best, "best_epoch": self.stopper.best_epoch}, wait=multi,
         )
+        if multi:
+            torch.distributed.barrier(self.rt.mesh.group)
 
     # -- data placement -----------------------------------------------------
 
-    def _device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
+    def _device_batch(self, batch: Batch) -> Dict[str, Any]:
         host = {"images": batch.images, "query_ids": batch.query_ids, "target_ids": batch.target_ids}
         if self.distill_bank is not None:
             host["t_img"], host["t_q"], host["t_t"] = self.distill_bank.rows(batch.uuids)
@@ -586,32 +1011,69 @@ class CLIPTrainer:
                     )
             host["neg_ids"] = self.train_data.negative_target_ids(batch.indices, self.neg_table,
                                                                   self.cfg.hard_negatives_k)
+        if self.rt is not None:
+            return host_local_batch_to_global(host, self.rt.mesh, self.rt.data_axes)
         return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in host.items()}
 
     # -- validation ---------------------------------------------------------
 
+    def params(self) -> Params:
+        """The trained parameters as whole tensors by name (every process
+        calls it under ``torch.distributed``): the module's own, a LoRA run's
+        adapters, or the GSPMD state's blocks joined."""
+        return self.state.whole(self.state.params())
+
     def eval_params(self) -> Params:
         """The weights to evaluate and export: in a LoRA run the base merged
         with the current adapters (``W + s (a @ b)ᵀ``), the EMA shadow when
-        ``ema_decay`` is set, else the trained parameters."""
+        ``ema_decay`` is set, else the trained parameters (whole tensors by
+        name; every process calls it under ``torch.distributed``)."""
         if self.lora:
             with torch.no_grad():
                 return lora_merge(dict(self.model.named_parameters()), self.state.adapters, self.lora_scale)
         if self.state.ema_params is not None:
-            return self.state.ema_params
+            return self.state.whole(self.state.ema_params)
+        if self.state.layout is not None:
+            return self.params()
         return dict(self.model.named_parameters())
 
+    def _encode_params(self):
+        """What the encode step takes: None (the module's own weights), the
+        GSPMD layout (or its EMA view), or whole tensors (a LoRA merge, EMA)."""
+        layout = self.state.layout
+        if self.lora:
+            return self.eval_params()
+        if self.state.ema_params is not None:
+            return layout.view(self.state.ema_params) if layout is not None else self.state.ema_params
+        return layout
+
     def validate(self) -> Dict[str, float]:
-        """MRR-only validation over the whole validation split (T2I, T2T)."""
+        """MRR-only validation over the whole validation split (T2I, T2T).
+        Over a mesh each batch is padded to the global batch size, each
+        process encodes its slice, and the gathered embeddings (global order,
+        on every process) are cut back to the batch."""
         if self.val_data is None:
             return {}
-        # merged once a pass; None: the module's own weights
-        params = self.eval_params() if (self.lora or self.state.ema_params is not None) else None
         embs = {"img": [], "q": [], "t": []}
+        if self.rt is None:
+            # merged once a pass; None: the module's own weights
+            params = self.eval_params() if (self.lora or self.state.ema_params is not None) else None
+        else:
+            params = self._encode_params()
+        global_bs = self.cfg.batch_size
         with torch.no_grad():
-            for batch in self.val_data.epoch_batches(self.cfg.batch_size, shuffle=False, drop_last=False):
-                db = self._device_batch(batch)
-                img, q, t = encode_batch(self.model, params, db["images"], db["query_ids"], db["target_ids"])
+            for batch in self.val_data.epoch_batches(global_bs, shuffle=False, drop_last=False):
+                if self.rt is None:
+                    db = self._device_batch(batch)
+                    img, q, t = encode_batch(self.model, params, db["images"], db["query_ids"], db["target_ids"])
+                else:
+                    n = batch.images.shape[0]
+                    arrays = [batch.images, batch.query_ids, batch.target_ids]
+                    arrays = [np.pad(a, [(0, global_bs - n)] + [(0, 0)] * (a.ndim - 1)) for a in arrays]
+                    pc, pi = self.rt.mesh.process_count, self.rt.mesh.process_index
+                    local = global_bs // pc
+                    arrays = [a[pi * local:(pi + 1) * local] for a in arrays]
+                    img, q, t = (e[:n] for e in self.encode_step(params, *arrays))
                 embs["img"].append(img)
                 embs["q"].append(q)
                 embs["t"].append(t)
@@ -639,8 +1101,10 @@ class CLIPTrainer:
             # per-epoch metric means, summed on the device: no host sync a step
             metric_sums = None
             n_steps = 0
+            mesh = None if self.rt is None else self.rt.mesh
             batches = self.train_data.epoch_batches(cfg.batch_size, epoch=epoch, shuffle=True, seed=cfg.seed,
-                                                    drop_last=True)
+                                                    drop_last=True, num_shards=mesh.process_count if mesh else 1,
+                                                    shard_index=mesh.process_index if mesh else 0)
             for db in device_prefetch(batches, self._device_batch):
                 self.state, metrics = self.train_step(self.state, db)
                 metric_sums = metrics if metric_sums is None else {k: metric_sums[k] + v for k, v in metrics.items()}

@@ -1394,3 +1394,81 @@ def test_kernel_operands_on_two_cards_raise(rng, dev):
     with pytest.raises(ValueError, match="several cards"):
         similarity_topk_kernel(q, q, c, c, None, None, torch.full((4, 1), 0.5, device=q.device), 5)
     assert dispatch.launch_counts()["similarity_topk_kernel"] == 0
+
+
+def _parallel_step(devices, layout, model, batch, cfg):
+    """One train step over a mesh of ``devices`` with ``layout``: (loss, grad_norm, whole parameters)."""
+    import copy
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import MeshRuntime
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig
+
+    m = copy.deepcopy(model)
+    if devices is None:
+        state = TT.TrainState(m, TT.make_optimizer(cfg, 1, m))
+        state, met = TT.make_train_step(m, cfg)(state, {k: v.to(m.logit_scale.device) for k, v in batch.items()})
+        return float(met["loss"]), float(met["grad_norm"]), {n: p.detach() for n, p in m.named_parameters()}
+    rt = MeshRuntime.create(MeshConfig(**layout), devices)
+    if rt.fsdp or rt.mesh.shape[rt.model_axis] > 1:
+        state = (TT.init_state_fsdp if rt.fsdp else TT.init_state_gspmd)(m, cfg, rt, 1)
+        step = TT.make_train_step_gspmd(m, cfg, rt, state.layout)
+    else:
+        state = TT.TrainState(m, TT.make_optimizer(cfg, 1, m))
+        step = TT.make_train_step(m, cfg, rt=rt)
+    state, met = step(state, batch)
+    return float(met["loss"]), float(met["grad_norm"]), state.whole(state.params()) if state.layout is not None else {
+        n: p.detach() for n, p in m.named_parameters()}
+
+
+def _parallel_world(rng, dev):
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = CLIPArch(64, 32, 1, 64, 16, 16, 256, 64, 2, 1, vision_heads=2)
+    model = build_model("tiny", dtype=torch.float32, seed=0, device=dev, arch=arch)
+    b = 8
+    batch = {"images": torch.from_numpy(rng.standard_normal((b, 32, 32, 3)).astype(np.float32)),
+             "query_ids": torch.from_numpy(rng.integers(1, 250, (b, 16))),
+             "target_ids": torch.from_numpy(rng.integers(1, 250, (b, 16)))}
+    # lr 1e-3 (the CPU tests' rate): AdamW's first step moves a parameter by
+    # about lr, far above the 2e-5 the parameters are held to
+    return model, batch, TrainConfig(batch_size=b, global_negatives=True, lr=1e-3)
+
+
+_LAYOUTS = {"dp2": dict(data_parallel=2), "fsdp2": dict(data_parallel=2, fsdp=True),
+            "tp2": dict(data_parallel=1, model_parallel=2)}
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_parallel_train_steps_on_one_card(rng, dev, layout):
+    """The DP, FSDP and TP steps over ``[cuda:0] * 2`` (f32, TF32 off,
+    global negatives) equal the one-device step (loss 1e-5, parameters
+    2e-5, grad_norm 1e-5 relative), and every shard's towers launched the
+    attention kernel."""
+    model, batch, cfg = _parallel_world(rng, dev)
+    want_loss, want_norm, want = _parallel_step(None, None, model, batch, cfg)
+    dispatch.reset_launch_counts()
+    loss, norm, got = _parallel_step([torch.device("cuda", 0)] * 2, _LAYOUTS[layout], model, batch, cfg)
+    shards = 2 if layout != "tp2" else 1
+    assert dispatch.launch_counts()["flash_attention_kernel"] == 3 * shards  # image, query, target towers a shard
+    assert loss == pytest.approx(want_loss, abs=1e-5)
+    assert norm == pytest.approx(want_norm, rel=1e-5)
+    for n, p in want.items():
+        torch.testing.assert_close(got[n].to(p.device), p, rtol=0, atol=2e-5, msg=n)
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_parallel_train_steps_across_cards(rng, dev, layout):
+    """The same steps over two distinct cards (skips with fewer than two):
+    each shard on its card, gradients back on the card of the optimizer state."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    model, batch, cfg = _parallel_world(rng, dev)
+    want_loss, want_norm, want = _parallel_step(None, None, model, batch, cfg)
+    loss, norm, got = _parallel_step([torch.device("cuda", 0), torch.device("cuda", 1)], _LAYOUTS[layout], model,
+                                     batch, cfg)
+    assert loss == pytest.approx(want_loss, abs=1e-5)
+    assert norm == pytest.approx(want_norm, rel=1e-5)
+    for n, p in want.items():
+        torch.testing.assert_close(got[n].to(p.device), p, rtol=0, atol=2e-5, msg=n)

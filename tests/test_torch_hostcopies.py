@@ -461,9 +461,45 @@ def test_captioning_files_equal_the_original(tmp_path):
     assert files["port"] == files["jax"]
 
 
-def test_mesh_sharded_captioner_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A5"):
-        TCap.MeshShardedCaptioner(lambda p, x: x, {}, str, None)
+def test_mesh_sharded_captioner_names_its_roadmap_item(tmp_path):
+    """``MeshShardedCaptioner`` over ``[cpu] * 8`` against the JAX one over
+    the 8 virtual devices (``tests/test_datagen.py``): 11 images (padded to
+    16 by repeating the last), the same captions, and the unchanged
+    pipeline drives it (resume)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from knowledge_enhanced_multimodal_retrieval_tpu.parallel import MeshRuntime as JR
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.mesh import MeshRuntime as TR
+
+    C, L = 3, 4
+
+    def j_caption(params, images):
+        base = (images.mean(axis=(1, 2, 3))[:, None, None] * params["scale"]).astype(jnp.int32)
+        return (base + jnp.arange(C, dtype=jnp.int32)[None, :, None] * 10 + jnp.arange(L, dtype=jnp.int32)) % 97
+
+    def t_caption(params, images):
+        rows.append(images.shape[0])
+        base = (images.mean(dim=(1, 2, 3))[:, None, None] * params["scale"]).to(torch.int32)
+        return (base + torch.arange(C, dtype=torch.int32)[None, :, None] * 10 + torch.arange(L, dtype=torch.int32)) % 97
+
+    decode = lambda ids: " ".join(str(int(i)) for i in ids)  # noqa: E731
+    rows = []
+    rng = np.random.default_rng(0)
+    images = [rng.random((8, 8, 3)).astype(np.float32) for _ in range(11)]
+    want = JCap.MeshShardedCaptioner(j_caption, {"scale": jnp.float32(1000.0)}, decode, JR.create()).generate(images)
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig
+
+    cap = TCap.MeshShardedCaptioner(t_caption, {"scale": torch.tensor(1000.0)}, decode,
+                                    TR.create(MeshConfig(data_parallel=8), [torch.device("cpu")] * 8))
+    got = cap.generate(images)
+    assert len(got) == 11 and got == want and rows == [2] * 8  # each shard captions its 2 rows
+    pipe = TCap.CaptioningPipeline(cap, str(tmp_path / "caps"), batch_size=4)
+    uuids = [f"m{i}" for i in range(11)]
+    assert sorted(pipe.run(uuids, images)["written"]) == sorted(uuids)
+    assert json.load(open(tmp_path / "caps" / "m7.json"))["content_descriptions"] == got[7]
+    assert sorted(pipe.run(uuids, images)["skipped"]) == sorted(uuids)
 
 
 def test_blip2_captioner_defaults_to_the_card():

@@ -110,6 +110,12 @@ SLICE_MODULES = [
     f"{PKG}.parallel",
     f"{PKG}.parallel.mesh",
     f"{PKG}.parallel.sharding",
+    f"{PKG}.parallel.replicas",
+    f"{PKG}.parallel.fsdp",
+    f"{PKG}.parallel.tp",
+    f"{PKG}.parallel.pp",
+    f"{PKG}.parallel.sp",
+    f"{PKG}.parallel.ep",
     f"{PKG}.retrieval.multihost",
     f"{PKG}.scripts.dryrun_multichip",
 ]

@@ -102,16 +102,30 @@ def test_matryoshka_refuses_bad_dims(rng):
         TL.joint_loss_for_config(TCfg(loss="hinge"))
 
 
-def test_axis_name_is_one_process(rng, monkeypatch):
-    """On one process ``axis_name`` gathers nothing (a one-device mesh's loss);
-    more than one process is ROADMAP A5."""
-    a, b = torch.from_numpy(_feats(rng)), torch.from_numpy(_feats(rng))
-    assert float(TL.info_nce(a, b, axis_name="data")[0]) == float(TL.info_nce(a, b)[0])
-    import torch.distributed as dist
+@pytest.mark.parametrize("pair", ["info_nce", "sigmoid_contrastive"])
+@pytest.mark.parametrize("axis", [None, "data"])
+def test_axis_name_is_one_process(rng, pair, axis):
+    """Sharded features ``[S, B, D]``: each shard's loss as the JAX
+    ``shard_map`` body computes it over S devices (its own rows, or with
+    ``axis_name`` against every shard's gathered columns, labels offset by
+    the shard's first row; mined negatives gathered like the batch), the
+    shards' mean as ``pmean``. On one process ``axis_name`` over ``[B, D]``
+    gathers nothing."""
+    import jax
+    from jax.sharding import Mesh, PartitionSpec as P
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    for fn in (TL.info_nce, TL.sigmoid_contrastive):
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn(a, b, axis_name="data")
-    TL.info_nce(a, b)  # local negatives need no gather
+    a, b, neg = _feats(rng), _feats(rng), _feats(rng, n=8)
+    fn_t, fn_j = getattr(TL, pair), getattr(JL, pair)
+    two = torch.from_numpy(a), torch.from_numpy(b)
+    assert float(fn_t(*two, axis_name="data")[0]) == float(fn_t(*two)[0])
+    mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+
+    def body(x, y, n):
+        loss, m = fn_j(x, y, axis_name=axis, negatives_b=n)
+        return jax.lax.pmean(loss, "data")
+
+    want = jax.shard_map(body, mesh=mesh, in_specs=(P("data"), P("data"), P("data")), out_specs=P(),
+                         check_vma=False)(jnp.asarray(a), jnp.asarray(b), jnp.asarray(neg))
+    shard = lambda x: torch.from_numpy(x).reshape(4, -1, x.shape[-1])  # noqa: E731
+    got, _ = fn_t(shard(a), shard(b), axis_name=axis, negatives_b=shard(neg))
+    assert float(got) == pytest.approx(float(want), rel=1e-5, abs=1e-6)

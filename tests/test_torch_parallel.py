@@ -109,9 +109,13 @@ def test_placements():
     rep = rt.replicated_sharding().place(x)
     assert list(rep) == [torch.device("cpu")] and rep[torch.device("cpu")] is x
     assert replicate(x, rt.mesh)[torch.device("cpu")] is x
-    dcn = MeshRuntime.create(MeshConfig(dcn_parallel=2), [torch.device("cpu")] * 4)
-    with pytest.raises(NotImplementedError, match="A5 \\(b\\)"):
-        dcn.data_sharding(2).place(x)
+    # rows over ('dcn', 'data') jointly, outer axis major (JAX's tuple all_gather order)
+    dcn = MeshRuntime.create(MeshConfig(dcn_parallel=2, data_parallel=2), [torch.device("cpu")] * 4)
+    rows = torch.arange(8.0).reshape(8, 1)
+    joint = dcn.data_sharding(2).place(rows)
+    assert joint.n_shards == 4 and [g for g, _ in joint.shards] == [0, 1, 2, 3]
+    torch.testing.assert_close(joint.gather(), rows)
+    assert [t[0, 0].item() for _, t in joint.shards] == [0.0, 2.0, 4.0, 6.0]
 
 
 def test_default_devices_on_the_cpu():
@@ -155,3 +159,35 @@ def test_runtime_init_single_process_is_a_noop(monkeypatch):
     with pytest.raises(ValueError, match="no coordinator address"):
         runtime_init()
     assert not torch.distributed.is_initialized()
+
+
+def test_all_reduce_crosses_in_bounded_buckets_of_the_tensors_dtype(monkeypatch):
+    """``all_reduce_`` sends each dtype in flat buckets of at most
+    ``REDUCE_BUCKET_BYTES`` (a larger tensor alone), in the tensors' own
+    dtype unless ``dtype`` is given, and writes each tensor's sum back in
+    place (a stand-in collective doubles each buffer: two equal processes)."""
+    import torch.distributed as dist
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import sharding
+
+    sent = []
+
+    def fake_all_reduce(flat, op=None, group=None):
+        sent.append((flat.dtype, flat.numel() * flat.element_size()))
+        flat.mul_(2)
+
+    monkeypatch.setattr(dist, "get_backend", lambda group: "gloo")
+    monkeypatch.setattr(dist, "all_reduce", fake_all_reduce)
+    monkeypatch.setattr(sharding, "REDUCE_BUCKET_BYTES", 64)
+    ts = [torch.arange(6, dtype=torch.float32).reshape(2, 3), torch.ones(10), torch.full((3,), 0.5, dtype=torch.bfloat16),
+          torch.arange(40, dtype=torch.float32), torch.ones(2)]
+    want = [t * 2 for t in ts]
+    sharding.all_reduce_(ts, group=object())
+    for t, w in zip(ts, want):
+        assert t.dtype == w.dtype and torch.equal(t, w)
+    assert sent == [(torch.float32, 64), (torch.float32, 160), (torch.float32, 8), (torch.bfloat16, 6)]
+    sent.clear()
+    scalars = [torch.tensor(1.5), torch.tensor(2.5)]
+    sharding.all_reduce_(scalars, group=object(), dtype=torch.float64)
+    assert sent == [(torch.float64, 16)] and [float(s) for s in scalars] == [3.0, 5.0]
+    assert scalars[0].dtype == torch.float32

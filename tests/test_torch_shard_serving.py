@@ -242,10 +242,13 @@ def test_ivf_refuses_a_corpus_too_small_to_shard(world, devices8):
 
 
 def test_dryrun_multichip_on_cpu():
-    """The port's serving dry run over ``[cpu] * 4`` and ``* 8``: every
-    section held to its one-shard scan, one line a section."""
+    """The port's dry run over ``[cpu] * 4`` and ``* 8``: the eight training
+    sections (dp, lora dp, dp x tp2, dp2 x pp2, sp4, fsdp, dcn2 x dp equal to
+    flat dp, ep4), then the serving sections, each held to its one-shard
+    scan; one line a section."""
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.scripts import dryrun_multichip
 
     for n in (4, 8):
         lines = dryrun_multichip.main([f"--devices={n}", "--device=cpu"])
-        assert len(lines) == 6 and all(f"dryrun_multichip({n} on cpu)" in x and " ok" in x for x in lines)
+        assert len(lines) == 14 and all(f"dryrun_multichip({n} on cpu)" in x and " ok" in x for x in lines)
+        assert "(== flat dp)" in lines[6] and "query-DP" in lines[-1]

@@ -32,6 +32,7 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import loa
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import checkpoint as TC
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
 from tests.test_torch_train import MERGES, cfgs, one_device, port_model, tiny_arch
+from tests.torch_train_fixtures import adamw_format
 
 N, BATCH = 64, 16
 
@@ -98,6 +99,29 @@ def test_resume_is_bit_identical(world, tmp_path):
     assert float(resumed.model.logit_scale.detach()) == pytest.approx(float(np.log(1 / 0.07)), rel=1e-6)
     a, b = straight.state.optimizer.state_dict(), resumed.state.optimizer.state_dict()
     assert a["count"] == b["count"] == 2 * N // BATCH
+
+
+def test_resume_reads_the_earlier_optimizer_format(world, tmp_path):
+    """A latest checkpoint whose optimizer state is in the earlier format
+    resumes: one epoch, its optimizer state rewritten so, a resume and one
+    more epoch == two straight epochs. A state of neither format is a
+    ValueError naming the keys it expects."""
+    straight = port_trainer(world, tmp_path / "a", epochs=2)
+    straight.train()
+    first = port_trainer(world, tmp_path / "b", epochs=1)
+    first.train()
+    ckpt_dir = str(tmp_path / "b" / "ckpt")
+    state, meta = TC.load_checkpoint(ckpt_dir, "latest")
+    state["opt_state"] = adamw_format(first.state.optimizer)
+    TC.save_checkpoint(ckpt_dir, "latest", state, meta, wait=True)
+    resumed = port_trainer(world, tmp_path / "b", epochs=2, resume=True)
+    assert resumed.start_epoch == 1 and resumed.state.step == N // BATCH
+    resumed.train()
+    want = dict(straight.model.named_parameters())
+    for n, p in resumed.model.named_parameters():
+        assert torch.equal(p, want[n]), n
+    with pytest.raises(ValueError, match="exp_avg"):
+        resumed.state.optimizer.load_state_dict({"count": 0, "mini_step": 0, "moments": {}})
 
 
 def test_preemption_salvages_a_resumable_checkpoint(world, tmp_path):
@@ -177,12 +201,33 @@ def test_cli_train_and_export_all_formats(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mesh.data_parallel=2"], "A5"),
-    (["--mesh.fsdp=true"], "A5"),
+    (["--mesh.data_parallel=8"], "data"),
+    (["--mesh.data_parallel=8", "--mesh.fsdp=true"], "fsdp"),
 ])
-def test_cli_refusals(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_train.main(["--device=cpu", "--data.dataset=synthetic:8", *argv])
+def test_cli_refusals(tmp_path, monkeypatch, argv, item):
+    """A ``--mesh.*`` layout of more than one device trains: ``cli.train
+    --device=cpu`` over ``cpu`` repeated (the data-parallel step, or FSDP's
+    blocks) follows the JAX CLI over its 8 virtual devices, both from one
+    flax checkpoint: each epoch's mean loss and monitor at 1e-4."""
+    from knowledge_enhanced_multimodal_retrieval_tpu.cli import train as j_train
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.convert import save_params_npz
+
+    vocab = TTok([]).vocab_size
+    arch = tiny_arch(vocab)
+    monkeypatch.setitem(JM.ARCHS, "tiny-mesh", arch)
+    monkeypatch.setitem(TM.ARCHS, "tiny-mesh", TM.CLIPArch(**arch.__dict__))
+    save_params_npz(TM.build_model("tiny-mesh", dtype=torch.float32, seed=3), str(tmp_path / "w.npz"))
+    common = ["--model.name=tiny-mesh", "--model.dtype=float32", f"--model.checkpoint={tmp_path / 'w.npz'}",
+              "--data.dataset=synthetic:32", "--data.image_size=32", "--data.context_length=16",
+              "--data.num_workers=1", "--train.batch_size=16", "--train.epochs=1", "--train.lr=1e-3",
+              "--train.global_negatives=true", *argv]
+    got = t_train.main(["--device=cpu", *common, f"--train.checkpoint_dir={tmp_path / 't'}",
+                        f"--eval.output_dir={tmp_path / 'to'}"])
+    want = j_train.main([*common, f"--train.checkpoint_dir={tmp_path / 'j'}", f"--eval.output_dir={tmp_path / 'jo'}"])
+    for g, w in zip(got["history"], want["history"]):
+        assert g["steps"] == w["steps"] == 2
+        assert g["train"]["loss"] == pytest.approx(w["train"]["loss"], rel=1e-4, abs=1e-4), item
+        assert g["monitor"] == pytest.approx(w["monitor"], rel=1e-4, abs=1e-4), item
 
 
 def test_cli_train_refuses_a_missing_card(monkeypatch):

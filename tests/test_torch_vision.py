@@ -248,5 +248,10 @@ def test_pipeline_batches_match_jax():
             np.testing.assert_array_equal(b.target_ids, a.target_ids)
             np.testing.assert_array_equal(b.indices, a.indices)
             assert b.uuids == a.uuids and b.decode_ok.all()
-    with pytest.raises(NotImplementedError, match="A5"):
-        next(tpipe.epoch_batches(4, num_shards=2))
+    for shard in range(2):  # sharded: each process its half of every global batch, the tail padded
+        jb = list(jpipe.epoch_batches(4, drop_last=False, num_shards=2, shard_index=shard))
+        tb = list(tpipe.epoch_batches(4, drop_last=False, num_shards=2, shard_index=shard))
+        assert [len(b.uuids) for b in tb] == [len(b.uuids) for b in jb] == [2, 2, 2]
+        for a, b in zip(jb, tb):
+            np.testing.assert_array_equal(b.indices, a.indices)
+            np.testing.assert_array_equal(b.images, a.images)
