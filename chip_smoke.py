@@ -151,39 +151,39 @@ just after; every kernel must have launched in the path it belongs to.
 21. The profiling scripts (``profiling_scripts_phase``): ``scripts.{profile_serving,
    profile_vision, vision_batch_sweep, profile_pq, profile_ivf,
    scale_bench}.main`` once each at full width with repeats cut
-   (``SCRIPT_RUNS``; ``profile_pq`` at 21,504 rows, ``profile_ivf`` at 16,384, ``scale_bench`` at 65,536), their JSON under
+   (``SCRIPT_RUNS``; ``profile_pq`` at 21,504 rows, ``profile_ivf`` at 4,096, ``scale_bench`` at 32,768), their JSON under
    ``chiprun_out/``; every line finite, the scans' recall checked.
-22. Training (``train_phase``): ``cli.train`` at ViT-L/14 (bf16 compute, f32
-   parameters, batch 64, ``synthetic:256``): the reference-parity run
-   (InfoNCE, t2i 0.7 / t2t 0.3, 2 epochs, validation, latest / best
-   checkpoints, metrics files) and its resume to 3 epochs, which must start
-   at epoch 2; a variant (accumulation 2, EMA 0.999, remat, FLIP 0.5: the
-   vision tower at s = 129) whose ``load_params_only`` must return the EMA
-   shadow, and a second one (SigLIP, Matryoshka 256 / 768, frozen image
-   encoder), 1 epoch each, both at ViT-L/14 widths cut to 4 vision and 2
-   text layers; ``cli.export --format openai`` of the best checkpoint,
+22. Training (``train_phase``): ``cli.train`` at ViT-L/14 widths cut to 4
+   vision and 2 text layers (bf16 compute, f32 parameters, batch 64,
+   ``synthetic:128``): the reference-parity run (InfoNCE, t2i 0.7 / t2t 0.3,
+   1 epoch, validation, latest / best checkpoints, metrics files) and its
+   resume to 2 epochs, which must start at epoch 1; a variant (accumulation
+   2, EMA 0.999, remat, FLIP 0.5: the vision tower at s = 129) whose
+   ``load_params_only`` must return the EMA shadow, and a second one
+   (SigLIP, Matryoshka 256 / 768, frozen image encoder), 1 epoch each;
+   ``cli.export --format openai`` of the best checkpoint,
    loaded through ``load_clip_state_dict``, its module towers against the
    ``fast`` ones (cosine > 0.999), one 256-query ``fast`` batch over the
    43,000-row store; 8 steps of a seeded ViT-L/14 on one batch at a raised
    lr (the loss must fall, every loss finite); one bf16 and two f32 steps of ViT-L/14
-   widths at 1 layer a tower, batch 8, on the card against the CPU; and
+   widths at 1 layer a tower, batch 4, on the card against the CPU; and
    ``scripts/train_bench.py``'s ViT-L/14 batch-64 point with and without
-   remat (step ms, device ms, MFU). B6 must launch on the training forward
+   remat (step ms, device ms, MFU; ``TRAIN_BENCH_STEPS`` steps). B6 must launch on the training forward
    of both towers, in validation and in the FLIP run.
-23. The training variants (``train_variants_phase``): LoRA (rank 8, all four
-   block projections) through ``cli.train`` at ViT-L/14, batch 64,
-   ``synthetic:256``, 2 epochs with validation, from a seeded OpenAI ``.pt``;
+23. The training variants (``train_variants_phase``), at ViT-L/14 widths cut
+   to 4 + 2 layers: LoRA (rank 8, all four block projections) through
+   ``cli.train``, batch 64, ``synthetic:128``, 2 epochs with validation,
+   from a seeded OpenAI ``.pt``;
    ``cli.export --model.adapters`` of its adapters into that base (equal to
    the host merge; the card's merge within half a bf16 step of it), the
    merged model served (one 256-query ``int8`` batch: B1, B2 q8) against the
-   plain top-k; GradCache (4 chunks) at ViT-L/14, 1 epoch; QAT at ViT-L/14
-   widths cut to 4 + 2 layers, 1 epoch; ``cli.mine_negatives
-   --eval.encoder=int8 --k=16`` at ViT-L/14 (B1 on both towers; the card's
-   table against a CPU mining of the same embeddings, near ties excepted) and
-   ``cli.train`` with the table (k 4) at 4 + 2 layers; ``cli.distill``
-   (ViT-B/32 student, ViT-L/14 ``int8`` teacher, cosine term off), 1 epoch;
-   ``scripts/qat_payoff.py`` at its defaults; one LoRA, QAT, GradCache and
-   distill step of ViT-L/14 widths at 1 layer, batch 8, f32, on the card
+   plain top-k; GradCache (4 chunks) and QAT, 1 epoch each;
+   ``cli.mine_negatives --eval.encoder=int8 --k=16`` (B1 on both towers; the
+   card's table against a CPU mining of the same embeddings, near ties
+   excepted) and ``cli.train`` with the table (k 4); ``cli.distill``
+   (ViT-B/32 student, ``int8`` teacher, cosine term off), 1 epoch;
+   ``scripts/qat_payoff.py`` at 3 epochs; one LoRA, QAT, GradCache and
+   distill step of ViT-L/14 widths at 1 layer, batch 4, f32, on the card
    against the CPU. Step ms (events, steps 2..n) and peak memory per run.
 24. Sharded serving (``sharded_serving_phase``, ROADMAP A5 (a)) over a mesh of
    ``[cuda:0] * 4`` at ViT-L/14 text width, 43,000 rows, 256-query batches,
@@ -3092,12 +3092,12 @@ def baseline_phase(torch, dev, results):
 
 
 PQ_PROFILE_ROWS = 21_504  # profile_pq's corpus here (its default 43,000 spends ~20 s in host PQ k-means)
-IVF_ROWS = 16_384  # profile_ivf's corpus (its default 262,144 spends ~70 s in the host IVF-PQ build)
-SCALE_BENCH_ROWS = 65_536  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
+IVF_ROWS = 4_096  # profile_ivf's corpus: half the 8,192 rows its PQ host k-means would train on (default 262,144)
+SCALE_BENCH_ROWS = 32_768  # scale_bench's corpus here (1M rows spend ~55 s in host copies and quantization)
 SCRIPT_RUNS = {  # name: (argv, the module's scan functions tallied by name) -- repeats and profile_ivf's rows cut, widths kept
     "profile_serving": (["--iters=10"], ("fused_similarity_topk", "fused_similarity_topk_q8")),
     "profile_vision": (["--iters=5"], ()),
-    "vision_batch_sweep": (["--bf16", "--medians=2", "--iters=3"], ()),
+    "vision_batch_sweep": (["--bf16", "--medians=2", "--iters=3", "--batches=64,256"], ()),
     "profile_pq": (["--iters=10", f"--n={PQ_PROFILE_ROWS}"], ("fused_similarity_topk", "fused_similarity_topk_q8", "fused_similarity_topk_q4",
                                     "fused_pq_topk")),
     "profile_ivf": (["--repeats=5", f"--n={IVF_ROWS}"], ("fused_similarity_topk_q8",)),
@@ -3147,8 +3147,9 @@ def profiling_scripts_phase(torch, dev, results):
     return counts
 
 
-TRAIN_N, TRAIN_BATCH = 256, 64  # synthetic:256 at TrainConfig.batch_size: 4 steps an epoch
-TRAIN_SMALL_LAYERS, TRAIN_SMALL_BATCH = 1, 8  # the card-vs-CPU step: ViT-L/14 widths, 1 layer a tower
+TRAIN_N, TRAIN_BATCH = 128, 64  # synthetic:128 at TrainConfig.batch_size: 2 steps an epoch
+TRAIN_BENCH_STEPS = 3  # train_bench steps timed a point (event and device-only medians)
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_BATCH = 1, 4  # the card-vs-CPU step: ViT-L/14 widths, 1 layer a tower
 TRAIN_VARIANT_LAYERS = (4, 2)  # the variant runs: ViT-L/14 widths, depth cut (vision, text) to keep the phase short
 OVERFIT_STEPS, OVERFIT_LR = 8, 2e-5
 TOL_GRAD_COS, TOL_LOSS_BF16, TOL_F32 = 0.99, 1e-2, 1e-4
@@ -3234,7 +3235,7 @@ class _LaunchTally:
 
 
 def _card_vs_cpu_steps(torch, dev, results):
-    """ViT-L/14 widths at 1 layer a tower, batch 8: one bf16 train step on
+    """ViT-L/14 widths at 1 layer a tower, batch 4: one bf16 train step on
     the card against the CPU (plain versions) -- per-tensor gradient cosine
     over the tensors with a nonzero gradient, the loss to 1e-2 -- and two f32
     steps: losses and parameters to 1e-4."""
@@ -3291,12 +3292,13 @@ def _card_vs_cpu_steps(torch, dev, results):
     results["train"]["card_vs_cpu"] = out
 
 
-def train_phase(torch, dev, tmp, store_path, results):
-    """The core training loop (``cli.train``) at ViT-L/14, bf16 compute, f32
-    parameters, batch 64 on ``synthetic:256``: the reference-parity run
-    (InfoNCE, t2i 0.7 / t2t 0.3, 2 epochs with validation, latest / best
-    checkpoints, metrics files) and its resume to 3 epochs (starts at epoch
-    2); a variant (accumulation 2, EMA 0.999, remat, FLIP 0.5: s = 129) and a
+def train_phase(torch, dev, tmp, store_path, results, seeded):
+    """The core training loop (``cli.train``) at ViT-L/14 widths cut to
+    ``TRAIN_VARIANT_LAYERS``, bf16 compute, f32 parameters, batch 64 on
+    ``synthetic:128``: the reference-parity run
+    (InfoNCE, t2i 0.7 / t2t 0.3, 1 epoch with validation, latest / best
+    checkpoints, metrics files) and its resume to 2 epochs (starts at epoch
+    1); a variant (accumulation 2, EMA 0.999, remat, FLIP 0.5: s = 129) and a
     second one (SigLIP, Matryoshka 256 / 768, frozen image encoder), 1 epoch
     each;
     ``cli.export --format openai`` of the best checkpoint loaded through
@@ -3304,8 +3306,10 @@ def train_phase(torch, dev, tmp, store_path, results):
     module towers against the fast ones; 8 steps of a seeded model on one
     batch at a raised lr (the loss must fall); the card-vs-CPU steps; and
     ``scripts/train_bench.py``'s ViT-L/14 batch-64 point with and without
-    remat. The two variants run ViT-L/14's widths at a cut depth
-    (``TRAIN_VARIANT_LAYERS``). Returns {path: B6 launches}."""
+    remat (full depth). ``seeded``: the serving phases' seed-0
+    ViT-L/14 (bf16 compute), copied for the raised-lr steps. Returns {path:
+    B6 launches}."""
+    import copy
     import dataclasses
 
     from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import export as EX
@@ -3334,8 +3338,7 @@ def train_phase(torch, dev, tmp, store_path, results):
                                                  text_layers=TRAIN_VARIANT_LAYERS[1])
 
     def argv(run, *extra):
-        name = "ViT-L/14" if run == "parity" else variant_arch
-        return [dev_flag, f"--model.name={name}", f"--data.dataset=synthetic:{TRAIN_N}",
+        return [dev_flag, f"--model.name={variant_arch}", f"--data.dataset=synthetic:{TRAIN_N}",
                 f"--train.batch_size={TRAIN_BATCH}", f"--eval.output_dir={root}/{run}",
                 f"--train.checkpoint_dir={root}/{run}/ckpt", *extra]
 
@@ -3356,7 +3359,8 @@ def train_phase(torch, dev, tmp, store_path, results):
                     timing[key].append(time.perf_counter() - t0)
         return wrapper
 
-    runs = {}
+    runs, wall = {}, {}
+    t_runs = time.perf_counter()
     torch.cuda.synchronize(dev)  # initializes the device before its memory statistics are read
     torch.cuda.reset_peak_memory_stats(dev)
     with _LaunchTally(torch, CM, TT, dispatch) as tally:
@@ -3365,9 +3369,9 @@ def train_phase(torch, dev, tmp, store_path, results):
         try:
             for run, extra in (
                 ("parity", ["--train.loss=infonce", "--train.t2i_weight=0.7", "--train.t2t_weight=0.3",
-                            "--train.epochs=2"]),
+                            "--train.epochs=1"]),
                 ("resume", ["--train.loss=infonce", "--train.t2i_weight=0.7", "--train.t2t_weight=0.3",
-                            "--train.epochs=3", "--train.resume=true"]),
+                            "--train.epochs=2", "--train.resume=true"]),
                 ("variant", ["--train.grad_accum_steps=2", "--train.ema_decay=0.999", "--model.remat=true",
                              "--train.image_mask_ratio=0.5", "--train.epochs=1"]),
                 ("variant2", ["--train.loss=siglip", "--train.matryoshka_dims=256,768",
@@ -3394,18 +3398,16 @@ def train_phase(torch, dev, tmp, store_path, results):
         finally:
             TC.to_host, TC._write, TC.load_checkpoint = real["to_host"], real["_write"], real["load_checkpoint"]
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    del CM.ARCHS[variant_arch]
-
     parity, resume = runs["parity"], runs["resume"]
-    assert parity["epochs_run"] == 2 and [h["epoch"] for h in parity["history"]] == [0, 1]
-    assert [h["epoch"] for h in resume["history"]] == [2], "the resumed run must start at epoch 2"
+    assert parity["epochs_run"] == 1 and [h["epoch"] for h in parity["history"]] == [0]
+    assert [h["epoch"] for h in resume["history"]] == [1], "the resumed run must start at epoch 1"
     for run, r in runs.items():
         for h in r["history"]:
             assert h["steps"] == TRAIN_N // TRAIN_BATCH and all(np.isfinite(v) for v in h["train"].values()), (run, h)
             assert {"T2I_MRR", "T2T_MRR"} <= set(h["val"]), (run, h["val"])
     assert "loss_d256" in runs["variant2"]["history"][0]["train"]
     lines = open(f"{root}/parity/train_metrics.jsonl").read().splitlines()
-    assert [json.loads(x)["epoch"] for x in lines] == [0, 1, 2], lines  # parity's two epochs, then the resume's
+    assert [json.loads(x)["epoch"] for x in lines] == [0, 1], lines  # parity's epoch, then the resume's
     step_ms = {run: tally.step_ms(run) for run in runs}
     paths = {
         "training forward, image tower (s=257)": tally.count(("parity", "resume", "variant2"), "train", "image"),
@@ -3421,7 +3423,7 @@ def train_phase(torch, dev, tmp, store_path, results):
         runs={r: dict(wall_s=v["wall_s"], epoch_s=[h["epoch_time_s"] for h in v["history"]],
                       loss=[h["train"]["loss"] for h in v["history"]], best=v["best_metric"]) for r, v in runs.items()},
         step_ms={r: float(np.median(v)) for r, v in step_ms.items() if v}, ckpt_timing=timing)
-    log(f"train runs (cli.train, ViT-L/14, batch {TRAIN_BATCH}, synthetic:{TRAIN_N}): " + "; ".join(
+    log(f"train runs (cli.train, {variant_arch}, batch {TRAIN_BATCH}, synthetic:{TRAIN_N}): " + "; ".join(
         f"{r} {v['wall_s']:.1f} s, epochs {', '.join(f'{e:.1f}' for e in v['epoch_s'])} s, loss "
         f"{', '.join(f'{x:.4f}' for x in v['loss'])}, step ms (events, median of steps 2..n) "
         f"{res['step_ms'].get(r, float('nan')):.1f}" for r, v in res["runs"].items()))
@@ -3430,9 +3432,10 @@ def train_phase(torch, dev, tmp, store_path, results):
         f"load s {[round(x, 2) for x in timing['load_s']]}; max_memory_allocated "
         f"{res['max_memory_allocated'] / 2**30:.2f} GiB; B6 launches {paths}")
 
+    wall["cli.train runs"] = time.perf_counter() - t_runs
     # export the best checkpoint, load it back, serve it
-    t0 = time.perf_counter()
-    pt = EX.main(["--model.name=ViT-L/14", "--train-dir", f"{root}/parity/ckpt", "--role=best", "--format=openai",
+    t_export = t0 = time.perf_counter()
+    pt = EX.main([f"--model.name={variant_arch}", "--train-dir", f"{root}/parity/ckpt", "--role=best", "--format=openai",
                   "--out", f"{root}/trained.pt"])
     export_s = time.perf_counter() - t0
     sd = load_clip_state_dict(pt)
@@ -3475,9 +3478,11 @@ def train_phase(torch, dev, tmp, store_path, results):
     res.update(export_s=export_s, cos_text=cos_t, cos_image=cos_i, serve_ms=serve_ms)
     del retriever, model
     torch.cuda.empty_cache()
+    wall["export, load, serve"] = time.perf_counter() - t_export
 
     # a seeded ViT-L/14 on one fixed batch, 8 steps at a raised lr: the loss must fall
-    model = CM.build_model("ViT-L/14", dtype=torch.bfloat16, seed=0, device=dev)
+    t0 = time.perf_counter()
+    model = copy.deepcopy(seeded)  # the weights CM.build_model("ViT-L/14", seed=0) draws
     cfg = TrainConfig(batch_size=TRAIN_BATCH, lr=OVERFIT_LR, epochs=1)
     pipe = DataPipeline(make_synthetic_source(TRAIN_BATCH, image_size=224), CLIPTokenizer([]), context_length=77)
     state = TT.TrainState(model, TT.make_optimizer(cfg, 1, model))
@@ -3490,28 +3495,35 @@ def train_phase(torch, dev, tmp, store_path, results):
     res["overfit_losses"] = losses
     del model, state, step
     torch.cuda.empty_cache()
+    wall["overfit"] = time.perf_counter() - t0
 
-
+    t0 = time.perf_counter()
     _card_vs_cpu_steps(torch, dev, results)
+    wall["card vs CPU"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     bench = {}
     for remat in (False, True):
-        e = TB.run_entry("ViT-L/14", TRAIN_BATCH, remat, 15, dev)
+        e = TB.run_entry("ViT-L/14", TRAIN_BATCH, remat, TRAIN_BENCH_STEPS, dev)
         bench[f"remat={remat}"] = {k: e[k] for k in ("step_ms", "device_ms", "samples_per_s", "mfu", "mfu_device",
                                                     "max_memory_allocated", "flops_per_step")}
     res["train_bench"] = bench
+    wall["train_bench"] = time.perf_counter() - t0
     log("train_bench ViT-L/14 batch 64: " + "; ".join(
         f"{k} step {v['step_ms']:.1f} ms (device {v['device_ms']:.1f}), {v['samples_per_s']:.1f} samples/s, MFU "
         f"{v['mfu']:.3f} (device {v['mfu_device']:.3f}), {v['flops_per_step'] / 1e12:.1f} TFLOP a step, peak "
         f"{v['max_memory_allocated'] / 2**30:.1f} GiB" for k, v in bench.items()))
     shutil.rmtree(root)
+    del CM.ARCHS[variant_arch]
     res["phase_s"] = time.perf_counter() - t_phase
-    log(f"train phase: {res['phase_s']:.1f} s")
+    res["wall_s"] = wall
+    log(f"train phase: {res['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in wall.items())})")
     return paths
 
 
 # -- item 23: the training variants (ROADMAP A4 b) --
 
 LORA_RANK, MINE_K, NEG_K, GC_CHUNKS = 8, 16, 4, 4
+QAT_PAYOFF_EPOCHS = 3  # scripts/qat_payoff.py's run here (its default 12)
 # QAT's loss, card against CPU: its forward rounds ~5e7 activations to int8 steps, and the products feeding them
 # sum in another order on each device, so the few that sit within f32 noise of a rounding boundary round either
 # way; each such flip moves an activation by a whole step (measured on an H100: 2.8e-4 relative at ViT-L/14 widths
@@ -3522,7 +3534,7 @@ TOL_MERGE, TOL_MERGE_ABS = 2.0 ** -9, 1e-7
 
 
 def _variant_card_vs_cpu_steps(torch, dev, res):
-    """ViT-L/14 widths at 1 layer a tower, batch 8, f32: one LoRA (all
+    """ViT-L/14 widths at 1 layer a tower, batch 4, f32: one LoRA (all
     targets), one QAT, one GradCache (2 chunks) and one distill (768-d teacher
     rows, cosine term on) step on the card against the CPU (plain versions):
     losses (QAT's to ``TOL_QAT_LOSS``) and the updated tensors to 1e-4, the
@@ -3606,17 +3618,17 @@ def _variant_card_vs_cpu_steps(torch, dev, res):
 
 def train_variants_phase(torch, dev, tmp, store_path, results):
     """The training variants through the port's entry points (item 23):
-    LoRA (rank 8, all four block projections) at full ViT-L/14, batch 64,
-    ``synthetic:256``, 2 epochs with validation, from a seeded ``.pt``; its
+    every run at ViT-L/14 widths cut to ``TRAIN_VARIANT_LAYERS``: LoRA (rank
+    8, all four block projections), batch 64, ``synthetic:128``, 2 epochs
+    with validation, from a seeded ``.pt``; its
     adapters exported into the base (``cli.export --model.adapters``), the
     card's merge against the host's, the merged model served (one 256-query
     ``int8`` batch: B1, B2 q8) against the plain top-k; GradCache (4 chunks)
-    at full ViT-L/14, 1 epoch; QAT at ``TRAIN_VARIANT_LAYERS``; mined
-    negatives (``cli.mine_negatives --eval.encoder=int8 --k=16`` at ViT-L/14:
-    B1 on both towers; the card's table against a CPU mining of the same
-    embeddings) and ``cli.train`` with them at ``TRAIN_VARIANT_LAYERS``;
-    ``cli.distill`` (ViT-B/32 student at full depth, ViT-L/14 ``int8``
-    teacher); ``scripts/qat_payoff.py`` at its defaults (B1 in its int8
+    and QAT at ``TRAIN_VARIANT_LAYERS``, 1 epoch each; mined
+    negatives (``cli.mine_negatives --eval.encoder=int8 --k=16``: B1 on both
+    towers; the card's table against a CPU mining of the same embeddings)
+    and ``cli.train`` with them; ``cli.distill`` (ViT-B/32 student at full
+    depth, an ``int8`` teacher); ``scripts/qat_payoff.py`` at 3 epochs (B1 in its int8
     deploy); and the card-vs-CPU variant steps. Returns {kernel line: {path:
     launches}}."""
     import dataclasses
@@ -3669,13 +3681,13 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
     runs = {}
     base_pt = f"{root}/base.pt"
     t0 = time.perf_counter()
-    save_openai_pt(CM.build_model("ViT-L/14", dtype=torch.float32, seed=0), base_pt)  # the seeded base, on the host
-    res["base_pt_s"] = time.perf_counter() - t0
+    save_openai_pt(CM.build_model(variant_arch, dtype=torch.float32, seed=0), base_pt)  # the seeded base, on the host
+    res["base_pt_s"] = wall["base .pt"] = time.perf_counter() - t0
     with _LaunchTally(torch, CM, TT, dispatch) as tally:
         for run, name, extra in (
-            ("lora", "ViT-L/14", [f"--model.checkpoint={base_pt}", f"--train.lora_rank={LORA_RANK}",
+            ("lora", variant_arch, [f"--model.checkpoint={base_pt}", f"--train.lora_rank={LORA_RANK}",
                                   "--train.lora_targets=all", "--train.epochs=2"]),
-            ("gradcache", "ViT-L/14", [f"--train.grad_cache_chunks={GC_CHUNKS}", "--train.epochs=1"]),
+            ("gradcache", variant_arch, [f"--train.grad_cache_chunks={GC_CHUNKS}", "--train.epochs=1"]),
             ("qat", variant_arch, ["--train.qat=true", "--train.epochs=1"]),
         ):
             tally.run = run
@@ -3695,7 +3707,7 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         try:
             with _Tally([(EV, "encode_image_fast"), (EV, "encode_text_fast")]) as mine_tally:
                 neg_path = counted("mine", lambda: MN.main([
-                    dev_flag, "--model.name=ViT-L/14", f"--data.dataset=synthetic:{TRAIN_N}", "--eval.encoder=int8",
+                    dev_flag, f"--model.name={variant_arch}", f"--data.dataset=synthetic:{TRAIN_N}", "--eval.encoder=int8",
                     f"--k={MINE_K}", f"--out={root}/negatives.npz"]))
         finally:
             MN.mine_hard_negatives = real_mine
@@ -3713,7 +3725,7 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         picked = torch.take_along_dim(scores, torch.from_numpy(table).long(), dim=1)
         topk_agree((picked, torch.from_numpy(table)), scores, MINE_K, NEAR_TIE)  # every row a top-k, ties aside
         res["mining"] = dict(rows=TRAIN_N, k=MINE_K, near_tie_rows=int(near.sum()), differing_rows=int(differ.sum()))
-        log(f"variants: cli.mine_negatives (ViT-L/14 int8, synthetic:{TRAIN_N}, k {MINE_K}) {wall['mine']:.1f} s; "
+        log(f"variants: cli.mine_negatives ({variant_arch} int8, synthetic:{TRAIN_N}, k {MINE_K}) {wall['mine']:.1f} s; "
             f"the card's table equals the CPU's on the {int((~near).sum())} rows without a near tie and is a top-{MINE_K} "
             f"of the CPU's scores within {NEAR_TIE:g} on all {TRAIN_N} ({int(differ.sum())} of the {int(near.sum())} "
             f"near-tie rows order otherwise)")
@@ -3727,7 +3739,7 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         tally.run = "distill"
         with _Tally([(EV, "encode_image_fast"), (EV, "encode_text_fast")]) as teacher_tally:
             runs["distill"] = counted("distill", lambda: CD.main([
-                dev_flag, "--model.name=ViT-B/32", "--teacher-name=ViT-L/14", "--teacher-encoder=int8",
+                dev_flag, "--model.name=ViT-B/32", f"--teacher-name={variant_arch}", "--teacher-encoder=int8",
                 "--train.distill_embed_weight=0", f"--data.dataset=synthetic:{TRAIN_N}",
                 f"--train.batch_size={TRAIN_BATCH}", "--train.epochs=1", f"--eval.output_dir={root}/distill",
                 f"--train.checkpoint_dir={root}/distill/ckpt"]))
@@ -3735,7 +3747,6 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         step_ms = {run: tally.step_ms(run) for run in runs}
         b6_train = {run: tally.count((run,), "train", "step") for run in runs}
         b6_val = {run: sum(tally.count((run,), "validation", t) for t in ("image", "text")) for run in runs}
-    del CM.ARCHS[variant_arch]
     for run, r in runs.items():
         for h in r["history"]:
             assert h["steps"] == TRAIN_N // TRAIN_BATCH and all(np.isfinite(v) for v in h["train"].values()), (run, h)
@@ -3745,10 +3756,10 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
     # the LoRA artifact: exported into the base, merged on the card against the host, served
     ad_path = runs["lora"]["adapters_path"]
     adapters, meta = TL.load_adapters(ad_path, device=dev)
-    assert meta == {"rank": LORA_RANK, "alpha": 16.0, "targets": "all", "model": "ViT-L/14"}
+    assert meta == {"rank": LORA_RANK, "alpha": 16.0, "targets": "all", "model": variant_arch}
     res["lora"] = dict(adapter_params=TL.lora_param_count(adapters), adapter_file_bytes=os.path.getsize(ad_path))
     t0 = time.perf_counter()
-    merged_pt = EX.main(["--model.name=ViT-L/14", f"--model.checkpoint={base_pt}", f"--model.adapters={ad_path}",
+    merged_pt = EX.main([f"--model.name={variant_arch}", f"--model.checkpoint={base_pt}", f"--model.adapters={ad_path}",
                          "--format=openai", "--out", f"{root}/merged.pt"])
     res["lora"]["export_s"] = time.perf_counter() - t0
     base_sd, merged_sd = load_clip_state_dict(base_pt), load_clip_state_dict(merged_pt)
@@ -3789,14 +3800,16 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
     del retriever, model
     torch.cuda.empty_cache()
 
-    payoff = counted("qat_payoff", lambda: QP.main([dev_flag]))
+    payoff = counted("qat_payoff", lambda: QP.main([dev_flag, f"--epochs={QAT_PAYOFF_EPOCHS}"]))
     for run in ("ptq", "qat"):
         assert all(np.isfinite(v) for v in payoff["runs"][run].values()), payoff["runs"][run]
     res["qat_payoff"] = dict(payoff["runs"], delta=payoff["delta_qat_minus_ptq"], wall_s=wall["qat_payoff"])
-    log(f"variants: scripts/qat_payoff.py (defaults) {wall['qat_payoff']:.1f} s: {payoff['runs']}; "
+    log(f"variants: scripts/qat_payoff.py ({QAT_PAYOFF_EPOCHS} epochs) {wall['qat_payoff']:.1f} s: {payoff['runs']}; "
         f"delta {payoff['delta_qat_minus_ptq']}")
 
+    t0 = time.perf_counter()
     card_vs_cpu = _variant_card_vs_cpu_steps(torch, dev, res)
+    wall["card vs CPU"] = time.perf_counter() - t0
     shutil.rmtree(root)
 
     res.update(
@@ -3808,8 +3821,9 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         f"{r} {v['wall_s']:.1f} s, step ms (events, median of steps 2..n) {res['step_ms'].get(r, float('nan')):.1f}, "
         f"peak {v['max_memory_allocated'] / 2**30:.2f} GiB, loss {', '.join(f'{x:.4f}' for x in v['loss'])}"
         for r, v in res["runs"].items()))
-    what = {"lora": "LoRA, ViT-L/14", "gradcache": "GradCache, ViT-L/14, both passes", "qat": "QAT, {} + {} layers".format(*TRAIN_VARIANT_LAYERS),
-            "negatives": "mined negatives, {} + {} layers".format(*TRAIN_VARIANT_LAYERS), "distill": "distill, ViT-B/32 student (s = 50)"}
+    cut = "{} + {} layers".format(*TRAIN_VARIANT_LAYERS)
+    what = {"lora": f"LoRA, {cut}", "gradcache": f"GradCache, {cut}, both passes", "qat": f"QAT, {cut}",
+            "negatives": f"mined negatives, {cut}", "distill": "distill, ViT-B/32 student (s = 50)"}
     paths = {
         "B6 flash_attention s=257": {
             **{f"variants: {what[r]}: train steps": n for r, n in b6_train.items()},
@@ -3830,6 +3844,7 @@ def train_variants_phase(torch, dev, tmp, store_path, results):
         for path, n in by.items():
             assert n > 0, f"{line} never launched on {path}"
     res["launches_by_path"] = paths
+    del CM.ARCHS[variant_arch]
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"train variants phase: {res['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in wall.items())})")
     return paths
@@ -3849,6 +3864,9 @@ PT_MP_LR = 1e-3  # the two-process run's (the CPU tests'): 4 steps of DP, whose 
 TOL_PT_MP = 1e-4  # two processes' parameters (and monitors) after 4 steps against one process (the repo's fp bar)
 TOL_PT_FSDP_STATE = 0.01  # FSDP's state bytes a position against a quarter of the replicated state
 TOL_PT_BLOCKS = 1e-4  # pp / sp blocks against the stack or the module (f32, the kernel's order of sums)
+# the full-depth steps in the run where the GSPMD step built the whole model on each device row once a step
+# (medians, CUDA events, NVIDIA H100 80GB HBM3 at 700 W): read beside the steps that build one unit at a time
+PT_EARLIER_MS = {"dp4": 650.0, "fsdp4": 860.0, "dp2xtp2": 525.6}
 PT_LAYOUTS = {"dp4": dict(data_parallel=4), "fsdp4": dict(data_parallel=4, fsdp=True),
               "dp2xtp2": dict(data_parallel=2, model_parallel=2),
               "fsdp2xtp2": dict(data_parallel=2, model_parallel=2, fsdp=True),
@@ -3877,7 +3895,10 @@ def parallel_training_phase(torch, dev, tmp, model, results):
     DP4 against their one-device steps; (2) ViT-L/14 in bf16, batch 64: DP4,
     FSDP4 and dp2 x tp2, step ms (median of 3 after a warm-up), peak memory,
     finite losses, FSDP's state a position a quarter of the replicated one;
-    (3) two ``cli.train`` processes over gloo on the card (2 epochs of
+    FSDP4's peak below DP4's (FSDP builds one unit at a time and keeps only
+    each block's input, recomputing the block in the backward; DP4 keeps
+    each shard's activations and weight casts), the most FSDP4 held built
+    at once (``ShardedParams.gauge``) no more than its largest unit; (3) two ``cli.train`` processes over gloo on the card (2 epochs of
     ``synthetic:16``) against one process over ``[cuda:0] * 2``, and one
     data-parallel step and encode under a world-size-1 NCCL group; (4) pp
     (the 12 ViT-L/14 text blocks, 4 stages, 8 microbatches of [8, 77, 768],
@@ -4040,7 +4061,8 @@ def parallel_training_phase(torch, dev, tmp, model, results):
             f", grad_norm {v['grad_norm_rel_diff']:.2e} relative, params {v['param_diff']:.2e} of an update of"
             f" {v['largest_update']:.2e}" if "param_diff" in v else "") for k, v in res["equality"].items()))
 
-    # (2) full depth: ViT-L/14, bf16 compute, batch 64 (the serving phases' seeded model, copied for each step)
+    # (2) full depth: ViT-L/14, bf16 compute, batch 64 (the serving phases' seeded model, copied for each step);
+    # each peak counts that model too, the same bytes in every layout
     t0 = time.perf_counter()
     full = model
     replicated = sum(p.numel() * p.element_size() * 3 for p in full.parameters())  # parameter + AdamW's two moments
@@ -4071,15 +4093,27 @@ def parallel_training_phase(torch, dev, tmp, model, results):
             per = state.layout.position_bytes(state.optimizer.moment_tensors())
             worst = max(abs(x - replicated / PT_SHARDS) for x in per) / (replicated / PT_SHARDS)
             assert worst <= TOL_PT_FSDP_STATE, f"fsdp4 state a position {per} against {replicated / PT_SHARDS:.0f}"
-            out.update(state_bytes_per_position=per, replicated_state_bytes=replicated, worst_share_error=worst)
+            unit = max(p.numel() * p.element_size() for p in full.visual.transformer.resblocks[0].parameters())
+            unit = max([unit] + [p.numel() * p.element_size() for n, p in full.named_parameters() if ".resblocks." not in n])
+            built = state.layout.gauge.peak
+            assert 0 < built <= unit, f"fsdp4 held {built} built bytes at once, its largest unit {unit}"
+            out.update(state_bytes_per_position=per, replicated_state_bytes=replicated, worst_share_error=worst,
+                       built_peak_bytes=built, largest_unit_bytes=unit)
         res["full_depth"][tag] = out
         del m, state, step, batch
         torch.cuda.empty_cache()
     wall["full depth"] = time.perf_counter() - t0
+    fd = res["full_depth"]
     log("parallel training at ViT-L/14, bf16, batch {} ({}): ".format(PT_FULL_BATCH, "[cuda:0] x 4") + "; ".join(
-        f"{k} {v['step_ms']:.1f} ms a step, peak {v['max_memory_allocated'] / 2**30:.2f} GiB" for k, v in
-        res["full_depth"].items()) + "; fsdp4 state a position {} of {} bytes replicated".format(
-        res["full_depth"]["fsdp4"]["state_bytes_per_position"], replicated))
+        f"{k} {v['step_ms']:.1f} ms a step (the whole-model build's run: {PT_EARLIER_MS[k]} ms), peak "
+        f"{v['max_memory_allocated'] / 2**30:.2f} GiB" for k, v in fd.items()) + "; fsdp4 state a position {} of {} "
+        "bytes replicated".format(fd["fsdp4"]["state_bytes_per_position"], replicated))
+    log(f"parallel training peaks side by side: fsdp4 {fd['fsdp4']['max_memory_allocated'] / 2**30:.2f} GiB, dp4 "
+        f"{fd['dp4']['max_memory_allocated'] / 2**30:.2f} GiB; fsdp4 built at most "
+        f"{fd['fsdp4']['built_peak_bytes'] / 2**20:.1f} MiB at once (its largest unit "
+        f"{fd['fsdp4']['largest_unit_bytes'] / 2**20:.1f} MiB)")
+    assert fd["fsdp4"]["max_memory_allocated"] < fd["dp4"]["max_memory_allocated"], (
+        f"fsdp4 peak {fd['fsdp4']['max_memory_allocated']} not below dp4's {fd['dp4']['max_memory_allocated']}")
 
     # (3) two cli.train processes over gloo on the card, against one process over [cuda:0] * 2
     t0 = time.perf_counter()
@@ -4344,7 +4378,7 @@ def main() -> int:
         shutil.rmtree(ckpt_dir)
         baseline_phase(torch, dev, results)
         sc = profiling_scripts_phase(torch, dev, results)
-        tr = train_phase(torch, dev, tmp, store_path, results)
+        tr = train_phase(torch, dev, tmp, store_path, results, model)
         tv = train_variants_phase(torch, dev, tmp, store_path, results)
         pt = parallel_training_phase(torch, dev, tmp, model, results)
 

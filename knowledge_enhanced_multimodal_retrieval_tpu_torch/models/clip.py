@@ -158,7 +158,13 @@ def projection_hooks(model: nn.Module, make_hook: Callable[[str], Optional[Calla
 
 
 class ResidualBlock(nn.Module):
-    """Pre-LN residual attention block (OpenAI ``ResidualAttentionBlock``)."""
+    """Pre-LN residual attention block (OpenAI ``ResidualAttentionBlock``).
+    Its ``runner(block, x, causal)``, when set, runs the block in its place
+    (``body`` is the computation): FSDP builds the block's parameters there
+    and recomputes the block in the backward (``parallel.fsdp``), so
+    ``remat`` does not wrap it again."""
+
+    runner: Optional[Callable[["ResidualBlock", torch.Tensor, bool], torch.Tensor]] = None
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -168,6 +174,11 @@ class ResidualBlock(nn.Module):
         self.mlp = MLP(width)
 
     def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
+        if self.runner is not None:
+            return self.runner(self, x, causal)
+        return self.body(x, causal)
+
+    def body(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
         x = x + self.attn(_ln_f32(self.ln_1, x), causal)
         return x + self.mlp(_ln_f32(self.ln_2, x))
 
@@ -180,7 +191,7 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
         for blk in self.resblocks:
-            if self.remat and torch.is_grad_enabled():
+            if self.remat and torch.is_grad_enabled() and blk.runner is None:
                 x = checkpoint(blk, x, causal, use_reentrant=False)
             else:
                 x = blk(x, causal)
@@ -212,8 +223,9 @@ class VisionTransformer(nn.Module):
         x = nn.functional.conv2d(images.to(dt).permute(0, 3, 1, 2), self.conv1.weight.to(dt),
                                  stride=self.arch.vision_patch_size)
         x = x.flatten(2).transpose(1, 2)  # [B, grid*grid, width], row-major patches
-        cls = self.class_embedding.to(dt).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+        # each parameter read once, where it is used (FSDP builds it there: parallel.fsdp)
+        x = torch.cat([self.class_embedding.to(dt).expand(x.shape[0], 1, -1), x], dim=1)
+        x = x + self.positional_embedding.to(dt)
         if keep_idx is not None:
             # the class token (slot 0) always stays; patch i is slot 1 + i
             zero = torch.zeros(x.shape[0], 1, dtype=torch.long, device=x.device)

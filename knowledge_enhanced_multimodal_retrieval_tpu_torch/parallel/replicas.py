@@ -8,9 +8,10 @@ parameters (data parallelism on a repeated device: ``[cuda:0] * 4``,
 ``[cpu] * 8``), otherwise a copy built on the ``meta`` device whose
 parameters are bound, for the duration of a step's forward and backward,
 to tensors made from the trained leaves on that row's device (``.to`` a
-card, or ``parallel.sharding.ShardedParams.materialize``). The bound
-tensors stay in autograd, so a backward pass leaves every gradient on the
-leaf that holds the optimizer state, summed over the shards that used it.
+card), or built from a layout's blocks a unit at a time
+(``parallel.fsdp.BlockGather``). The bound tensors stay in autograd, so a
+backward pass leaves every gradient on the leaf that holds the optimizer
+state, summed over the shards that used it.
 """
 
 from __future__ import annotations

@@ -8,13 +8,17 @@ axis) or as one copy per distinct device. A shard on the device that
 already holds the rows is a view, not a copy. For training,
 ``host_local_batch_to_global`` cuts each process's rows of a global batch
 into its data shards, :class:`ShardedParams` holds a parameter dict cut into
-blocks by a per-dimension spec (``parallel.fsdp``, ``parallel.tp``), and
-:func:`all_gather_autograd` is the differentiable cross-process gather.
+blocks by a per-dimension spec (``parallel.fsdp``, ``parallel.tp``) and
+builds parameters from them (its :class:`BuiltGauge` counts what is built
+and alive), and :func:`all_gather_autograd` is the differentiable
+cross-process gather.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -252,6 +256,36 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group, op: str = "sum",
         flush(bucket, dt)
 
 
+class BuiltGauge:
+    """Bytes of the built parameters alive (each counts until the last
+    reference to it goes: a weak reference) and the most alive at once
+    since :meth:`reset`: what a step holds of its parameters above their
+    blocks."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._alive: Dict[int, weakref.ref] = {}
+        self.bytes = 0
+        self.peak = 0
+
+    def add(self, t: torch.Tensor) -> None:
+        n, key = t.numel() * t.element_size(), id(t)
+
+        def gone(_, key=key, n=n):
+            with self._lock:
+                if self._alive.pop(key, None) is not None:
+                    self.bytes -= n
+
+        with self._lock:
+            self._alive[key] = weakref.ref(t, gone)
+            self.bytes += n
+            self.peak = max(self.peak, self.bytes)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.peak = self.bytes
+
+
 Spec = Tuple[Any, ...]  # per dimension: None (whole) or the mesh axis the dimension is cut over
 
 
@@ -267,10 +301,11 @@ class ShardedParams:
     leaf ``nn.Parameter`` on the device of the first position of this
     process that holds it (a block is replicated over the axes its spec
     does not name). Blocks along the mesh's leading axis live on the
-    processes that own those coordinates; :meth:`materialize` assembles a
-    parameter from its blocks, across processes through
+    processes that own those coordinates; :meth:`gather` builds
+    parameters from their blocks, across processes through
     :func:`all_gather_autograd`, so a backward pass leaves each block the
-    sum of the gradients of its every use (FSDP's reduce-scatter)."""
+    sum of the gradients of its every use (FSDP's reduce-scatter).
+    :attr:`gauge` counts the built tensors alive (a view shares it)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], mesh: Mesh, specs: Dict[str, Spec],
                  requires_grad: bool = True):
@@ -279,6 +314,7 @@ class ShardedParams:
         self.shapes = {n: tuple(p.shape) for n, p in params.items()}
         self.dtypes = {n: p.dtype for n, p in params.items()}
         self.blocks: Dict[str, Dict[Tuple[int, ...], torch.nn.Parameter]] = {}
+        self.gauge = BuiltGauge()
         self.holders: Dict[str, Dict[Tuple[int, ...], Tuple[int, ...]]] = {}
         lead = mesh.axis_names[0]
         for n, p in params.items():
@@ -334,32 +370,60 @@ class ShardedParams:
         """True when ``name``'s blocks differ between processes (cut over the leading axis)."""
         return self.mesh.process_count > 1 and self.mesh.axis_names[0] in self.specs[name]
 
-    def materialize(self, name: str, device, keep: Optional[str] = None,
-                    devices: Optional[Sequence[torch.device]] = None):
-        """The whole parameter on ``device``, its blocks concatenated (in
-        autograd). With ``keep`` (an axis its spec names) the blocks along
-        that axis stay apart: a list, block *m* assembled on ``devices[m]``."""
-        spec = self.specs[name]
-        cut = [(d, a) for d, a in enumerate(spec) if a is not None]
-        blocks = self.blocks[name]
-        if keep is None or keep not in spec:
-            return self._assemble(blocks, (), cut, torch.device(device))
-        k = [a for _, a in cut].index(keep)
-        rest = cut[:k] + cut[k + 1:]
-        return [self._assemble({c[:k] + c[k + 1:]: b for c, b in blocks.items() if c[k] == m}, (), rest,
-                               torch.device(devices[m])) for m in range(self.mesh.shape[keep])]
+    def gather(self, requests: Sequence[Tuple[str, Optional[int]]], device,
+               keep: Optional[str] = None) -> List[torch.Tensor]:
+        """Parameters built on ``device`` from their blocks, in autograd (a
+        backward pass leaves each block the sum of its every use): per
+        request ``(name, m)`` the whole parameter (``m`` None) or, with
+        ``keep`` an axis its spec names, its block ``m`` along that axis,
+        assembled over its other cut dimensions. Blocks on other processes
+        cross in one flat all-gather per dtype for all the requests. Each
+        built tensor (not a block itself) counts in :attr:`gauge` while it
+        lives."""
+        dev = torch.device(device)
+        lead = self.mesh.axis_names[0]
+        multi = self.mesh.process_count > 1
+        out: List[Optional[torch.Tensor]] = [None] * len(requests)
+        crossing: Dict[torch.dtype, list] = {}
+        for i, (name, m) in enumerate(requests):
+            cut = [(d, a) for d, a in enumerate(self.specs[name]) if a is not None]
+            blocks = self.blocks[name]
+            if m is not None:
+                k = [a for _, a in cut].index(keep)
+                blocks = {c[:k] + c[k + 1:]: b for c, b in blocks.items() if c[k] == m}
+                cut = cut[:k] + cut[k + 1:]
+            t = self._assemble(blocks, (), cut, dev, local=True)
+            d = next((d for d, a in cut if a == lead), None) if multi else None
+            if d is not None:
+                crossing.setdefault(t.dtype, []).append((i, t, d))
+                continue
+            out[i] = t
+            if cut or t is not blocks[()]:
+                self.gauge.add(t)
+        for items in crossing.values():
+            parts = all_gather_autograd(torch.cat([t.reshape(-1) for _, t, _ in items]), self.mesh.group)
+            offset = 0
+            for i, t, d in items:
+                n = t.numel()
+                out[i] = torch.cat([p[offset:offset + n].view(t.shape) for p in parts], dim=d)
+                offset += n
+                self.gauge.add(out[i])
+        return out
 
-    def _assemble(self, blocks, prefix, cut, dev) -> torch.Tensor:
-        """Concatenate ``blocks`` (by coordinates) over the dims of ``cut``,
-        across processes along the leading axis, on ``dev``."""
+    def _assemble(self, blocks, prefix, cut, dev, local: bool = False) -> torch.Tensor:
+        """Concatenate ``blocks`` (by coordinates) over the dims of ``cut``
+        on ``dev``: across processes along the leading axis, or with
+        ``local`` only this process's coordinates of it."""
         if not cut:
             return blocks[prefix].to(dev)
         (d, a), rest = cut[0], cut[1:]
         mesh = self.mesh
         if a == mesh.axis_names[0] and mesh.process_count > 1:
-            local = torch.cat([self._assemble(blocks, prefix + (i,), rest, dev) for i in mesh.local_coords(a)], dim=d)
-            return torch.cat(all_gather_autograd(local, mesh.group), dim=d)
-        return torch.cat([self._assemble(blocks, prefix + (i,), rest, dev) for i in range(mesh.shape[a])], dim=d)
+            mine = torch.cat([self._assemble(blocks, prefix + (i,), rest, dev, local) for i in mesh.local_coords(a)],
+                             dim=d)
+            return mine if local else torch.cat(all_gather_autograd(mine, mesh.group), dim=d)
+        return torch.cat([self._assemble(blocks, prefix + (i,), rest, dev, local) for i in range(mesh.shape[a])],
+                         dim=d)
 
     def full(self, name: str, tensors: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """The whole parameter (or, given ``tensors`` by leaf name, the

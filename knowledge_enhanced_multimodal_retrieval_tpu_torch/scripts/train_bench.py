@@ -6,7 +6,7 @@ backward with the attention gradient recomputed through the plain version,
 clipping, AdamW) on a seeded ``--model`` at ``--batch`` random images and
 token ids, f32 parameters and bf16 compute, the default ``TrainConfig``.
 
-- ``step_ms``: the median of at least 15 dependent steps (each updates the
+- ``step_ms``: the median of ``--steps`` (15) dependent steps (each updates the
   parameters the next one reads), CUDA events around each step;
   ``device_ms``: the same median with the card kept busy (a spin of 1.5
   steps) while the host enqueues (``scripts.timing``), so the host's launch
@@ -147,13 +147,13 @@ def run_entry(model_name: str, batch: int, remat: bool, steps: int, dev: torch.d
     sync(dev)
     # the device-only spin covers 1.5x a whole step (~2e6 clock cycles a ms)
     spin = int(2e6 * 1.5 * (time.perf_counter() - t0) * 1e3)
-    timed = time_ms(lambda: step(state, db), dev, iters=max(15, steps), warmup=1, spin_cycles=spin)
+    timed = time_ms(lambda: step(state, db), dev, iters=steps, warmup=1, spin_cycles=spin)
     sync(dev)
     if extra is not None and dev.type == "cuda":
         extra["profile"] = _profile_step(step, state, db)
     loss = float(step(state, db)[1]["loss"])
     flops = step_flops(arch, batch, remat)
-    entry = {"model": model_name, "batch": batch, "remat": remat, "steps_timed": max(15, steps), **timed,
+    entry = {"model": model_name, "batch": batch, "remat": remat, "steps_timed": steps, **timed,
              "loss_final": loss, "forward_flops": forward_flops(arch, batch), "flops_per_step": flops,
              "launches_per_step": launches}
     if dev.type == "cuda":

@@ -57,6 +57,7 @@ import torch
 from ..data.datasets import Batch, DataPipeline
 from ..eval.metrics import average_mrr, compute_training_metrics
 from ..models.clip import CLIP, l2_normalize
+from ..parallel.fsdp import BlockGather
 from ..parallel.mesh import MeshRuntime
 from ..parallel.replicas import MeshReplicas, moved
 from ..parallel.sharding import RowShards, ShardedParams, all_gather_processes, all_reduce_, host_local_batch_to_global
@@ -575,16 +576,19 @@ def as_row_shards(batch: Dict[str, Any], rt: MeshRuntime) -> Dict[str, RowShards
 class _ShardTowers:
     """The towers of a mesh's data shards: each shard's module
     (``parallel.replicas``) bound, for a block, to tensors on its device
-    row made from the module's own parameters, from a ``layout``'s blocks
-    (assembled on the row, the tensor-parallel projections left cut:
-    ``parallel.tp.tp_linear``), or from whole tensors by name."""
+    row: the module's own parameters or whole tensors by name, moved to the
+    row; or a ``layout``'s blocks, built a unit at a time near their use
+    (``parallel.fsdp.BlockGather``: a residual block's when it runs and
+    again when its backward recomputes it; the tensor-parallel projections
+    left cut, ``parallel.tp``)."""
 
     def __init__(self, model: CLIP, rt: MeshRuntime, layout: Optional[ShardedParams] = None):
         self.model, self.rt, self.layout = model, rt, layout
         self.replicas = MeshReplicas(model, rt, own_params=layout is None)
-        tp = layout is not None and rt.mesh.shape[rt.model_axis] > 1
-        self.tp_names = {n for n, spec in layout.specs.items() if rt.model_axis in spec} if tp else set()
+        self.keep = rt.model_axis if layout is not None and rt.mesh.shape[rt.model_axis] > 1 else None
+        self.gather: Optional[BlockGather] = None  # the layout's build while bound
 
+    @contextlib.contextmanager
     def bound(self, params: Any = None, hooks: Optional[Callable] = None):
         """A context binding every shard's module: ``params`` None (the
         module's own parameters, or the layout's blocks), a view of the
@@ -592,43 +596,26 @@ class _ShardTowers:
         (every module, the caller's own too); ``hooks(module, row)`` (QAT,
         LoRA) held as well."""
         layout = params if isinstance(params, ShardedParams) else self.layout if params is None else None
-        whole = params if layout is None else None
-        rows: Dict[Any, Params] = {}
-
-        def tensors_for(row) -> Params:
-            if layout is not None:
-                t = {n: layout.materialize(n, row[0]) for n in layout.specs if n not in self.tp_names}
-            else:
-                t = moved(whole if whole is not None else dict(self.model.named_parameters()), row[0])
-            rows[row] = t
-            return t
-
-        def row_hooks(mod, row):
-            stack = contextlib.ExitStack()
-            if hooks is not None:
-                stack.enter_context(hooks(mod, row))
-            if self.tp_names and layout is not None:
-                from ..parallel.tp import tp_projections
-
-                blocks = {n: layout.materialize(n, row[0], keep=self.rt.model_axis, devices=row)
-                          for n in self.tp_names}
-
-                def weights(name: str):
-                    bias = name[:-len("weight")] + "bias"  # in_proj_weight -> in_proj_bias, c_fc.weight -> c_fc.bias
-                    return blocks[name], blocks.get(bias, rows[row].get(bias))
-
-                stack.enter_context(tp_projections(mod, weights, row))
-            return stack
-
-        return self.replicas.bound(tensors_for, row_hooks, rebind_own=whole is not None)
+        if layout is None:
+            whole = params if params is not None else dict(self.model.named_parameters())
+            with self.replicas.bound(lambda row: moved(whole, row[0]), hooks, rebind_own=params is not None):
+                yield
+            return
+        self.gather = BlockGather(layout, self.keep)
+        try:
+            with self.gather.bound(self.replicas.modules, hooks):
+                yield
+        finally:
+            self.gather = None
 
     def tower(self, method: str) -> Callable:
         """``enc(*args)``: each arg a list over this process's shards; the
         shards' L2-normalized embeddings stacked on the home device ``[S, B, D]``."""
 
         def enc(*args):
-            return self.replicas.per_shard(
-                lambda mod, j, row, g: l2_normalize(getattr(mod, method)(*(a[j] for a in args))))
+            with self.gather.saving() if self.gather is not None else contextlib.nullcontext():
+                return self.replicas.per_shard(
+                    lambda mod, j, row, g: l2_normalize(getattr(mod, method)(*(a[j] for a in args))))
 
         return enc
 
@@ -750,10 +737,12 @@ def init_state_fsdp(model: CLIP, cfg: TrainConfig, rt: MeshRuntime, steps_per_ep
 
 def make_train_step_gspmd(model: CLIP, cfg: TrainConfig, rt: MeshRuntime, layout: ShardedParams) -> Callable:
     """The train step over FSDP / tensor-parallel blocks (JAX
-    ``make_train_step_gspmd``): each data shard assembles the parameters
-    from their blocks on its device (the tensor-parallel projections stay
-    cut, ``parallel.tp.tp_linear``), the loss scores the global batch
-    (numerically the data-parallel step with ``global_negatives``), and each
+    ``make_train_step_gspmd``): each data shard builds the parameters from
+    their blocks on its device a unit at a time, near their use, forward
+    and backward (``parallel.fsdp.BlockGather``; the tensor-parallel
+    projections stay cut, ``parallel.tp.tp_linear``), the loss scores the
+    global batch (numerically the data-parallel step with
+    ``global_negatives``), and each
     block's gradient is the sum over the shards of its uses, so each
     position updates only its own block."""
     return _ShardedStep(model, cfg, rt, layout=layout)
@@ -774,6 +763,15 @@ def encode_batch(model: CLIP, params: Optional[Params], images, query_ids, targe
     return l2_normalize(visual(images)), l2_normalize(text(query_ids)), l2_normalize(text(target_ids))
 
 
+def _plans_on(plans: Any, device: torch.device) -> Any:
+    """Encode plans (nested dicts and lists of tensors) on ``device``, no copy where they already are."""
+    if isinstance(plans, dict):
+        return {k: _plans_on(v, device) for k, v in plans.items()}
+    if isinstance(plans, (list, tuple)):
+        return type(plans)(_plans_on(v, device) for v in plans)
+    return plans.to(device) if torch.is_tensor(plans) else plans
+
+
 def make_encode_step(model: CLIP, rt: MeshRuntime, fast: bool = False, quantize: Optional[str] = None,
                      layout: Optional[ShardedParams] = None) -> Callable:
     """``step(params, images, query_ids, target_ids) -> (img, query, target)``
@@ -784,34 +782,50 @@ def make_encode_step(model: CLIP, rt: MeshRuntime, fast: bool = False, quantize:
     None (the module's own weights, or the ``layout``'s blocks), a view of
     the layout (the EMA shadow), or whole tensors by name (EMA, a LoRA
     merge). ``fast=True`` (implied by ``quantize``) runs the serving
-    encoders (B1 / B3a / B3b on the card) from plans packed once for each
-    distinct device; given a ``layout`` (the GSPMD state) the parameters
-    stay in their blocks (:func:`make_encode_step_gspmd`)."""
+    encoders (B1 / B3a / B3b on the card); its ``params`` are the encode
+    plans (``{"visual": ..., "text": ...}``, as
+    ``models.fast_encode.make_encode_plans`` returns them), moved to each
+    shard's device, or None for plans packed once from the module for each
+    distinct device; anything else raises ``ValueError``. Given a ``layout``
+    (the GSPMD state) the parameters stay in their blocks, built a unit at a
+    time (:func:`make_encode_step_gspmd`)."""
     from ..models.fast_encode import encode_image_fast, encode_text_fast, make_encode_plans
 
     fast = fast or quantize is not None
     home = rt.mesh.first_device
+    devices = list(dict.fromkeys(d for _, d in rt.mesh.axis_shards(rt.data_axes)))
+    own: Dict[torch.device, Any] = {}  # the module's plans, packed at the first call that wants them
     if fast:
-        model_home = next(model.parameters()).device
-        plans = {}
-        for dev in dict.fromkeys(d for _, d in rt.mesh.axis_shards(rt.data_axes)):
-            m = model if dev == model_home else copy.deepcopy(model).to(dev)
-            plans[dev] = make_encode_plans(m, dtype=model.dtype, quantize=quantize)
-
         def fast_tower(fn, name: str) -> Callable:
-            return lambda xs: torch.stack([l2_normalize(fn(model.arch, plans[x.device][name], x)).to(home) for x in xs])
+            return lambda plans, xs: torch.stack(
+                [l2_normalize(fn(model.arch, plans[x.device][name], x)).to(home) for x in xs])
 
         img, txt = fast_tower(encode_image_fast, "visual"), fast_tower(encode_text_fast, "text")
     else:
         towers = _ShardTowers(model, rt, layout)
-        img, txt = towers.tower("encode_image"), towers.tower("encode_text")
+        enc_img, enc_txt = towers.tower("encode_image"), towers.tower("encode_text")
+        img, txt = (lambda _, xs: enc_img(xs)), (lambda _, xs: enc_txt(xs))
 
     @torch.no_grad()
     def step(params, images, query_ids, target_ids):
+        plans = None
+        if fast:
+            if params is None:
+                if not own:
+                    model_home = next(model.parameters()).device
+                    own.update({dev: make_encode_plans(model if dev == model_home else copy.deepcopy(model).to(dev),
+                                                       dtype=model.dtype, quantize=quantize) for dev in devices})
+                plans = own
+            elif isinstance(params, dict) and set(params) == {"visual", "text"}:
+                plans = {dev: _plans_on(params, dev) for dev in devices}
+            else:
+                raise ValueError("make_encode_step(fast=True) takes encode plans ({'visual': ..., 'text': ...}, "
+                                 "as models.fast_encode.make_encode_plans returns them) or None, not "
+                                 f"{type(params).__name__}")
         shards = as_row_shards({"images": images, "query_ids": query_ids, "target_ids": target_ids}, rt)
         ins = {k: [t for _, t in v.shards] for k, v in shards.items()}
         with contextlib.nullcontext() if fast else towers.bound(params):
-            outs = (img(ins["images"]), txt(ins["query_ids"]), txt(ins["target_ids"]))
+            outs = (img(plans, ins["images"]), txt(plans, ins["query_ids"]), txt(plans, ins["target_ids"]))
         return tuple(all_gather_processes(o.reshape(-1, o.shape[-1]), rt.mesh) for o in outs)
 
     return step
@@ -819,8 +833,8 @@ def make_encode_step(model: CLIP, rt: MeshRuntime, fast: bool = False, quantize:
 
 def make_encode_step_gspmd(model: CLIP, rt: MeshRuntime, layout: ShardedParams) -> Callable:
     """The encode step over the GSPMD state: the parameters stay in their
-    blocks (assembled per shard, the tensor-parallel projections cut), not
-    gathered whole once per call."""
+    blocks, built a unit at a time on each shard's row (the tensor-parallel
+    projections cut), never whole."""
     return make_encode_step(model, rt, layout=layout)
 
 

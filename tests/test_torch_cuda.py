@@ -1445,13 +1445,16 @@ def test_parallel_train_steps_on_one_card(rng, dev, layout):
     """The DP, FSDP and TP steps over ``[cuda:0] * 2`` (f32, TF32 off,
     global negatives) equal the one-device step (loss 1e-5, parameters
     2e-5, grad_norm 1e-5 relative), and every shard's towers launched the
-    attention kernel."""
+    attention kernel: once a tower, and once more in the GSPMD step's
+    backward, which recomputes each block (``parallel.fsdp.BlockGather``)."""
     model, batch, cfg = _parallel_world(rng, dev)
     want_loss, want_norm, want = _parallel_step(None, None, model, batch, cfg)
     dispatch.reset_launch_counts()
     loss, norm, got = _parallel_step([torch.device("cuda", 0)] * 2, _LAYOUTS[layout], model, batch, cfg)
     shards = 2 if layout != "tp2" else 1
-    assert dispatch.launch_counts()["flash_attention_kernel"] == 3 * shards  # image, query, target towers a shard
+    passes = 1 if layout == "dp2" else 2
+    # image, query, target towers a shard (one layer each)
+    assert dispatch.launch_counts()["flash_attention_kernel"] == 3 * shards * passes
     assert loss == pytest.approx(want_loss, abs=1e-5)
     assert norm == pytest.approx(want_norm, rel=1e-5)
     for n, p in want.items():
@@ -1472,3 +1475,64 @@ def test_parallel_train_steps_across_cards(rng, dev, layout):
     assert norm == pytest.approx(want_norm, rel=1e-5)
     for n, p in want.items():
         torch.testing.assert_close(got[n].to(p.device), p, rtol=0, atol=2e-5, msg=n)
+
+
+def test_fsdp_peak_below_dp_on_each_card(rng, dev):
+    """ViT-L/14, bf16 compute, batch 64 over every visible card (skips with
+    fewer than two): DP and FSDP, two steps each; prints each card's peak
+    (``max_memory_allocated``) for both. FSDP holds 1/n of the state on
+    each card, builds one unit at a time and keeps each block's input only;
+    DP keeps a whole replica with its activations on each card: FSDP's peak
+    is the lower on every card."""
+    import copy
+    import json
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import MeshRuntime
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.config import MeshConfig, TrainConfig
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    base = build_model("ViT-L/14", dtype=torch.bfloat16, seed=0, device=cards[0])
+    b = 64
+    batch = {"images": torch.from_numpy(rng.standard_normal((b, 224, 224, 3)).astype(np.float32)),
+             "query_ids": torch.from_numpy(rng.integers(1, 49000, (b, 77))),
+             "target_ids": torch.from_numpy(rng.integers(1, 49000, (b, 77)))}
+    cfg = TrainConfig(batch_size=b, global_negatives=True)
+    peaks, step_ms = {}, {}
+    for tag, layout in (("dp", dict(data_parallel=n)), ("fsdp", dict(data_parallel=n, fsdp=True))):
+        m = copy.deepcopy(base)
+        rt = MeshRuntime.create(MeshConfig(**layout), cards)
+        if rt.fsdp:
+            state = TT.init_state_fsdp(m, cfg, rt, 1)
+            step = TT.make_train_step_gspmd(m, cfg, rt, state.layout)
+        else:
+            state = TT.TrainState(m, TT.make_optimizer(cfg, 1, m))
+            step = TT.make_train_step(m, cfg, rt=rt)
+        shards = TT.as_row_shards(batch, rt)
+        for c in cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
+        times = []
+        for _ in range(2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, met = step(state, shards)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            assert np.isfinite(float(met["loss"]))
+        for c in cards:
+            torch.cuda.synchronize(c)
+        peaks[tag] = [torch.cuda.max_memory_allocated(c) for c in cards]
+        step_ms[tag] = times
+        del m, state, step, shards
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+    print("fsdp / dp peaks a card:", json.dumps({"cards": n, "name": torch.cuda.get_device_name(0),
+                                                  "peak_bytes": peaks, "step_ms": step_ms}))
+    for i in range(n):
+        assert peaks["fsdp"][i] < peaks["dp"][i], (i, peaks)

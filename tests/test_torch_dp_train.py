@@ -205,3 +205,31 @@ def test_shard_params_replicates_once_a_distinct_device():
     params = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.zeros(3)}
     placed = shard_params(params, rt.mesh)
     assert list(placed) == [CPU] and all(placed[CPU][k] is v for k, v in params.items())
+
+
+def test_fast_encode_step_reads_the_plans_it_is_given(world):
+    """``make_encode_step(fast=True)`` takes its encode plans as ``params``,
+    as the JAX step does: plans packed from other weights give those
+    weights' embeddings (against the JAX step with the same plans), None
+    the module's own, anything else raises."""
+    from knowledge_enhanced_multimodal_retrieval_tpu.models.fast_encode import make_encode_plans as j_plans
+    from knowledge_enhanced_multimodal_retrieval_tpu.parallel.sharding import host_local_batch_to_global as j_global
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models.fast_encode import make_encode_plans as t_plans
+
+    arch, params, _, _, batches = world
+    other = JM.init_params(JM.CLIP(arch, dtype=jnp.float32), jax.random.PRNGKey(1))
+    jrt, trt = meshes(4)
+    b = batches[0]
+    db = j_global({"images": b.images, "query_ids": b.query_ids, "target_ids": b.target_ids}, jrt.mesh, jrt.data_axes)
+    jstep = JT.make_encode_step(JM.CLIP(arch, dtype=jnp.float32), jrt, fast=True)
+    want = jstep(j_plans(other, dtype=jnp.float32), db["images"], db["query_ids"], db["target_ids"])
+    step = TT.make_encode_step(port_model(arch, params), trt, fast=True)
+    got = step(t_plans(port_model(arch, other), dtype=torch.float32), b.images, b.query_ids, b.target_ids)
+    own = step(None, b.images, b.query_ids, b.target_ids)
+    mine = jstep(j_plans(params, dtype=jnp.float32), db["images"], db["query_ids"], db["target_ids"])
+    for g, w, o, m in zip(got, want, own, mine):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        np.testing.assert_allclose(o.numpy(), np.asarray(m), **TOL)
+        assert np.abs(np.asarray(w) - np.asarray(m)).max() > 1e-2  # the two sets of weights encode apart
+    with pytest.raises(ValueError, match="encode plans"):
+        step(dict(port_model(arch, other).named_parameters()), b.images, b.query_ids, b.target_ids)

@@ -99,6 +99,7 @@ SLICE_MODULES = [
     f"{PKG}.cli.train",
     f"{PKG}.cli.export",
     f"{PKG}.scripts.train_bench",
+    f"{PKG}.scripts.profile_parallel",
     f"{PKG}.train.qat",
     f"{PKG}.train.lora",
     f"{PKG}.train.gradcache",
