@@ -216,11 +216,17 @@ just after; every kernel must have launched in the path it belongs to.
    card against one process over ``[cuda:0] * 2`` (monitors, steps and stop
    decision equal on both ranks, parameters equal across ranks and to 1e-4
    of one process, metrics written by rank 0 only) and a world-size-1 NCCL
-   step and encode; pp (ViT-L/14's 12 text blocks in 4 stages, 8
-   microbatches, forward and gradients against the stack), sp (ring
-   attention [2, 12, 1024, 64] in f32 and bf16 against ``mha``, which
-   launches B7; a text block at s = 1024 against ``ResidualBlock``), ep (4
-   experts, 768 / 3072, 154 tokens, sharded against unsharded); the sharded
+   step and encode; in the two ``cli.train`` ranks, over their gloo group
+   (``pp_sp_ep_across_processes``), pipeline, sequence and expert
+   parallelism with the axis across the processes (each rank's rows of the
+   other's stages, shards or experts NaN) and dp2 x pp2 with ``data``
+   across them: pp (ViT-L/14's 12 text blocks in 4 stages, 8 microbatches
+   of [8, 77, 768], forward and gradients against the stack and the
+   one-process pipeline; B6 counted in each rank), sp (ring attention
+   [2, 12, 1024, 64] in f32 and bf16 against ``mha``, which launches B7,
+   gradients against one process; a text block at s = 1024 against
+   ``ResidualBlock``), ep (4 experts, 768 / 3072, 154 tokens, against the
+   unsharded call, gradients too); the sharded
    ``int8`` encode over 4 shards against one device (cosine > 0.999, 99.5 %
    of values within 1e-3).
 The kernel line's entries carry ``launches_by_path`` for the launches of
@@ -3873,6 +3879,7 @@ PT_LAYOUTS = {"dp4": dict(data_parallel=4), "fsdp4": dict(data_parallel=4, fsdp=
               "dcn2xdp2": dict(dcn_parallel=2, data_parallel=2)}
 _MP_TRAIN = """
 import sys, torch
+import chip_smoke
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.cli import train as CT
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.train import trainer as TT
 real = TT.CLIPTrainer.train
@@ -3882,7 +3889,230 @@ def train(self, *a, **kw):  # keep each rank's final parameters beside the resul
     return out
 TT.CLIPTrainer.train = train
 CT.main(sys.argv[2:])
+chip_smoke.pp_sp_ep_across_processes(sys.argv[1] + ".pp_sp_ep.json")  # the ranks' gloo group is still up
 """
+PPX_STAGES, PPX_MICRO, PPX_MB = 4, 8, 8  # pp across processes: 4 stages, 8 microbatches of [8, 77, 768]
+SP_SEQ = 1024  # the ring's and the sequence-parallel block's sequence
+TOL_PT_BF16 = 2e-2  # the bf16 ring against mha (tests/test_torch_pp_sp_ep.py)
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def pp_sp_ep_across_processes(out_path: str) -> None:
+    """Run in each of the two ``cli.train`` ranks of ``parallel_training_phase``
+    (3) after training, over their gloo group, every rank on ``cuda:0``:
+    pipeline, sequence and expert parallelism with the axis across the two
+    processes (case A: ``[cuda:0] * 2`` a rank, four positions; the sp block
+    ``[cuda:0]`` a rank, two) and with ``data`` across them (case B, dp2 x
+    pp2). Each rank's inputs are NaN in the rows it must not read (other
+    ranks' stages, sequence shards, experts). At ViT-L/14's text widths:
+    pp (12 blocks, 4 stages, 8 microbatches of [8, 77, 768]) forward and
+    gradients against the one-process ``pipeline_apply`` over ``[cuda:0] * 4``
+    and the sequential stack; dp2 x pp2 against the stack; ``ring_attention``
+    [2, 12, 1024, 64] f32 causal against ``mha`` (B7) and its gradients
+    against the one-process ring, bf16 against ``mha``; ``sp_block_apply``
+    at s = 1024 against ``ResidualBlock`` and its gradients against one
+    process; ep (4 experts, 768 / 3072, 154 tokens) against the unsharded
+    call. Writes each check's errors, wall s, the hops' log and B6 / B7
+    launches to ``out_path``; raises on any disagreement."""
+    import torch
+    import torch.distributed as dist
+
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as CM
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops import dispatch
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.ops.attention import mha
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import ep as EP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import pp as PP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import sp as SP
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.mesh import Mesh, axis_row
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.sharding import hop_log
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    on_card = torch.cuda.is_available()
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    flash = "flash_attention_kernel"
+    arch = CM.ARCHS["ViT-L/14"]
+    width, heads, layers = arch.text_width, arch.text_heads, arch.text_layers  # 768, 12, 12
+    rng = np.random.default_rng(17)
+    report = {"rank": rank, "checks": {}, "launches": {}}
+
+    def mesh(axes, local, across=True):
+        arr = np.empty(int(np.prod(local)), dtype=object)
+        arr[:] = [dev] * arr.size
+        if across:
+            return Mesh(arr.reshape(local), axes, process_index=rank, process_count=world, group=dist.group.WORLD)
+        return Mesh(arr.reshape(local), axes)
+
+    def f32(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    def poisoned(x, dim, per, positions):
+        """``x`` with NaN in the slices of dim ``dim`` that ``positions`` do not own, as a leaf."""
+        x = x.detach().clone()
+        for j in range(x.shape[dim] // per):
+            if j not in positions:
+                x.narrow(dim, j * per, per).fill_(float("nan"))
+        return x.requires_grad_()
+
+    def rows_agree(tag, got, want, dim, per, positions, tol):
+        """The owned slices within ``tol`` (relative), the others exactly zero."""
+        err = 0.0
+        for j in range(got.shape[dim] // per):
+            g, w = got.narrow(dim, j * per, per), want.narrow(dim, j * per, per)
+            if j in positions:
+                err = max(err, _rel(g, w))
+            else:
+                assert not g.any(), f"{tag}: a gradient in rows rank {rank} does not own"
+        assert err <= tol, f"{tag}: {err}"
+        return err
+
+    def check(name, fn):
+        sync()
+        hop_log.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        report["checks"][name] = dict(out, wall_s=time.perf_counter() - t0, hops=hop_log.snapshot())
+
+    shapes = {k: tuple(v.shape) for k, v in CM.ResidualBlock(width, heads).state_dict().items()}
+    blocks = [{k: (1 + f32(sh, 0.02) if k.startswith("ln_") and k.endswith("weight") else
+                   f32(sh, 0.02 if k.endswith("weight") else 0.01)) for k, sh in shapes.items()}
+              for _ in range(layers)]
+    block = CM.ResidualBlock(width, heads).to(dev)
+    layer = lambda p, x: torch.func.functional_call(block, p, (x, True))  # noqa: E731
+    xs, w = f32((PPX_MICRO, PPX_MB, 77, width)), f32((PPX_MICRO, PPX_MB, 77, width))
+    # the sequential stack: the references of both pp layouts
+    seq_blocks = [{k: v.clone().requires_grad_() for k, v in b.items()} for b in blocks]
+    seq_xs = xs.clone().requires_grad_()
+    want = []
+    for mb in range(PPX_MICRO):
+        h = seq_xs[mb]
+        for p in seq_blocks:
+            h = layer(p, h)
+        want.append(h)
+    want = torch.stack(want)
+    (want * w).sum().backward()
+
+    def pp_case(stages, cross_mesh, one_mesh):
+        row = axis_row(cross_mesh, "pipe")
+        stacked = PP.stack_stages(blocks, stages)
+        mine = {k: poisoned(v, 0, 1, row.positions) for k, v in stacked.items()}
+        x_r = xs.clone().requires_grad_()
+        dispatch.reset_launch_counts()
+        got = PP.pipeline_apply(layer, mine, x_r, cross_mesh, "pipe")
+        (got * w).sum().backward()
+        sync()
+        launches = dispatch.launch_counts()[flash]
+        g_seq = PP.stack_stages([{k: v.grad for k, v in b.items()} for b in seq_blocks], stages)
+        out = dict(forward_vs_stack=_rel(got, want), xs_grad_vs_stack=_rel(x_r.grad, seq_xs.grad),
+                   grads_vs_stack=max(rows_agree(f"pp {k}", mine[k].grad, g_seq[k], 0, 1, row.positions,
+                                                 TOL_PT_BLOCKS) for k in mine), b6_launches=launches,
+                   positions=row.positions)
+        if one_mesh is not None:
+            one = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+            x1 = xs.clone().requires_grad_()
+            t0 = time.perf_counter()
+            got1 = PP.pipeline_apply(layer, one, x1, one_mesh, "pipe")
+            (got1 * w).sum().backward()
+            sync()
+            out.update(one_process_s=time.perf_counter() - t0, forward_vs_one_process=_rel(got, got1),
+                       grads_vs_one_process=max(rows_agree(f"pp {k} (one process)", mine[k].grad, one[k].grad, 0, 1,
+                                                           row.positions, TOL_PT_BLOCKS) for k in mine))
+        assert out["forward_vs_stack"] <= TOL_PT_BLOCKS and out["xs_grad_vs_stack"] <= TOL_PT_BLOCKS, out
+        assert out.get("forward_vs_one_process", 0.0) <= TOL_PT_BLOCKS, out
+        return out
+
+    check("pp across processes", lambda: pp_case(PPX_STAGES, mesh(("pipe",), (2,)), mesh(("pipe",), (4,), False)))
+    check("dp2 x pp2", lambda: pp_case(2, mesh(("data", "pipe"), (1, 2)), None))
+    report["launches"]["pp across processes"] = report["checks"]["pp across processes"]["b6_launches"]
+    report["launches"]["dp2 x pp2"] = report["checks"]["dp2 x pp2"]["b6_launches"]
+    del seq_blocks, want
+
+    def ring_case():
+        cross = mesh(("seq",), (2,))
+        row, per = axis_row(cross, "seq"), SP_SEQ // 4
+        out = {}
+        for dt, tol in ((torch.float32, TOL_PT_BLOCKS), (torch.bfloat16, TOL_PT_BF16)):
+            q, k, v = (f32((2, heads, SP_SEQ, 64)).to(dt) for _ in range(3))
+            mq, mk, mv = (poisoned(t, 2, per, row.positions) for t in (q, k, v))
+            got = SP.ring_attention(mq, mk, mv, cross, causal=True)
+            dispatch.reset_launch_counts()
+            with torch.no_grad():
+                dense = mha(q, k, v, causal=True)
+            sync()
+            report["launches"][f"sp dense reference {str(dt)[6:]}"] = dispatch.launch_counts()[flash]
+            err = float((got.float() - dense.float()).abs().max())
+            assert err <= tol, f"ring attention {dt}: {err}"
+            out[f"{str(dt)[6:]} vs mha"] = err
+            if dt == torch.float32:
+                g = f32(got.shape)
+                (got * g).sum().backward()
+                one = [t.clone().requires_grad_() for t in (q, k, v)]
+                (SP.ring_attention(*one, mesh(("seq",), (4,), False), causal=True) * g).sum().backward()
+                out["f32 grads vs one process"] = max(rows_agree(f"ring d{n}", a.grad, b.grad, 2, per, row.positions,
+                                                                 TOL_PT_BLOCKS) for n, a, b in zip("qkv", (mq, mk, mv), one))
+        return out
+
+    check("ring_attention", ring_case)
+
+    def block_case():
+        cross = mesh(("seq",), (1,))
+        row, per = axis_row(cross, "seq"), SP_SEQ // 2
+        x = f32((2, SP_SEQ, width))
+        params = {k: v.clone().requires_grad_() for k, v in blocks[0].items()}
+        mx = poisoned(x, 1, per, row.positions)
+        got = SP.sp_block_apply(params, mx, cross, heads=heads, causal=True)
+        dispatch.reset_launch_counts()
+        with torch.no_grad():
+            dense = layer(blocks[0], x)
+        sync()
+        report["launches"]["sp block reference"] = dispatch.launch_counts()[flash]
+        g = f32(got.shape)
+        (got * g).sum().backward()
+        one_p = {k: v.clone().requires_grad_() for k, v in blocks[0].items()}
+        one_x = x.clone().requires_grad_()
+        (SP.sp_block_apply(one_p, one_x, mesh(("seq",), (2,), False), heads=heads, causal=True) * g).sum().backward()
+        out = {"forward vs ResidualBlock": _rel(got, dense),
+               "x grad vs one process": rows_agree("sp block dx", mx.grad, one_x.grad, 1, per, row.positions,
+                                                   TOL_PT_BLOCKS),
+               "param grads vs one process": max(_rel(params[k].grad, one_p[k].grad) for k in params)}
+        assert out["forward vs ResidualBlock"] <= TOL_PT_BLOCKS and out["param grads vs one process"] <= TOL_PT_BLOCKS, out
+        return out
+
+    check("sp_block_apply", block_case)
+
+    def ep_case():
+        cross = mesh(("expert",), (2,))
+        row = axis_row(cross, "expert")
+        moe = EP.init_moe_params(torch.Generator().manual_seed(1), width, 4 * width, 4)
+        x = f32((2, 77, width))
+        g = f32(x.shape)
+        mine = {n: poisoned(moe[n].to(dev), 0, 1, row.positions) for n in ("w_in", "b_in", "w_out", "b_out")}
+        mine["router"] = {"kernel": moe["router"]["kernel"].to(dev).requires_grad_()}
+        mx = x.clone().requires_grad_()
+        y, aux = EP.moe_apply(mine, mx, k=2, mesh=cross)
+        ((y * g).sum() + aux).backward()
+        one = {n: moe[n].to(dev).requires_grad_() for n in ("w_in", "b_in", "w_out", "b_out")}
+        one["router"] = {"kernel": moe["router"]["kernel"].to(dev).requires_grad_()}
+        x1 = x.clone().requires_grad_()
+        y1, aux1 = EP.moe_apply(one, x1, k=2)
+        ((y1 * g).sum() + aux1).backward()
+        out = {"forward vs unsharded": float((y - y1).abs().max()), "aux": abs(float(aux) - float(aux1)),
+               "expert grads vs unsharded": max(rows_agree(f"ep {n}", mine[n].grad, one[n].grad, 0, 1, row.positions,
+                                                           TOL_PT_BLOCKS) for n in ("w_in", "b_in", "w_out", "b_out")),
+               "x / router grads vs unsharded": max(_rel(mx.grad, x1.grad),
+                                                    _rel(mine["router"]["kernel"].grad, one["router"]["kernel"].grad))}
+        assert out["forward vs unsharded"] <= TOL_PT_PARAM and out["aux"] <= 1e-5, out
+        assert out["x / router grads vs unsharded"] <= TOL_PT_BLOCKS, out
+        return out
+
+    check("ep", ep_case)
+    with open(out_path, "w") as f:
+        json.dump(report, f)
 
 
 def parallel_training_phase(torch, dev, tmp, model, results):
@@ -3900,12 +4130,9 @@ def parallel_training_phase(torch, dev, tmp, model, results):
     each shard's activations and weight casts), the most FSDP4 held built
     at once (``ShardedParams.gauge``) no more than its largest unit; (3) two ``cli.train`` processes over gloo on the card (2 epochs of
     ``synthetic:16``) against one process over ``[cuda:0] * 2``, and one
-    data-parallel step and encode under a world-size-1 NCCL group; (4) pp
-    (the 12 ViT-L/14 text blocks, 4 stages, 8 microbatches of [8, 77, 768],
-    forward and gradients against the sequential stack), sp (ring attention
-    at [2, 12, 1024, 64] f32 and bf16 against ``mha``: B7; a text block at
-    s = 1024 against ``ResidualBlock``) and ep (4 experts, width 768, hidden
-    3072, 154 tokens, sharded against unsharded); (5) the sharded ``int8``
+    data-parallel step and encode under a world-size-1 NCCL group; (4) pp,
+    sp and ep across the two ranks and dp2 x pp2 (``pp_sp_ep_across_processes``,
+    run in each rank after ``cli.train``; its reports read here); (5) the sharded ``int8``
     encode over 4 shards against one device under the int8 rules. Returns
     {kernel line: {path: launches}}."""
     import copy
@@ -3931,7 +4158,7 @@ def parallel_training_phase(torch, dev, tmp, model, results):
 
     t_phase = time.perf_counter()
     res = results["parallel_training"] = {}
-    wall, b6, paths = {}, {}, {}
+    wall, b6, pp_b6, paths = {}, {}, {}, {}
     flash = "flash_attention_kernel"
     tok = CLIPTokenizer(MERGES)
 
@@ -4182,6 +4409,24 @@ def parallel_training_phase(torch, dev, tmp, model, results):
     assert os.path.exists(f"{root}/out0/train_metrics.jsonl") and not os.path.exists(f"{root}/out1/train_metrics.jsonl")
     res["two_process"] = dict(wall_s=time.perf_counter() - t0, monitors=mon[0], one_process_monitors=one_mon,
                               steps=[h["steps"] for h in r0["history"]], param_diff=d_mp, largest_update=mp_moved)
+    # (4) pp / sp / ep across the two ranks (pp_sp_ep_across_processes, run in each after cli.train)
+    res["pp_sp_ep"] = ppx = [json.load(open(os.path.join(root, f"rank{r}.pt.pp_sp_ep.json"))) for r in range(2)]
+    assert sorted(ppx[0]["checks"]["pp across processes"]["positions"]
+                  + ppx[1]["checks"]["pp across processes"]["positions"]) == list(range(PPX_STAGES))
+    for r, rep in enumerate(ppx):
+        n_blocks = CM.ARCHS["ViT-L/14"].text_layers
+        pp_b6[f"rank {r}: its {n_blocks // 2} text blocks x {PPX_MICRO} microbatches, forward + recompute (s=77)"] = (
+            rep["launches"]["pp across processes"])
+        pp_b6[f"dp2 x pp2, rank {r}: its row's {n_blocks} blocks x {PPX_MICRO} microbatches, forward + recompute "
+              "(s=77)"] = rep["launches"]["dp2 x pp2"]
+        for name, c in rep["checks"].items():
+            hops = ", ".join(f"{k} {v['messages']} messages {v['bytes'] / 2**20:.1f} MiB {v['seconds']:.3f} s"
+                             for k, v in c["hops"].items()) or "no hop"
+            log(f"pp / sp / ep across processes, rank {r}, {name}: {c['wall_s']:.2f} s ({hops}); " + ", ".join(
+                f"{k} {v:.2e}" for k, v in c.items() if isinstance(v, float) and k != "wall_s"))
+    for key in ("sp dense reference float32", "sp dense reference bfloat16", "sp block reference"):
+        b6[key] = ppx[0]["launches"][key]
+    wall["pp / sp / ep in the ranks"] = max(sum(c["wall_s"] for c in rep["checks"].values()) for rep in ppx)
     shutil.rmtree(root)
     # one data-parallel step and a validation encode under a world-size-1 NCCL group
     t1 = time.perf_counter()
@@ -4206,75 +4451,6 @@ def parallel_training_phase(torch, dev, tmp, model, results):
         f"{mon[0]}, one process {res['two_process']['one_process_monitors']}, params against one process "
         f"{d_mp:.2e}); NCCL world 1 step + encode {res['two_process']['nccl_world1_s']:.1f} s")
 
-    # (4) pp / sp / ep
-    t0 = time.perf_counter()
-
-    def line(axis):
-        arr = np.empty(PT_SHARDS, dtype=object)
-        arr[:] = [dev] * PT_SHARDS
-        return Mesh(arr, (axis,))
-
-    rng = np.random.default_rng(7)
-    tw, th = full.arch.text_width, full.arch.text_heads  # ViT-L/14's text blocks: width 768, 12 heads, 12 layers
-    blocks = [{k: v.detach().clone().requires_grad_() for k, v in blk.state_dict().items()}
-              for blk in full.text.transformer.resblocks]
-    block = CM.ResidualBlock(tw, th).to(dev)
-    layer = lambda p, x: torch.func.functional_call(block, p, (x, True))  # noqa: E731
-    xs = torch.from_numpy(rng.standard_normal((8, 8, 77, tw)).astype(np.float32)).to(dev)
-    w = torch.from_numpy(rng.standard_normal(xs.shape).astype(np.float32)).to(dev)
-    stacked = {k: v.detach().clone().requires_grad_() for k, v in PP.stack_stages(blocks, 4).items()}
-    got = PP.pipeline_apply(layer, stacked, xs, line("pipe"), "pipe")
-    (got * w).sum().backward()
-    want = []
-    for mb in range(xs.shape[0]):
-        h = xs[mb]
-        for p in blocks:
-            h = layer(p, h)
-        want.append(h)
-    want = torch.stack(want)
-    (want * w).sum().backward()
-    d_pp = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
-    g_want = PP.stack_stages([{k: v.grad for k, v in b.items()} for b in blocks], 4)
-    d_pp_g = max(float((stacked[k].grad - g_want[k]).abs().max()) / max(1e-6, float(g_want[k].abs().max()))
-                 for k in stacked)
-    assert d_pp <= TOL_PT_BLOCKS and d_pp_g <= TOL_PT_BLOCKS, f"pp: forward {d_pp:.3g}, gradients {d_pp_g:.3g}"
-    res["pp"] = dict(forward_rel_err=d_pp, grad_rel_err=d_pp_g)
-    res["sp"] = {}
-    for dt, tol in ((torch.float32, TOL_PT_BLOCKS), (torch.bfloat16, 2e-2)):
-        q, k, v = (torch.from_numpy(rng.standard_normal((2, th, 1024, 64)).astype(np.float32)).to(dev, dt)
-                   for _ in range(3))
-        got = SP.ring_attention(q, k, v, line("seq"), causal=True)
-        dispatch.reset_launch_counts()
-        want = mha(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        b6[f"sp dense reference {str(dt)[6:]}"] = dispatch.launch_counts()[flash]
-        d_sp = float((got.float() - want.float()).abs().max())
-        assert d_sp <= tol, f"ring attention {dt}: {d_sp}"
-        res["sp"][f"ring_attention {str(dt)[6:]}"] = d_sp
-    blk = full.text.transformer.resblocks[0].float()
-    x = torch.from_numpy(rng.standard_normal((2, 1024, tw)).astype(np.float32)).to(dev)
-    with torch.no_grad():
-        got = SP.sp_block_apply({k: v for k, v in blk.state_dict().items()}, x, line("seq"), heads=th, causal=True)
-        dispatch.reset_launch_counts()
-        want = blk(x, True)
-        torch.cuda.synchronize()
-        b6["sp block reference"] = dispatch.launch_counts()[flash]
-    d_blk = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
-    assert d_blk <= TOL_PT_BLOCKS, f"sp_block_apply: {d_blk}"
-    res["sp"]["sp_block_apply s=1024"] = d_blk
-    moe = EP.init_moe_params(torch.Generator().manual_seed(1), tw, 4 * tw, 4)
-    moe = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in moe.items()}
-    x_ep = torch.from_numpy(rng.standard_normal((2, 77, tw)).astype(np.float32)).to(dev)
-    y, aux = EP.moe_apply(moe, x_ep, k=2, mesh=line("expert"))
-    y1, aux1 = EP.moe_apply(moe, x_ep, k=2)
-    d_ep = float((y - y1).abs().max())
-    assert d_ep <= TOL_PT_PARAM and abs(float(aux) - float(aux1)) <= 1e-5, f"ep: {d_ep}"
-    res["ep"] = dict(max_abs_err=d_ep)
-    wall["pp / sp / ep"] = time.perf_counter() - t0
-    log(f"parallel training pp ({len(blocks)} text blocks, 4 stages, 8 x [8, 77, {tw}]): forward {d_pp:.2e}, "
-        f"gradients {d_pp_g:.2e} (relative); sp ring attention [2, {th}, 1024, 64]: " + ", ".join(
-            f"{k} {v:.2e}" for k, v in res["sp"].items()) + f"; ep (4 experts, {tw} / {4 * tw}, 154 tokens) {d_ep:.2e}")
-
     # (5) the sharded int8 validation encode over 4 shards against one device
     t0 = time.perf_counter()
     with _Tally([(FE, "encode_image_fast"), (FE, "encode_text_fast")]) as tally:
@@ -4295,8 +4471,9 @@ def parallel_training_phase(torch, dev, tmp, model, results):
 
     vis = f" vision [{V_BATCH}x{V_SEQ}]"
     paths = {
-        "B6 flash_attention s=257": {f"parallel training: {k} (both towers, every shard)": n for k, n in b6.items()
-                                     if not k.startswith("sp ")},
+        "B6 flash_attention s=257": dict({f"parallel training: {k} (both towers, every shard)": n for k, n in b6.items()
+                                          if not k.startswith("sp ")},
+                                         **{f"pp across processes: {k}": n for k, n in pp_b6.items()}),
         "B7 flash_attention s=577": {f"parallel training: {k} (s=1024)": n for k, n in b6.items() if k.startswith("sp ")},
         "B1 fused_layer_q8": {"parallel training: sharded int8 encode, text towers (4 shards)":
                               tally.of("encode_text_fast", "fused_layer_q8")},

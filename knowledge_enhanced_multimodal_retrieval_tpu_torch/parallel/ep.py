@@ -10,9 +10,14 @@ an expert's capacity gets zero weight there, so dropped tokens pass through
 the residual only. The Switch load-balancing loss comes back beside the
 output. ``jax.nn.gelu`` is the tanh approximation, so the experts use
 ``F.gelu(approximate="tanh")``. Over a mesh (:func:`ep_shardings`) each
-device of the ``expert`` axis holds and computes its experts' share of the
-three einsums, and the partial outputs are summed; the axis lies inside
-one process (``parallel.pp.local_axis_devices``).
+position of the ``expert`` axis holds and computes its experts' share of
+the three einsums, and the partial outputs are summed. The row of the axis
+comes from ``parallel.mesh.axis_row``: where the axis spans the processes,
+each rank computes only its own positions' experts, the shares read
+``xt``, ``dispatch`` and ``combine`` through ``sum_gradients`` and are summed
+over the ranks by ``sum_partials`` (``parallel.sharding``); the router,
+routing and ``aux`` are computed alike on every rank. Where another axis
+spans the processes, each process runs its own row.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .mesh import Mesh, Placement
-from .pp import local_axis_devices
+from .mesh import Mesh, Placement, axis_row
+from .sharding import sum_gradients, sum_partials
 
 MoEParams = Dict[str, Any]
 
@@ -84,9 +89,13 @@ def moe_apply(params: MoEParams, x: torch.Tensor, k: int = 2, capacity_factor: f
               axis: str = "expert") -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed expert FFN, residual-free: ``(y, aux_loss)``, ``y`` of ``x``'s
     shape and dtype (leading dims are tokens). With ``mesh`` the experts are
-    cut over ``axis``: each device computes its experts' share (its slice
+    cut over ``axis``: each position computes its experts' share (its slice
     of ``dispatch`` / ``combine`` and of the expert weights) and the shares
-    are summed on ``x``'s device."""
+    are summed on ``x``'s device, the same ``y`` on every rank. Across
+    processes a rank reads only its own experts' rows of the expert
+    weights; when every rank computes the same loss from ``y`` and ``aux``,
+    those rows hold the one-process gradient (the other rows zeros), and
+    ``x`` and the router the one-process gradient on every rank."""
     shape, w = x.shape, x.shape[-1]
     xt = x.reshape(-1, w)
     e = params["router"]["kernel"].shape[1]
@@ -96,22 +105,26 @@ def moe_apply(params: MoEParams, x: torch.Tensor, k: int = 2, capacity_factor: f
     if mesh is None:
         y = _experts(params, dispatch, combine, xt)
     else:
-        devs = local_axis_devices(mesh, axis)
-        if e % len(devs):
-            raise ValueError(f"{e} experts do not split over {axis}={len(devs)}")
-        per = e // len(devs)
+        row = axis_row(mesh, axis)
+        if e % row.size:
+            raise ValueError(f"{e} experts do not split over {axis}={row.size}")
+        per = e // row.size
+        xt_r, dispatch_r, combine_r = (sum_gradients(t, row.group) for t in (xt, dispatch, combine))
         y = None
-        for j, dev in enumerate(devs):
+        for j, dev in row.devices.items():
             sl = slice(j * per, (j + 1) * per)
             share = {n: params[n][sl].to(dev) for n in ("w_in", "b_in", "w_out", "b_out")}
-            part = _experts(share, dispatch[:, sl].to(dev), combine[:, sl].to(dev), xt.to(dev)).to(x.device)
+            part = _experts(share, dispatch_r[:, sl].to(dev), combine_r[:, sl].to(dev), xt_r.to(dev)).to(x.device)
             y = part if y is None else y + part
+        y = sum_partials(y, row.group)
     return y.reshape(shape).to(x.dtype), aux
 
 
 def ep_shardings(mesh: Mesh, params: MoEParams, axis: str = "expert") -> Dict[str, Placement]:
-    """The expert dim of the expert weights on ``axis``; the router replicated."""
-    local_axis_devices(mesh, axis)
+    """The expert dim of the expert weights on ``axis`` (inside each process
+    or across them); the router replicated."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}: {dict(mesh.shape)}")
     out = {"router.kernel": Placement(mesh, ())}
     for name in ("w_in", "b_in", "w_out", "b_out"):
         out[name] = Placement(mesh, (axis,) + (None,) * (params[name].ndim - 1))

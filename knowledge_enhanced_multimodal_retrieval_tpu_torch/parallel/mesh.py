@@ -13,9 +13,12 @@ The port keeps that layering:
   virtual CPU devices);
 - across processes, ``torch.distributed`` joins them: every process holds
   the same number of grid positions, the global grid is the process-major
-  concatenation, and the leading axis spans the processes. Only the
-  ``[Q, k]`` winners of a sharded scan and the serving work items cross
-  (``parallel.sharding.all_gather_processes``, ``retrieval.multihost``).
+  concatenation, and the leading axis spans the processes. The ``[Q, k]``
+  winners of a sharded scan and the serving work items cross
+  (``parallel.sharding.all_gather_processes``, ``retrieval.multihost``), and
+  pipeline, sequence and expert parallelism run over the row of an axis
+  that :func:`axis_row` gives each process (hops between ranks where the
+  axis spans the processes).
 
 :func:`runtime_init` starts ``torch.distributed`` from torchrun's variables
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``,
@@ -215,6 +218,72 @@ class Mesh:
             return list(range(self.shape[axis]))
         n = self.devices.shape[0]
         return list(range(self.process_index * n, (self.process_index + 1) * n))
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRow:
+    """One row of a mesh along one axis: what pipeline, sequence and expert
+    parallelism run over. ``owners[i]`` is the rank (process index) that
+    holds position ``i`` of the axis, ``devices`` maps this process's own
+    positions to their devices, and ``group`` is the ``torch.distributed``
+    group of the ranks that share the row, or None when the row lies inside
+    this process."""
+
+    axis: str
+    owners: Tuple[int, ...]
+    rank: int
+    devices: Dict[int, torch.device]
+    group: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.owners)
+
+    @property
+    def positions(self) -> List[int]:
+        """This process's positions along the axis, ascending."""
+        return sorted(self.devices)
+
+
+def axis_row(mesh: Mesh, axis: str) -> AxisRow:
+    """The row of ``mesh`` along ``axis`` that this process computes.
+
+    - The axis spans the processes (it is the leading axis and the mesh has
+      several): every process holds a contiguous run of its positions, all
+      processes share the one row, and its hops cross ``mesh.group``. The
+      other axes lie inside each process and see replicated operands: the
+      row at their coordinates 0 computes.
+    - Otherwise the axis lies inside each process: the row at this process's
+      first grid position (another axis may span the processes; every
+      process computes its own row, in process).
+
+    A row that spans processes needs the mesh's process group, one rank a
+    process: anything else raises a ``ValueError`` that names the axis."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}: {dict(mesh.shape)}")
+    ax = mesh.axis_names.index(axis)
+    local = mesh.devices.shape
+    rest = (0,) * (len(local) - 1)
+    if ax == 0 and mesh.process_count > 1:
+        per = local[0]
+        if mesh.group is None:
+            raise ValueError(f"the {axis!r} axis spans {mesh.process_count} processes but the mesh has no process "
+                             "group to carry its hops")
+        if distributed_ready():
+            ranks = _dist().get_world_size(mesh.group)
+            if ranks != mesh.process_count:
+                raise ValueError(f"the {axis!r} axis: its {mesh.shape[axis]} positions lie on {mesh.process_count} "
+                                 f"processes, but its group has {ranks} ranks: the positions do not tile the ranks")
+        owners = tuple(i // per for i in range(mesh.shape[axis]))
+        first = mesh.process_index * per
+        return AxisRow(axis, owners, mesh.process_index,
+                       {first + i: mesh.devices[(i,) + rest] for i in range(per)}, mesh.group)
+    pos = [0] * len(local)
+    devices = {}
+    for i in range(local[ax]):
+        pos[ax] = i
+        devices[i] = mesh.devices[tuple(pos)]
+    return AxisRow(axis, (mesh.process_index,) * local[ax], mesh.process_index, devices)
 
 
 def make_mesh(cfg: MeshConfig = MeshConfig(), devices: Optional[Sequence[torch.device]] = None) -> Mesh:

@@ -11,13 +11,18 @@ into its data shards, :class:`ShardedParams` holds a parameter dict cut into
 blocks by a per-dimension spec (``parallel.fsdp``, ``parallel.tp``) and
 builds parameters from them (its :class:`BuiltGauge` counts what is built
 and alive), and :func:`all_gather_autograd` is the differentiable
-cross-process gather.
+cross-process gather. For pipeline, sequence and expert parallelism across
+processes, :func:`exchange` carries the point-to-point hops (each send
+posted beside its receives), and :func:`sum_partials` /
+:func:`sum_gradients` are the two conjugate reductions; :data:`hop_log`
+counts what they move.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -254,6 +259,126 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group, op: str = "sum",
         buckets[dt] = (bucket + [t], size + nbytes)
     for dt, (bucket, _) in buckets.items():
         flush(bucket, dt)
+
+
+class HopLog:
+    """Messages sent, bytes and host seconds of the cross-process hops
+    (``"p2p"``: :func:`exchange`) and reductions (``"reduce"``:
+    :func:`sum_partials` / :func:`sum_gradients`) since :meth:`reset`;
+    ``host_bytes`` is what crossed as CPU tensors (gloo). The seconds count
+    the host's wait for the peer too (a receive waits for the other rank's
+    stage), and under NCCL only the enqueue."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def add(self, kind: str, messages: int, nbytes: int, seconds: float, host: bool) -> None:
+        with self._lock:
+            entry = self._kinds.setdefault(kind, dict(messages=0, bytes=0, host_bytes=0, seconds=0.0))
+            entry["messages"] += messages
+            entry["bytes"] += nbytes
+            entry["host_bytes"] += nbytes if host else 0
+            entry["seconds"] += seconds
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {k: dict(v) for k, v in self._kinds.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._kinds: Dict[str, Dict[str, float]] = {}
+
+
+hop_log = HopLog()
+
+
+def exchange(sends: Dict[int, Sequence[torch.Tensor]], recvs: Dict[int, Sequence[torch.Tensor]], group) -> None:
+    """One round of point-to-point hops between the ranks of ``group``: the
+    tensors of ``sends[r]`` go to rank ``r`` and the buffers of
+    ``recvs[r]`` (any devices) are filled from rank ``r``, which sends
+    tensors of the same shapes and dtypes in the same order. Each peer's
+    tensors travel as one message of bytes, and every send is posted beside
+    the receives in one ``dist.batch_isend_irecv`` and waited on (a blocking
+    send before a receive on every rank can deadlock). Under gloo, whose
+    send and receive take no CUDA tensor, the messages cross as CPU
+    tensors; under NCCL they cross on the rank's card."""
+    if not sends and not recvs:
+        return
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    nccl = dist.get_backend(group) == "nccl"
+    dev = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+    ops, landing, nbytes = [], [], 0
+    for r, tensors in sends.items():
+        flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8).to(dev) for t in tensors])
+        nbytes += flat.numel()
+        ops.append(dist.P2POp(dist.isend, flat, dist.get_global_rank(group, r), group))
+    for r, bufs in recvs.items():
+        flat = torch.empty(sum(b.numel() * b.element_size() for b in bufs), dtype=torch.uint8, device=dev)
+        landing.append((flat, bufs))
+        ops.append(dist.P2POp(dist.irecv, flat, dist.get_global_rank(group, r), group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for flat, bufs in landing:
+        offset = 0
+        for b in bufs:
+            n = b.numel() * b.element_size()
+            b.copy_(flat[offset:offset + n].clone().view(b.dtype).view(b.shape))  # clone: an aligned start
+            offset += n
+    hop_log.add("p2p", len(sends), nbytes, time.perf_counter() - t0, not nccl)
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (a new tensor on ``x``'s device)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = x.detach().clone()
+    all_reduce_([out], group)
+    hop_log.add("reduce", 1, out.numel() * out.element_size(), time.perf_counter() - t0,
+                dist.get_backend(group) != "nccl")
+    return out
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGradients(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's partial ``x`` summed into the value each rank holds; the
+    backward is the identity. Every rank computes the same loss from the
+    summed (replicated) value, so each already holds its whole cotangent:
+    summing it again, as ``torch.distributed.nn.functional.all_reduce``'s
+    backward does, would scale the gradients by the number of ranks. ``x``
+    itself without a group."""
+    return x if group is None else _SumPartials.apply(x, group)
+
+
+def sum_gradients(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity whose backward sums the gradients over the ranks of
+    ``group``: put on a replicated value that each rank reads only a part
+    of, it hands every rank the whole gradient. ``x`` itself without a
+    group."""
+    return x if group is None else _SumGradients.apply(x, group)
 
 
 class BuiltGauge:

@@ -1536,3 +1536,78 @@ def test_fsdp_peak_below_dp_on_each_card(rng, dev):
                                                   "peak_bytes": peaks, "step_ms": step_ms}))
     for i in range(n):
         assert peaks["fsdp"][i] < peaks["dp"][i], (i, peaks)
+
+
+def test_pp_and_ep_across_two_cards_over_nccl(dev, tmp_path):
+    """Two ranks, one card each, over NCCL (skips with fewer than two
+    cards): ``pipeline_apply`` and the expert-sharded ``moe_apply`` with
+    the axis across the processes (``tests/mp_torch_pp_sp_ep_worker.py``'s
+    ``pp A2`` / ``moe A2``, each rank's rows of the other's stages or
+    experts NaN) against one process over both cards: every rank's output,
+    and the gradients in its rows, at the CPU test's tolerances. The hops
+    and reductions crossed as device tensors (no byte through the host)."""
+    import importlib.util
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.mesh import Mesh
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # by path: an installed package named ``tests`` may shadow this directory
+    spec = importlib.util.spec_from_file_location("mp_torch_pp_sp_ep_worker",
+                                                  os.path.join(root, "tests", "mp_torch_pp_sp_ep_worker.py"))
+    W = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(W)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    logs = [open(tmp_path / f"w{r}.log", "w+") for r in range(2)]
+    procs = []
+    try:
+        procs = [subprocess.Popen([sys.executable, os.path.join(root, "tests", "mp_torch_pp_sp_ep_worker.py"), str(r),
+                                   "2", port, str(tmp_path), "cuda"], env=env, stdout=log, stderr=subprocess.STDOUT,
+                                  text=True) for r, log in enumerate(logs)]
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+    for p, text in zip(procs, texts):
+        assert p.returncode == 0, f"worker failed:\n{text[-4000:]}"
+    ranks = [torch.load(tmp_path / f"r{r}.pt", weights_only=False) for r in range(2)]
+    arr = np.empty(2, dtype=object)
+    arr[:] = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    tol = {"pp": (2e-5, 1e-4), "moe": (1e-5, 2e-5)}
+    for name, kind, key in (("pp A2", "pp", "stage."), ("moe A2", "moe", "param.")):
+        axis = {"pp": "pipe", "moe": "expert"}[kind]
+        one = W.compute(kind, W.inputs(kind, 2), Mesh(arr, (axis,)))
+        for r, rank in enumerate(ranks):
+            assert rank["backend"] == "nccl"
+            rep = rank[name]
+            assert rep["positions"] == [r] and rep["hops"]["reduce"]["host_bytes"] == 0
+            if kind == "pp":
+                assert rep["hops"]["p2p"]["bytes"] > 0 and rep["hops"]["p2p"]["host_bytes"] == 0
+            torch.testing.assert_close(rep["out"], one["out"], rtol=tol[kind][0], atol=tol[kind][0])
+            for g_name, g in rep["grads"].items():
+                want = one["grads"][g_name]
+                if g_name.startswith(key):  # cut by stage or expert: this rank's rows, zeros in the other's
+                    per = g.shape[0] // 2
+                    torch.testing.assert_close(g[r * per:(r + 1) * per], want[r * per:(r + 1) * per],
+                                               rtol=tol[kind][1], atol=tol[kind][1], msg=f"{name} {g_name}")
+                    assert not g[(1 - r) * per:(2 - r) * per].any()
+                else:
+                    torch.testing.assert_close(g, want, rtol=tol[kind][1], atol=tol[kind][1], msg=f"{name} {g_name}")

@@ -3,8 +3,9 @@
 The cases of ``tests/test_{pp,sp,ep}.py``: the JAX functions run over the
 conftest's virtual devices, the port's over ``cpu`` repeated, on the same
 seeded inputs and weights (flax blocks carried over with
-``flax_to_openai``), at the JAX tests' tolerances. These modes run over an
-axis inside one process: an axis that spans processes is refused.
+``flax_to_openai``), at the JAX tests' tolerances, and ``axis_row``: the row
+of a mesh across processes that each process computes (the two-process runs
+are ``tests/test_torch_pp_sp_ep_multiprocess.py``).
 """
 
 import dataclasses
@@ -26,7 +27,7 @@ from knowledge_enhanced_multimodal_retrieval_tpu_torch.models import clip as TM
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import ep as TE
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import pp as TP
 from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel import sp as TS
-from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.mesh import Mesh
+from knowledge_enhanced_multimodal_retrieval_tpu_torch.parallel.mesh import Mesh, axis_row
 
 CPU = torch.device("cpu")
 
@@ -193,19 +194,106 @@ def test_sp_validation_errors():
         TS.sp_block_apply({}, torch.zeros(1, 30, 16), tmesh(8, "seq"), heads=2)
 
 
-def test_an_axis_across_processes_is_refused():
-    """pp / sp / ep run over an axis inside one process: a mesh whose axis
-    is the one split over processes is refused with the reason."""
-    arr = np.empty(2, dtype=object)
-    arr[:] = [CPU] * 2
-    mesh = Mesh(arr, ("seq",), process_index=0, process_count=2)
+# ---------------------------------------------------------------- rows across processes
+
+
+def grid(shape, names, **kw):
+    """A mesh of distinct ``cpu:i`` devices (so each position is told apart)."""
+    arr = np.empty(int(np.prod(shape)), dtype=object)
+    arr[:] = [torch.device("cpu", i) for i in range(arr.size)]
+    return Mesh(arr.reshape(shape), names, **kw)
+
+
+GROUP = object()  # a stand-in process group: axis_row reads it only where torch.distributed runs
+
+
+@pytest.mark.parametrize("per, index", [(2, 0), (2, 1), (1, 0), (1, 1)])
+def test_axis_row_across_processes_gives_each_its_run_of_positions(per, index):
+    """Case A: the leading axis spans the processes; each holds a
+    contiguous run of the positions and the row's hops cross the group."""
+    row = axis_row(grid((per,), ("pipe",), process_index=index, process_count=2, group=GROUP), "pipe")
+    assert row.size == 2 * per and row.owners == tuple(i // per for i in range(2 * per))
+    assert row.positions == [index * per + i for i in range(per)] and row.rank == index and row.group is GROUP
+    assert [row.devices[p] for p in row.positions] == [torch.device("cpu", i) for i in range(per)]
+
+
+@pytest.mark.parametrize("axis", ["pipe", "seq", "expert"])
+def test_axis_row_inside_each_process_is_its_own_row(axis):
+    """Case B: ``data`` spans the processes, the axis lies inside each:
+    process 1 computes its own row in process (the row whose other
+    coordinates were 0 globally held nothing of it)."""
+    row = axis_row(grid((2, 2), ("data", axis), process_index=1, process_count=2, group=GROUP), axis)
+    assert row.group is None and row.positions == [0, 1] and row.owners == (1, 1)
+    assert row.devices == {0: torch.device("cpu", 0), 1: torch.device("cpu", 1)}
+
+
+def test_axis_row_on_a_dcn_data_model_mesh():
+    mesh = grid((1, 2, 2), ("dcn", "data", "model"), process_index=1, process_count=2, group=GROUP)
+    assert axis_row(mesh, "model").devices == {0: torch.device("cpu", 0), 1: torch.device("cpu", 1)}
+    assert axis_row(mesh, "data").devices == {0: torch.device("cpu", 0), 1: torch.device("cpu", 2)}
+    dcn = axis_row(mesh, "dcn")
+    assert dcn.owners == (0, 1) and dcn.devices == {1: torch.device("cpu", 0)} and dcn.group is GROUP
+
+
+def _moe_call(mesh, axis):
+    _, tp = moe_params(width=8, hidden=16, experts=4, key=5)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 6, 8)).astype(np.float32))
+    return TE.moe_apply(tp, x, mesh=mesh, axis=axis)[0]
+
+
+@pytest.mark.parametrize("axis", ["pipe", "seq", "expert"])
+def test_process_one_of_a_data_mesh_computes_its_own_row(axis):
+    """The reproduction: ``process_index=1`` of a ``("data", axis)`` mesh
+    over two processes runs its own row and gives the one-process result
+    (it raised ``TypeError`` / ``ZeroDivisionError``)."""
+    layers = [{k: t(v) for k, v in p.items()} for p in toy_layers(4, 8, 9)]
+    xs = t(np.random.default_rng(9).standard_normal((3, 2, 8)).astype(np.float32))
+    q, k, v = (t(x) for x in qkv(12))
+    call = {"pipe": lambda m: TP.pipeline_apply(t_toy, TP.stack_stages(layers, 2), xs, m, "pipe"),
+            "seq": lambda m: TS.ring_attention(q, k, v, m, "seq", causal=True),
+            "expert": lambda m: _moe_call(m, "expert")}[axis]
+    got = call(grid((1, 2), ("data", axis), process_index=1, process_count=2, group=GROUP))
+    np.testing.assert_array_equal(got.detach().numpy(), call(tmesh(2, axis)).detach().numpy())
+
+
+def test_an_axis_across_processes_needs_its_group():
+    """A mesh whose axis spans the processes carries its hops over the
+    mesh's process group: without one the axis is refused by name."""
+    mesh = grid((2,), ("seq",), process_index=0, process_count=2)
     q, k, v = (t(x) for x in qkv(12))
     for call in (lambda: TS.ring_attention(q, k, v, mesh),
-                 lambda: TP.pipeline_apply(t_toy, {"w": torch.zeros(2, 1, 8, 8), "b": torch.zeros(2, 1, 8)},
+                 lambda: TP.pipeline_apply(t_toy, {"w": torch.zeros(4, 1, 8, 8), "b": torch.zeros(4, 1, 8)},
                                            torch.zeros(2, 1, 8), dataclasses.replace(mesh, axis_names=("pipe",)),
                                            axis="pipe")):
-        with pytest.raises(ValueError, match="spans 2 processes"):
+        with pytest.raises(ValueError, match="axis spans 2 processes but the mesh has no process group"):
             call()
+
+
+def test_positions_that_do_not_tile_the_ranks_are_refused():
+    """A mesh that lays its axis over two processes while its group has one
+    rank: the positions do not tile the ranks."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = grid((2,), ("expert",), process_index=0, process_count=2, group=dist.group.WORLD)
+        with pytest.raises(ValueError, match="'expert' axis: its 4 positions lie on 2 processes, but its group has 1"):
+            _moe_call(mesh, "expert")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_stages_or_experts_that_do_not_split_evenly_are_refused():
+    layers = [{k: t(v) for k, v in p.items()} for p in toy_layers(6, 8, 6)]
+    with pytest.raises(ValueError, match="3 stages do not split evenly over pipe=2"):
+        TP.pipeline_apply(t_toy, TP.stack_stages(layers, 3), torch.zeros(2, 1, 8), tmesh(2, "pipe"))
+    with pytest.raises(ValueError, match="4 experts do not split over expert=8"):
+        _moe_call(tmesh(8, "expert"), "expert")
 
 
 # ---------------------------------------------------------------- experts
