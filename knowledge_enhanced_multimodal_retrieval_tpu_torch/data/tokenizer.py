@@ -15,7 +15,9 @@ on the host (the C++ merge engine of the port's
 dense int32 ``[N, context_length]`` array ready for device transfer.
 
 The port's copy of ``knowledge_enhanced_multimodal_retrieval_tpu/data/tokenizer.py``:
-the port imports nothing of that package, so it carries this numpy-only copy.
+the port imports nothing of that package, so it carries this numpy copy. A
+batch call counts its words, and :meth:`CLIPTokenizer.bpe` each word the
+merge cache did not hold, in the counters of ``utils.profiling``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import os
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..utils.profiling import count
 
 try:  # \p{L}/\p{N} classes need the third-party `regex` module
     import regex as re
@@ -180,10 +184,13 @@ class CLIPTokenizer:
     # -- core BPE -----------------------------------------------------------
 
     def bpe(self, token: str) -> str:
-        """Apply merge rules to one pre-tokenized word (byte-encoded chars)."""
+        """Apply merge rules to one pre-tokenized word (byte-encoded chars);
+        each word computed here, not found in the cache, counts as a
+        ``tokenizer.bpe_misses``."""
         cached = self._cache.get(token)
         if cached is not None:
             return cached
+        count("tokenizer.bpe_misses")
         if self._native is not None:
             result = self._native.apply(token)
             self._cache[token] = result
@@ -222,9 +229,14 @@ class CLIPTokenizer:
         return result
 
     def encode(self, text: str) -> List[int]:
+        return self._encode_words(self._words(text))
+
+    def _words(self, text: str) -> List[str]:
+        return _PAT.findall(whitespace_clean(basic_clean(text)).lower())
+
+    def _encode_words(self, words: List[str]) -> List[int]:
         ids: List[int] = []
-        text = whitespace_clean(basic_clean(text)).lower()
-        for tok in _PAT.findall(text):
+        for tok in words:
             tok_bytes = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(tok_bytes).split(" "))
         return ids
@@ -247,18 +259,24 @@ class CLIPTokenizer:
         Matches ``clip.tokenize``: ``[SOT] + bpe(text) + [EOT]``, zero padded;
         with ``truncate`` the sequence is cut to ``context_length`` and the
         final position forced to EOT, otherwise overlong input raises.
+        Counts the call's words (``tokenizer.words``; :meth:`bpe` counts
+        the misses).
         """
         if isinstance(texts, str):
             texts = [texts]
         out = np.zeros((len(texts), context_length), dtype=np.int32)
+        n_words = 0
         for row, text in enumerate(texts):
-            toks = [self.sot_token] + self.encode(text) + [self.eot_token]
+            words = self._words(text)
+            n_words += len(words)
+            toks = [self.sot_token] + self._encode_words(words) + [self.eot_token]
             if len(toks) > context_length:
                 if not truncate:
                     raise RuntimeError(f"Input {text!r} is too long for context length {context_length}")
                 toks = toks[:context_length]
                 toks[-1] = self.eot_token
             out[row, : len(toks)] = toks
+        count("tokenizer.words", n_words)
         return out
 
 

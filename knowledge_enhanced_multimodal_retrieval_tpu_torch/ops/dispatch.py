@@ -35,6 +35,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -98,6 +100,12 @@ def build_library(verbose: bool = False) -> Path:
     out = library_path()
     if out.exists():
         return out
+    with span("kernels.build"):
+        _compile_library(out, verbose)
+    return out
+
+
+def _compile_library(out: Path, verbose: bool) -> None:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
@@ -124,7 +132,6 @@ def build_library(verbose: bool = False) -> Path:
         if proc.returncode != 0:
             raise KernelBuildError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: two processes building at once both land a whole file
-    return out
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -205,14 +212,18 @@ def operands_device(args, kwargs) -> Optional[torch.device]:
 def counted(fn):
     """A kernel wrapper with a launch counter, run with its operands' card
     current (:func:`operands_device`): the C entries launch on the current
-    device, which on a mesh of several cards need not hold the operands."""
+    device, which on a mesh of several cards need not hold the operands.
+    Each call is a span ``kernel.<wrapper>`` of ``utils.profiling``."""
+    name = "kernel." + fn.__name__
+
     @functools.wraps(fn)
     def on_operands_device(*args, **kwargs):
-        dev = operands_device(args, kwargs)
-        if dev is None:
-            return fn(*args, **kwargs)
-        with torch.cuda.device(dev):
-            return fn(*args, **kwargs)
+        with span(name):
+            dev = operands_device(args, kwargs)
+            if dev is None:
+                return fn(*args, **kwargs)
+            with torch.cuda.device(dev):
+                return fn(*args, **kwargs)
 
     on_operands_device.launches = 0
     _COUNTED[fn.__name__] = on_operands_device

@@ -87,6 +87,7 @@ from ..ops.similarity import (
 )
 from ..parallel.mesh import MeshRuntime, canonical_device
 from ..parallel.sharding import gather_shard_outputs, replicate, shard_rows
+from ..utils.profiling import span, spanned
 from .ann import _SUBLANE as _CAP_SUBLANE
 from .ann import (
     IVFIndex,
@@ -353,6 +354,7 @@ class CLIPRetrieval:
     def _state_on(self, c: "_CorpusState", dev: torch.device) -> "_CorpusState":
         return c if dev == self.device or not c.replicas else c.replicas[dev]
 
+    @spanned("retrieval.install_corpus")
     def _install_corpus(self, store: EmbeddingStore) -> None:
         """Build the corpus device state and swap it in atomically."""
         if len(store) == 0:
@@ -549,6 +551,7 @@ class CLIPRetrieval:
 
     # -- core ----------------------------------------------------------------
 
+    @spanned("retrieval.tokenize")
     def _tokenize(self, queries: Sequence[str]) -> np.ndarray:
         ids = self.tokenizer(list(queries), context_length=self.model.arch.context_length)
         return trim_to_bucket(ids)
@@ -561,6 +564,7 @@ class CLIPRetrieval:
         """Queries -> L2-normalized [B, D] embeddings on the device."""
         return self._encode_ids(self._tokenize(queries))
 
+    @spanned("retrieval.encode")
     @torch.no_grad()
     def _encode_ids(self, ids, device=None) -> torch.Tensor:
         """Token ids -> L2-normalized embeddings on ``device`` (default the
@@ -633,6 +637,7 @@ class CLIPRetrieval:
         # the rerank rescores in the original space: unrotated, full width
         return (vals, idx, q) if self.rerank else (vals, idx)
 
+    @spanned("retrieval.scan")
     def _score(self, c: _CorpusState, q: torch.Tensor, alpha, k: int, nprobe: Optional[int] = None):
         """Blend + top-k of f32 query embeddings against the corpus state."""
         if self.truncate_dim:
@@ -819,12 +824,11 @@ class CLIPRetrieval:
         """Exactly rescore the fetched candidates against the f32 host store
         (``idx`` -1 = ann sentinel). Pad rows score 0 and are filtered by
         uuid downstream, as on the device path."""
-        if torch.is_tensor(alpha):
-            alpha = alpha.detach().cpu().numpy()
-        return rerank_scores_host(
-            q.float().cpu().numpy(), c.store.image, c.store.text, idx.cpu().numpy(),
-            np.asarray(alpha, np.float32),
-        )
+        with span("retrieval.fetch"):
+            if torch.is_tensor(alpha):
+                alpha = alpha.detach().cpu().numpy()
+            q, idx = q.float().cpu().numpy(), idx.cpu().numpy()
+        return rerank_scores_host(q, c.store.image, c.store.text, idx, np.asarray(alpha, np.float32))
 
     def _finish_results(self, c: _CorpusState, out, alpha, k: int) -> List[List[Dict]]:
         """Search output -> per-query result dicts (rerank-aware)."""
@@ -833,7 +837,8 @@ class CLIPRetrieval:
             vals, idx = self._rerank_host(c, q, idx, alpha)
         else:
             vals, idx = out
-            vals, idx = vals.float().cpu().numpy(), idx.cpu().numpy()
+            with span("retrieval.fetch"):
+                vals, idx = vals.float().cpu().numpy(), idx.cpu().numpy()
         return self.results_from_topk(vals, idx, _state=c, top_k=k)
 
     # -- filtered search -------------------------------------------------------------
@@ -1000,19 +1005,22 @@ class CLIPRetrieval:
         """Streamed :meth:`retrieval_batch`: pipelined as
         :meth:`search_batches_pipelined`, one result list per query, in
         order. Each batch maps through the corpus snapshot its search ran
-        on, so results stay uuid-correct under concurrent updates."""
+        on, so results stay uuid-correct under concurrent updates. The spans
+        of a batch carry its ordinal in the stream."""
         pending: deque = deque()
 
-        def dispatch(queries):
-            c = self._corpus
-            return c, self._search_state(c, queries, alpha, top_k)
+        def dispatch(i, queries):
+            with span("retrieval.dispatch", id=i):
+                c = self._corpus
+                return i, c, self._search_state(c, queries, alpha, top_k)
 
         def finish(item):
-            c, out = item
-            return self._ranked(c, out, alpha, top_k)
+            i, c, out = item
+            with span("retrieval.finish", id=i):
+                return self._ranked(c, out, alpha, top_k)
 
-        for queries in query_batches:
-            pending.append(dispatch(queries))
+        for i, queries in enumerate(query_batches):
+            pending.append(dispatch(i, queries))
             if len(pending) >= max(1, depth):
                 yield finish(pending.popleft())
         while pending:
@@ -1068,6 +1076,7 @@ class CLIPRetrieval:
 
     # -- reference-parity API --------------------------------------------------
 
+    @spanned("retrieval.map")
     def results_from_topk(
         self, vals: np.ndarray, idx: np.ndarray, _state: Optional[_CorpusState] = None,
         top_k: Optional[int] = None,

@@ -63,6 +63,7 @@ from ..parallel.replicas import MeshReplicas, moved
 from ..parallel.sharding import RowShards, ShardedParams, all_gather_processes, all_reduce_, host_local_batch_to_global
 from ..utils.config import MeshConfig, TrainConfig
 from ..utils.logging_utils import MetricsWriter, is_coordinator, setup_logger
+from ..utils.profiling import span, spanned
 from . import checkpoint as ckpt
 from .losses import joint_loss_for_config, process_group
 from .distill import TeacherBank, load_encoded_dataset, make_distill_step
@@ -234,6 +235,7 @@ class Optimizer:
     def norm(self, tensors: List[torch.Tensor], names: List[str]) -> torch.Tensor:
         return global_norm(tensors, self.layout, names)
 
+    @spanned("train.optimizer")
     def step(self, grads: Params) -> None:
         g = [grads[n] for n in self.trainable]
         if self.acc is not None:
@@ -338,7 +340,8 @@ def collect_grads(params: Params) -> Params:
 def apply_gradients(state: "TrainState", grads: Params, metrics: Dict[str, torch.Tensor]):
     """``grad_norm`` (over every gradient, frozen ones included) into
     ``metrics``, the optimizer on this micro-step's gradients, the step count."""
-    metrics["grad_norm"] = state.optimizer.norm(list(grads.values()), list(grads))
+    with span("train.grad_norm"):
+        metrics["grad_norm"] = state.optimizer.norm(list(grads.values()), list(grads))
     state.optimizer.step(grads)
     state.step += 1
     return state, metrics
@@ -374,7 +377,11 @@ def device_prefetch(batches: Iterable, place_fn: Callable, depth: int = 1) -> It
     def worker():
         try:
             for b in batches:
-                if stop.is_set() or not _put(place_fn(b)):
+                if stop.is_set():
+                    return
+                with span("train.feed.place"):
+                    item = place_fn(b)
+                if not _put(item):
                     return
         except Exception as e:  # noqa: BLE001 -- re-raised by the consumer
             errors.append(e)
@@ -384,7 +391,8 @@ def device_prefetch(batches: Iterable, place_fn: Callable, depth: int = 1) -> It
     threading.Thread(target=worker, daemon=True, name="kemr-prefetch").start()
     try:
         while True:
-            item = q.get()
+            with span("train.feed.wait"):
+                item = q.get()
             if item is sentinel:
                 if errors:
                     raise errors[0]
@@ -541,27 +549,31 @@ def make_train_step(model: CLIP, cfg: TrainConfig, adapters: Optional[Params] = 
         return l2_normalize(model.encode_text(ids))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        images = batch["images"]
-        img_args = (images,)
-        if cfg.image_mask_ratio > 0:
-            gen = step_generator(cfg.seed, state.step, images.device)
-            img_args = (images, sample_keep_idx(gen, images.shape[0], n_patches, cfg.image_mask_ratio))
-        towers = [(enc_img, img_args), (enc_txt, (batch["query_ids"],)), (enc_txt, (batch["target_ids"],))]
-        if use_negs:
-            towers.append((enc_txt, (batch["neg_ids"].reshape(-1, batch["neg_ids"].shape[-1]),)))
-        with projections_for_config(model, cfg, adapters, lora_scale):
-            if n_gc > 1:
-                (_, metrics), grads = gradcache_value_and_grad(emb_loss, towers, params, n_gc)
-            else:
-                for p in params.values():
-                    p.grad = None
-                loss, metrics = emb_loss(*(enc(*ins) for enc, ins in towers))
-                loss.backward()
-                grads = collect_grads(params)
-        state, metrics = apply_gradients(state, grads, {k: v.detach() for k, v in metrics.items()})
-        if state.ema_params is not None:
-            _ema_update(state.ema_params, params, cfg.ema_decay)
-        return state, metrics
+        with span("train.step", id=state.step):
+            images = batch["images"]
+            img_args = (images,)
+            if cfg.image_mask_ratio > 0:
+                gen = step_generator(cfg.seed, state.step, images.device)
+                img_args = (images, sample_keep_idx(gen, images.shape[0], n_patches, cfg.image_mask_ratio))
+            towers = [(enc_img, img_args), (enc_txt, (batch["query_ids"],)), (enc_txt, (batch["target_ids"],))]
+            if use_negs:
+                towers.append((enc_txt, (batch["neg_ids"].reshape(-1, batch["neg_ids"].shape[-1]),)))
+            with projections_for_config(model, cfg, adapters, lora_scale):
+                if n_gc > 1:
+                    (_, metrics), grads = gradcache_value_and_grad(emb_loss, towers, params, n_gc)
+                else:
+                    with span("train.forward"):
+                        for p in params.values():
+                            p.grad = None
+                        loss, metrics = emb_loss(*(enc(*ins) for enc, ins in towers))
+                    with span("train.backward"):
+                        loss.backward()
+                        grads = collect_grads(params)
+            state, metrics = apply_gradients(state, grads, {k: v.detach() for k, v in metrics.items()})
+            if state.ema_params is not None:
+                with span("train.ema"):
+                    _ema_update(state.ema_params, params, cfg.ema_decay)
+            return state, metrics
 
     return train_step
 

@@ -13,9 +13,7 @@ import json
 import logging
 import os
 import sys
-import time
-from contextlib import contextmanager
-from typing import Any, Dict, Iterator, Mapping, Optional
+from typing import Any, Mapping, Optional
 
 
 def is_coordinator() -> bool:
@@ -111,15 +109,3 @@ class MetricsWriter:
 
     def finalize(self, metrics: Mapping[str, Any]) -> None:
         save_metrics_to_json(metrics, self.json_path)
-
-
-@contextmanager
-def timed(name: str, sink: Optional[Dict[str, float]] = None) -> Iterator[None]:
-    """Lightweight wall-clock timer; profiling hook the reference lacks (SURVEY §5)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        if sink is not None:
-            sink[name] = sink.get(name, 0.0) + dt

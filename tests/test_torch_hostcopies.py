@@ -333,25 +333,23 @@ def test_data_utils_copy(tmp_path):
 
 
 def test_profiling_counterparts(tmp_path):
-    import time
-
     import torch
 
-    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils.profiling import StepTimer, annotate, trace
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils import profiling as P
 
-    t = StepTimer(window=3)
-    assert t.stats() == {}
-    for _ in range(5):
-        t.tick()
-        time.sleep(0.002)
-    stats = t.stats(batch_size=32)
-    assert set(stats) == {"step_time_s", "steps_per_sec", "examples_per_sec"} and len(t._times) == 3
-    assert stats["examples_per_sec"] == 32 * stats["steps_per_sec"]
-    with trace(str(tmp_path / "prof")):
-        with annotate("kemr-region"):
+    assert not P.enabled()
+    with P.trace(str(tmp_path / "prof")):
+        assert P.enabled()
+        with P.annotate("kemr-region"), P.span("outer"):
+            P.count("things", 3)
             torch.ones(8).sum()
+    assert not P.enabled()  # the recorder is back off after the trace
     body = (tmp_path / "prof" / "trace.json").read_text()
-    assert "kemr-region" in body
+    assert "kemr-region" in body and "kemr:outer" in body  # the span's range is in the Chrome trace
+    snap = P.snapshot()
+    assert snap["spans"]["outer"]["calls"] == 1 and snap["counters"] == {"things": 3}
+    P.reset()
+    assert P.snapshot() == {"spans": {}, "counters": {}}
 
 
 # ---------------------------------------------------------------------------
