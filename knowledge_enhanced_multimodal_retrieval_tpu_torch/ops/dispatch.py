@@ -175,6 +175,15 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``, its copy queued without waiting for a card: a host
+    tensor bound for one is staged in pinned memory first (the caching host
+    allocator keeps the block until the copy has run)."""
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device, shape=None) -> None:
     """Kernel-operand checks: device, dtype, contiguity and (optional) shape."""
     if t.device != device:

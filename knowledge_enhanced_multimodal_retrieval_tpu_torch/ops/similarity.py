@@ -50,8 +50,13 @@ _Q4_CODE = 3  # nibble-packed int4 corpus rows (int8 [N, D/2])
 
 
 def alpha_column(alpha, n_queries: int, device) -> torch.Tensor:
-    """A scalar or per-query blend weight as an f32 ``[Q, 1]`` column."""
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    """A scalar or per-query blend weight as an f32 ``[Q, 1]`` column on
+    ``device``, made without waiting for a card: a scalar is filled there,
+    host values reach it through pinned memory, and a tensor already there
+    passes as it is."""
+    if not torch.is_tensor(alpha) and np.ndim(alpha) == 0:
+        return torch.full((n_queries, 1), float(alpha), dtype=torch.float32, device=device)
+    a = dispatch.to_device(torch.as_tensor(alpha, dtype=torch.float32), device)
     if a.ndim == 0:
         return a.expand(n_queries, 1).contiguous()
     a = a.reshape(-1, 1)

@@ -65,6 +65,7 @@ from ..ops.pq import (
     train_pq_codebooks,
     train_pq_codebooks_anisotropic,
 )
+from ..ops.dispatch import to_device
 from ..ops.similarity import (
     alpha_column,
     fused_similarity_topk,
@@ -87,7 +88,7 @@ from ..ops.similarity import (
 )
 from ..parallel.mesh import MeshRuntime, canonical_device
 from ..parallel.sharding import gather_shard_outputs, replicate, shard_rows
-from ..utils.profiling import span, spanned
+from ..utils.profiling import count, span, spanned
 from .ann import _SUBLANE as _CAP_SUBLANE
 from .ann import (
     IVFIndex,
@@ -119,6 +120,45 @@ class _CorpusState:
     ann_spill_fraction: float = 0.0  # IVF rows packed outside their best cluster; 0.0 without an index
     ivf_shards: object = None  # shard_corpus in ann mode: the index cut by cluster over the mesh
     replicas: Optional[dict] = None  # shard_queries: this state on each other query device
+
+
+class _Fetch:
+    """What a finish reads of one search batch, on its way to the host.
+
+    Each CUDA tensor of ``items`` is copied into a pinned host tensor with
+    ``non_blocking`` as the batch is dispatched, and an event is recorded
+    after the copies on each device's current stream: queuing them never
+    waits for the card, and :meth:`wait` waits for this batch alone, not for
+    the batches queued after it. CPU tensors and other values pass as they
+    are. The device tensors stay referenced until the events have passed."""
+
+    __slots__ = ("items", "host", "events")
+
+    def __init__(self, items: Sequence):
+        self.items = tuple(items)
+        self.host, streams = [], {}
+        for x in self.items:
+            if torch.is_tensor(x) and x.is_cuda:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                streams.setdefault(x.device, torch.cuda.current_stream(x.device))
+                x = h
+            self.host.append(x)
+        self.events = []
+        for stream in streams.values():
+            event = torch.cuda.Event()
+            event.record(stream)
+            self.events.append(event)
+
+    def wait(self) -> tuple:
+        """The items on the host, tensors as NumPy arrays. Counts
+        ``retrieval.fetch_ready`` if the batch had finished on the card
+        before the call, else ``retrieval.fetch_waited``."""
+        ready = all(e.query() for e in self.events)
+        count("retrieval.fetch_ready" if ready else "retrieval.fetch_waited")
+        for e in self.events:
+            e.synchronize()
+        return tuple(x.detach().numpy() if torch.is_tensor(x) else x for x in self.host)
 
 
 class CLIPRetrieval:
@@ -568,10 +608,12 @@ class CLIPRetrieval:
     @torch.no_grad()
     def _encode_ids(self, ids, device=None) -> torch.Tensor:
         """Token ids -> L2-normalized embeddings on ``device`` (default the
-        retriever's; under ``shard_queries`` another query device's replica)."""
+        retriever's; under ``shard_queries`` another query device's replica).
+        Host ids reach a card through pinned memory, so the copy is queued
+        without waiting for the card."""
         device = self.device if device is None else device
         model, plan = self._replicas.get(device, (self.model, self._text_plan))
-        ids = torch.as_tensor(ids, dtype=torch.long).to(device)
+        ids = to_device(torch.as_tensor(ids, dtype=torch.long), device)
         if self.use_fused_encoder:
             q = encode_text_fast(model.arch, plan, ids)
         else:
@@ -820,25 +862,33 @@ class CLIPRetrieval:
 
     # -- host-side exact rerank ---------------------------------------------------
 
-    def _rerank_host(self, c: _CorpusState, q: torch.Tensor, idx: torch.Tensor, alpha) -> Tuple[np.ndarray, np.ndarray]:
-        """Exactly rescore the fetched candidates against the f32 host store
-        (``idx`` -1 = ann sentinel). Pad rows score 0 and are filtered by
-        uuid downstream, as on the device path."""
+    def _rerank_host(self, c: _CorpusState, fetch: _Fetch) -> Tuple[np.ndarray, np.ndarray]:
+        """Exactly rescore the fetched candidates ``(rows, f32 queries,
+        alpha)`` against the f32 host store (row -1 = ann sentinel). Pad rows
+        score 0 and are filtered by uuid downstream, as on the device path."""
         with span("retrieval.fetch"):
-            if torch.is_tensor(alpha):
-                alpha = alpha.detach().cpu().numpy()
-            q, idx = q.float().cpu().numpy(), idx.cpu().numpy()
+            idx, q, alpha = fetch.wait()
         return rerank_scores_host(q, c.store.image, c.store.text, idx, np.asarray(alpha, np.float32))
 
-    def _finish_results(self, c: _CorpusState, out, alpha, k: int) -> List[List[Dict]]:
-        """Search output -> per-query result dicts (rerank-aware)."""
+    def _fetch(self, out, alpha) -> _Fetch:
+        """What :meth:`_finish_results` reads of a search output, its copies
+        to the host queued now: the winners, or under the rerank the rows,
+        the f32 queries and alpha."""
         if self.rerank:
             _, idx, q = out
-            vals, idx = self._rerank_host(c, q, idx, alpha)
+            return _Fetch((idx, q.float(), alpha))
+        vals, idx = out
+        return _Fetch((vals.float(), idx))
+
+    def _finish_results(self, c: _CorpusState, out, alpha, k: int) -> List[List[Dict]]:
+        """Search output, or its :meth:`_fetch` queued at dispatch -> per-query
+        result dicts (rerank-aware). Waits for that batch alone."""
+        fetch = out if isinstance(out, _Fetch) else self._fetch(out, alpha)
+        if self.rerank:
+            vals, idx = self._rerank_host(c, fetch)
         else:
-            vals, idx = out
             with span("retrieval.fetch"):
-                vals, idx = vals.float().cpu().numpy(), idx.cpu().numpy()
+                vals, idx = fetch.wait()
         return self.results_from_topk(vals, idx, _state=c, top_k=k)
 
     # -- filtered search -------------------------------------------------------------
@@ -980,7 +1030,7 @@ class CLIPRetrieval:
             rows = [row_of[u] for u in dict.fromkeys(cand) if u in row_of]
             idx[qi, : len(rows)] = rows
         q = self.encode_queries(queries)
-        vals, idx = self._rerank_host(c, q, torch.from_numpy(idx), alpha)
+        vals, idx = self._rerank_host(c, _Fetch((idx, q.float(), alpha)))
         return self.results_from_topk(vals, idx, _state=c, top_k=k)
 
     def search_batches_pipelined(
@@ -988,16 +1038,20 @@ class CLIPRetrieval:
     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Stream batches with up to ``depth`` searches queued on the device:
         batch i's winners are fetched while later batches are tokenized and
-        launched. Yields ``(values, rows)`` numpy pairs in order."""
+        launched. Yields ``(values, rows)`` numpy pairs in order.
+
+        A dispatch never waits for the card: the query ids and alpha reach
+        it through pinned memory, and the winners' copies to the host are
+        queued behind an event as the batch is launched. A finish waits on
+        that event, for its own batch only."""
         pending: deque = deque()
         for queries in query_batches:
-            pending.append(self.search_batch(queries, alpha=alpha, top_k=top_k))
+            vals, idx = self.search_batch(queries, alpha=alpha, top_k=top_k)[:2]
+            pending.append(_Fetch((vals.float(), idx)))
             if len(pending) >= max(1, depth):
-                vals, idx = pending.popleft()[:2]
-                yield vals.float().cpu().numpy(), idx.cpu().numpy()
+                yield pending.popleft().wait()
         while pending:
-            vals, idx = pending.popleft()[:2]
-            yield vals.float().cpu().numpy(), idx.cpu().numpy()
+            yield pending.popleft().wait()
 
     def retrieval_batches(
         self, query_batches: Iterable[Sequence[str]], alpha=0.5, top_k: Optional[int] = None, depth: int = 4
@@ -1006,13 +1060,17 @@ class CLIPRetrieval:
         :meth:`search_batches_pipelined`, one result list per query, in
         order. Each batch maps through the corpus snapshot its search ran
         on, so results stay uuid-correct under concurrent updates. The spans
-        of a batch carry its ordinal in the stream."""
+        of a batch carry its ordinal in the stream.
+
+        The same contract: a dispatch never waits for the card, and a finish
+        waits for its own batch only (the event recorded after its copies
+        to the host, queued at dispatch: :meth:`_fetch`)."""
         pending: deque = deque()
 
         def dispatch(i, queries):
             with span("retrieval.dispatch", id=i):
                 c = self._corpus
-                return i, c, self._search_state(c, queries, alpha, top_k)
+                return i, c, self._fetch(self._search_state(c, queries, alpha, top_k), alpha)
 
         def finish(item):
             i, c, out = item

@@ -932,6 +932,66 @@ def test_retrieval_fused_batch_launches_b2(rng, dev, quantize_corpus):
         np.testing.assert_allclose([x["score"] for x in res], want, rtol=2e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("rerank", [False, True], ids=["winners", "rerank"])
+@pytest.mark.parametrize("alpha", [0.5, np.linspace(0.1, 0.9, 16).astype(np.float32)], ids=["scalar", "per_query"])
+def test_pipelined_dispatch_never_waits_for_the_card(rng, dev, monkeypatch, alpha, rerank):
+    """``retrieval_batches`` at depth 4 in steady state (the int8 encoder and
+    corpus the search benchmark serves): no dispatch makes a synchronizing
+    copy or a stream synchronize (the sync debug mode raises on either,
+    shown first on the copies the dispatch used to make), each batch equals
+    ``retrieval_batch``'s, and each finished batch counts one fetch."""
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.data.tokenizer import CLIPTokenizer
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.clip_retrieval import CLIPRetrieval
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.retrieval.embedding_store import EmbeddingStore
+    from knowledge_enhanced_multimodal_retrieval_tpu_torch.utils import profiling
+
+    arch = CLIPArch(64, 32, 1, 128, 16, 77, 49408, W, H, 2)
+    norm = lambda x: (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)  # noqa: E731
+    n = 5000
+    store = EmbeddingStore(image=norm(rng.standard_normal((n, 64))), text=norm(rng.standard_normal((n, 64))),
+                           uuids=[f"uuid-{k:06d}" for k in range(n)])
+    tok = CLIPTokenizer([("c", "a"), ("ca", "t</w>"), ("h", "e"), ("he", "l")])
+    r = CLIPRetrieval(build_model("", arch=arch, seed=1), tok, store, device=dev, top_k=10, use_fused_encoder=True,
+                      quantize="int8", quantize_corpus="int8", capacity_multiple=64, rerank=rerank)
+    words = ["cat", "hello", "he", "ca", "hel", "cat he", "hello cat"]
+    batches = [[" ".join(rng.choice(words, size=int(rng.integers(1, 8)))) for _ in range(16)] for _ in range(12)]
+    want = [r.retrieval_batch(b, alpha=alpha) for b in batches]
+    list(r.retrieval_batches(batches, alpha=alpha, depth=4))  # warm: the pinned blocks, the kernels' caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.as_tensor(np.ones((16, 8), np.int64)).to(dev)  # the pageable copy of the ids
+        with pytest.raises(RuntimeError):
+            torch.ones((16, 10), device=dev).cpu()  # the stream-wide fetch
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    finish = r._finish_results
+
+    def finish_in_default_mode(*args):
+        torch.cuda.set_sync_debug_mode("default")
+        return finish(*args)
+
+    def feed():  # a batch is dispatched right after it is handed over
+        for b in batches:
+            torch.cuda.set_sync_debug_mode("error")
+            yield b
+
+    monkeypatch.setattr(r, "_finish_results", finish_in_default_mode)
+    profiling.enable()
+    profiling.reset()
+    try:
+        got = list(r.retrieval_batches(feed(), alpha=alpha, depth=4))
+        counters = profiling.snapshot()["counters"]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        profiling.enable(False)
+        profiling.reset()
+    assert got == want
+    assert counters.get("retrieval.fetch_ready", 0) + counters.get("retrieval.fetch_waited", 0) == len(batches)
+
+
 @pytest.mark.parametrize("encoder", ["flax", "fast", "int8"])
 def test_checkpoint_layouts_load_alike_on_card(rng, dev, tmp_path, encoder):
     """An OpenAI ``.pt``, an HF-layout ``.pt`` and a flax ``.npz`` written by

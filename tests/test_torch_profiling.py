@@ -285,6 +285,21 @@ def test_search_spans_once_a_batch_with_its_ordinal():
     assert "tokenizer.bpe_misses" not in c  # the first stream filled the cache: no miss counted
 
 
+@pytest.mark.parametrize("depth", [1, 3])
+def test_fetch_counts_once_a_finished_batch(depth):
+    r = tiny_retriever()
+    off = list(r.retrieval_batches(BATCHES, top_k=5, depth=depth))
+    assert P.snapshot()["counters"] == {}  # off: nothing counted
+    P.enable()
+    assert list(r.retrieval_batches(BATCHES, top_k=5, depth=depth)) == off
+    c = P.snapshot()["counters"]
+    # the CPU search is done when its batch is dispatched: every fetch finds it ready
+    assert (c.get("retrieval.fetch_ready"), c.get("retrieval.fetch_waited")) == (len(BATCHES), None)
+    list(r.search_batches_pipelined(BATCHES[:2], top_k=5, depth=depth))
+    r.retrieval_batch(BATCHES[0], top_k=5)
+    assert P.snapshot()["counters"]["retrieval.fetch_ready"] == len(BATCHES) + 3
+
+
 def test_set_up_installs_the_corpus_in_a_span():
     P.enable()
     r = tiny_retriever()

@@ -121,6 +121,45 @@ def test_alpha_length_checked():
         T.alpha_column([0.1, 0.2], 3, "cpu")
 
 
+def _alpha_column_as_before(alpha, n_queries, device):
+    """The column as it was built before it stopped waiting for a card: one
+    ``torch.as_tensor`` onto the device."""
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    return a.expand(n_queries, 1).contiguous() if a.ndim == 0 else a.reshape(-1, 1).contiguous()
+
+
+ALPHA_INPUTS = {
+    "float": 0.1,
+    "int": 1,
+    "np_float32": np.float32(0.7),
+    "np_float64": np.float64(0.3),
+    "np_0d": np.array(0.25),
+    "list": [0.1, 0.2, 0.9],
+    "np_f32": np.array([0.3, 0.5, 0.7], np.float32),
+    "np_f64": np.array([0.3, 0.1, 1 / 3]),
+    "np_column": np.array([[0.2], [0.4], [0.6]], np.float32),
+    "tensor": torch.tensor([0.2, 0.4, 0.6]),
+    "tensor_f64": torch.tensor([0.2, 0.4, 1 / 3], dtype=torch.float64),
+    "tensor_0d": torch.tensor(0.35),
+}
+
+
+@pytest.mark.parametrize("alpha", list(ALPHA_INPUTS.values()), ids=list(ALPHA_INPUTS))
+def test_alpha_column_is_the_column_it_was(alpha):
+    got = T.alpha_column(alpha, 3, "cpu")
+    want = _alpha_column_as_before(alpha, 3, "cpu")
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (3, 1)
+    assert got.device == want.device and got.is_contiguous()
+    assert torch.equal(got, want)  # bit for bit
+
+
+def test_alpha_column_passes_a_tensor_on_the_device_as_it_is():
+    a = torch.tensor([0.2, 0.4, 0.6])
+    assert T.alpha_column(a, 3, "cpu").data_ptr() == a.data_ptr()
+    assert T.alpha_column(a, 3, torch.device("cpu")).data_ptr() == a.data_ptr()
+
+
 @pytest.mark.parametrize(
     "n_rows,query_blocks,blocks_wanted,want",
     [
